@@ -4,16 +4,19 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written Hopper kernels from ``src/repro_torch/
-csrc`` and drives the service-enhanced RDMA datapath (paper Fig. 1):
+csrc`` and drives three paths of the system: the service-enhanced RDMA
+datapath (paper Fig. 1), the §8 streaming ingest into a full-size DLRM,
+and the allreduce fabric.
 
   0. device   the card's name and power limit (nvidia-smi)
   1. build    nvcc, one process per kernel source, all at once
-  2. kernels  AES-128-ECB, CRC32 and the DPI MLP at main-path sizes
-              against their plain PyTorch versions on the card.  A
-              kernel's ``ms`` is its device time from a torch.profiler
-              trace (median launch; CUDA events around back-to-back
-              calls if the trace holds no device time), ``call_ms`` the
-              wrapper's whole call by CUDA events
+  2. kernels  AES-128-ECB, CRC32, the DPI MLP, the DLRM preprocessing
+              and the segmented reduce at main-path sizes against their
+              plain PyTorch versions on the card.  A kernel's ``ms`` is
+              its device time from a torch.profiler trace (median
+              launch; CUDA events around back-to-back calls if the
+              trace holds no device time), ``call_ms`` the wrapper's
+              whole call by CUDA events
   3. main     256 QPs x 128 KiB (one 8192-packet, 32 MiB receive batch)
               RDMA-written across a lossy link by two RdmaNodes; the
               sender encrypts, the receiver decrypts on-path and runs DPI
@@ -24,17 +27,31 @@ csrc`` and drives the service-enhanced RDMA datapath (paper Fig. 1):
               of that traffic, kernels against plain versions, bit-exact
   5. incast   the 8:1 ack-clocked incast on the card reproduces the row
               of BENCH_fig6_multipath.json exactly
+  6. ingest   (a) the BENCH_fig10_dlrm.json smoke rows (sync, streamed
+              over 1 and 4 replicas) reproduced exactly on the card;
+              (b) full size: 1 MiB shards (6656 records) striped over
+              4 replicas x 2 QPs, each 2-packet tile preprocessed by the
+              kernel as it lands, every landed batch scored by the
+              full-config DLRM (26 tables of 100,000 x 64), with the
+              kernels and with the plain versions; (c) one shard with
+              the preprocessing on-path in the RX pipeline instead
+  7. allreduce (a) the BENCH_fig11_allreduce.json 4-node smoke rows
+              reproduced exactly; (b) full size: 4 ranks allreduce the
+              DLRM's 499,521 dense-MLP parameters as float32, ring and
+              in-fabric offload, with the kernels and with the plain
+              versions, bit-identical to the oracle
 
-Two paths are driven through the kernels, each with the launch
-counters set to 0 just before it and read just after it: the main path
-(phase 3, kernel arm), which launches AES and DPI, and the ICRC chain
-(phase 4, kernel arm), which launches all three.  The line before the
-last is a JSON object with every kernel's path, launches on that path
-(and on each path apart), error, time, plain time, bound and library
-time; the last line is the run's verdict.
-Any failure raises, so the script exits non-zero and prints no verdict;
-it also exits non-zero, printing nothing, without a CUDA device or
-without the port's sources beside it.
+Six paths are driven through the kernels, each with the launch counters
+set to 0 just before it and read just after it: the main path (phase 3,
+kernel arm: AES, DPI), the ICRC chain (phase 4: all three services),
+ingest (6b, kernel arm, its warm-up tile included: preproc),
+ingest_onpath (6c: preproc), allreduce_ring and allreduce_offload (7b,
+kernel arms: reduce_fold).  The line before the last is a JSON object
+with every kernel's path, launches on that path (and on each path
+apart), error, time, plain time, bound and library time; the last line
+is the run's verdict.  Any failure raises, so the script exits non-zero
+and prints no verdict; it also exits non-zero, printing nothing, without
+a CUDA device or without the port's sources beside it.
 """
 import json
 import statistics
@@ -55,6 +72,20 @@ MSG_BYTES = 128 * 1024          # per QP: 32 packets of the 4 KiB MTU
 MTU = 4096
 N_PKTS = N_QPS * MSG_BYTES // MTU                     # 8192 packets, 32 MiB
 DPI_RTOL = DPI_ATOL = 1e-5
+# DLRM records (paper §8): 13 dense + 26 sparse int32 words, 26 whole
+# records per 4 KiB packet; the full config's Modulus range
+N_DENSE, N_SPARSE, MOD = 13, 26, 100_000
+REC_W = N_DENSE + N_SPARSE
+RPP = (MTU // 4) // REC_W                             # 26 records / packet
+SHARD_PKTS = (1 << 20) // MTU                         # IngestConfig default
+# full-size shards in 6b: from the third shard on, this striping (two
+# QPs per replica on one shaped link) hits the reference's duplicate-
+# READ fault, kept bit for bit by the port (ROADMAP.md section 3,
+# tests/test_torch_ingest.py::test_duplicate_read_fault_is_the_references),
+# and lands the previous shard's bytes on the second QP of each replica
+N_SHARDS = 2
+LOGIT_RTOL = LOGIT_ATOL = 1e-5
+ALLREDUCE_ELEMS = 154_944 + 344_577     # full DLRM's dense-MLP parameters
 
 # H100 SXM data-sheet peaks
 HBM_BYTES_PER_S = 3.35e12
@@ -242,7 +273,107 @@ def phase_kernels(dev, params) -> dict:
           f"(rtol=atol={DPI_RTOL}), kernel_ms={ms:.4f} ({ms_from}) "
           f"call_ms={call_ms:.4f} plain_ms={plain_ms:.3f} library_ms={library_ms:.4f} "
           f"bound_ms={bound:.4f} ({by})")
+    out["preproc"] = _kernel_preproc(dev, gen)
+    out["reduce_fold"] = _kernel_reduce(dev, gen)
     return out
+
+
+def _dense_ulps(got, want) -> int:
+    """Worst ulp distance between two (M, rec_w) preprocessed record
+    matrices' dense words (non-negative float32, so the distance is the
+    difference of their bit patterns)."""
+    return int((got[:, :N_DENSE].long() - want[:, :N_DENSE].long())
+               .abs().max()) if got.numel() else 0
+
+
+def _kernel_preproc(dev, gen) -> dict:
+    """DLRM preprocessing at the on-path batch of the main path (8192
+    packets = 212,992 records) and at the tile shape (one 2-packet
+    fragment tile, 52 records read in place from the packet matrix).
+    Dense <= 1 ulp against plain, sparse bit-exact."""
+    import torch
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import ops
+    n_rec = N_PKTS * RPP
+    raw = torch.from_numpy(syn.dlrm_shard(0, n_rec, N_DENSE,
+                                          N_SPARSE)).to(dev)
+    # full int32 range for the floor-mod: negatives, INT32_MIN/MAX
+    full = torch.randint(-2**31, 2**31, (n_rec, REC_W), generator=gen,
+                         device=dev, dtype=torch.int64).to(torch.int32)
+    full[0, N_DENSE:N_DENSE + 2] = torch.tensor([-2**31, 2**31 - 1],
+                                                dtype=torch.int32)
+    tile = torch.from_numpy(np.frombuffer(syn.encode_dlrm_packets(
+        syn.dlrm_shard(1, 2 * RPP, N_DENSE, N_SPARSE)).tobytes(),
+        np.int32).reshape(2, MTU // 4).copy()).to(dev)[:, :RPP * REC_W]
+    worst = 0
+    for name, recs, kw in (("batch", raw, {}), ("full-range", full, {}),
+                           ("tile", tile, {"rec_w": REC_W})):
+        got = ops.preproc(recs, N_DENSE, MOD, **kw)
+        want = ops.preproc(recs, N_DENSE, MOD, impl="ref", **kw)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape, name
+        assert torch.equal(got[:, N_DENSE:], want[:, N_DENSE:]), \
+            f"preproc {name}: sparse differs from plain"
+        ulps = _dense_ulps(got, want)
+        assert ulps <= 1, f"preproc {name}: dense {ulps} ulp from plain"
+        worst = max(worst, ulps)
+    fn = lambda: ops.preproc(raw, N_DENSE, MOD)  # noqa: E731
+    ms, ms_from = _kernel_ms(fn, "preproc_kernel", 20)
+    call_ms = _median_ms(fn, 5, burst=10)
+    plain_ms = _median_ms(lambda: ops.preproc(raw, N_DENSE, MOD,
+                                              impl="ref"), 5)
+    tile_ms, _ = _kernel_ms(lambda: ops.preproc(tile, N_DENSE, MOD,
+                                                rec_w=REC_W),
+                            "preproc_kernel", 20)
+    bound, by = _bound_ms(2 * raw.numel() * 4, 0)
+    print(f"[kernels] preproc {n_rec}x{REC_W} i32 ({raw.numel() * 4} B) and "
+          f"a {tile.shape[0] * RPP}-record tile: sparse bit-exact, dense worst "
+          f"{worst} ulp vs plain, kernel_ms={ms:.4f} ({ms_from}) "
+          f"call_ms={call_ms:.4f} plain_ms={plain_ms:.3f} "
+          f"tile kernel_ms={tile_ms:.4f} bound_ms={bound:.4f} ({by})")
+    return dict(max_abs_err=worst, err_unit="ulp (dense); sparse exact",
+                ms=ms, ms_from=ms_from, call_ms=call_ms, plain_ms=plain_ms,
+                tile_ms=tile_ms, bound_ms=bound, bound_by=by,
+                library_ms=None)
+
+
+def _kernel_reduce(dev, gen) -> dict:
+    """The segmented reduce at (4, 8,388,608): 4 rows of 32 MiB, float32
+    (with NaN, +-inf and -0.0 planted) and int32 (full range, so sums
+    wrap).  Bit-exact against plain."""
+    import torch
+    from repro_torch.kernels import ops
+    k, lanes = 4, 8 * 1024 * 1024
+    xf = torch.randn((k, lanes), generator=gen, device=dev)
+    xf[0, :4] = torch.tensor([float("nan"), float("inf"), -0.0, 1.0])
+    xf[1, :4] = torch.tensor([1.0, float("-inf"), -0.0, float("inf")])
+    xi = torch.randint(-2**31, 2**31, (k, lanes), generator=gen, device=dev,
+                       dtype=torch.int64).to(torch.int32)
+    for name, x in (("float32", xf), ("int32", xi)):
+        got = ops.reduce_fold(x)
+        want = ops.reduce_fold(x, impl="ref")
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            f"reduce_fold {name}: bits differ from plain"
+    ms, ms_from = _kernel_ms(lambda: ops.reduce_fold(xf),
+                             "reduce_fold_kernel", 20)
+    ms_i32, _ = _kernel_ms(lambda: ops.reduce_fold(xi),
+                           "reduce_fold_kernel", 20)
+    call_ms = _median_ms(lambda: ops.reduce_fold(xf), 5, burst=10)
+    plain_ms = _median_ms(lambda: ops.reduce_fold(xf, impl="ref"), 5)
+    # the library yardstick: one torch.sum over the int32 rows (the same
+    # function for int32; for float32 its summation order differs)
+    library_ms = _median_ms(
+        lambda: torch.sum(xi, dim=0, dtype=torch.int32), 5, burst=10)
+    bound, by = _bound_ms((k + 1) * lanes * 4, 0)
+    print(f"[kernels] reduce_fold ({k}, {lanes}) f32 and i32: bit-exact vs "
+          f"plain (NaN/inf/-0.0, int32 wrap), kernel_ms f32={ms:.4f} "
+          f"({ms_from}) i32={ms_i32:.4f} call_ms={call_ms:.4f} "
+          f"plain_ms={plain_ms:.3f} library_ms(torch.sum i32)="
+          f"{library_ms:.4f} bound_ms={bound:.4f} ({by})")
+    return dict(max_abs_err=0, ms=ms, ms_from=ms_from, ms_int32=ms_i32,
+                call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=library_ms)
 
 
 def _traffic():
@@ -341,6 +472,316 @@ def phase_incast(dev) -> dict:
     return got
 
 
+def _dlrm_shard_fn(n_pkts: int):
+    from repro_torch.data import synthetic as syn
+    return lambda i: syn.encode_dlrm_packets(
+        syn.dlrm_shard(i, RPP * n_pkts, N_DENSE, N_SPARSE))
+
+
+def _decode_host(raw):
+    """The host-side decode of the synchronous baseline (fig10_dlrm.py's
+    ``_decode_host``) — the copy the streaming plane exists to
+    eliminate."""
+    words = np.frombuffer(raw.tobytes(), np.int32).reshape(-1, MTU // 4)
+    recs = words[:, :RPP * REC_W].reshape(-1, REC_W)
+    dense = np.log1p(np.maximum(recs[:, :N_DENSE], 0).astype(np.float32))
+    sparse = (recs[:, N_DENSE:] % MOD).astype(np.int32)
+    return {"dense": dense, "sparse": sparse}
+
+
+def phase_fig10(dev) -> dict:
+    """Phase 6a: BENCH_fig10_dlrm.json's smoke rows on the card, with
+    benchmarks/fig10_dlrm.py's settings (32 packets, links shaped to 1
+    packet per tick, 2-packet tiles)."""
+    import torch
+    from repro_torch.core.ingest import (BalboaIngest, IngestConfig,
+                                         make_dlrm_tile_decoder)
+    from repro_torch.core.rdma import step_network
+    rows = json.loads((ROOT / "BENCH_fig10_dlrm.json").read_text())["ingest"]
+    n_pkts = rows["n_pkts"]
+    nbytes = n_pkts * MTU
+    # the synchronous single-QP store-and-forward baseline, ticks counted
+    # until the last byte lands
+    ing = BalboaIngest(
+        IngestConfig(batch_bytes=nbytes, n_storage_nodes=1,
+                     link_bw_pkts_per_tick=1),
+        None, _dlrm_shard_fn(n_pkts), decode_fn=_decode_host, device=dev)
+    qp, st = ing.qps[0], ing.storage[0]
+    st.load_shard(st.node._qp_buffer[qp.qpn_r][1], 0)
+    t0 = ing.net.now
+    ing.trainer.rdma_read(qp.qpn_l, nbytes)
+    while ing.trainer.rx_progress(qp.qpn_l) < nbytes:
+        step_network([ing.trainer, st.node])
+        assert ing.net.now - t0 < 100_000, "sync baseline stuck"
+    ticks = ing.net.now - t0
+    raw = ing.trainer._qp_buffer[qp.qpn_l][1][:nbytes]
+    ing.host_payload_bytes += nbytes
+    ing._to_device(_decode_host(raw.copy()))
+    got = {"sync": {"ticks": ticks, "nbytes": nbytes,
+                    "goodput": nbytes / max(ticks, 1),
+                    "host_bytes": ing.host_payload_bytes}, "streamed": {}}
+    for r in (1, 4):
+        ing = BalboaIngest(
+            IngestConfig(batch_bytes=nbytes, n_storage_nodes=r,
+                         link_bw_pkts_per_tick=1, tile_pkts=2),
+            None, _dlrm_shard_fn(n_pkts),
+            tile_to_batch=make_dlrm_tile_decoder(N_DENSE, N_SPARSE, MOD),
+            device=dev)
+        batch, rep = ing.fetch_shard_streaming(0)
+        torch.cuda.synchronize()
+        got["streamed"][str(r)] = {
+            "ticks": rep.ticks, "nbytes": rep.nbytes,
+            "goodput": rep.goodput_bytes_per_tick,
+            "overlap": rep.overlap_efficiency, "tiles": rep.tiles,
+            "stripes": len(rep.stripes), "host_bytes": ing.host_payload_bytes}
+    want = {"sync": {k: rows["sync"][k] for k in got["sync"]},
+            "streamed": {r: {k: rows["streamed"][r][k] for k in v}
+                         for r, v in got["streamed"].items()}}
+    assert got == want, (got, want)
+    print(f"[ingest] fig10 smoke rows on {dev}: sync ticks="
+          f"{got['sync']['ticks']} host_bytes={got['sync']['host_bytes']}; "
+          + "; ".join(f"streamed r{r} ticks={v['ticks']} "
+                      f"overlap={v['overlap']} tiles={v['tiles']}"
+                      for r, v in got["streamed"].items())
+          + " == BENCH_fig10_dlrm.json")
+    return got
+
+
+def _ingest_cfg():
+    from repro_torch.core.ingest import IngestConfig
+    return IngestConfig(batch_bytes=SHARD_PKTS * MTU, n_storage_nodes=4,
+                        qps_per_node=2, tile_pkts=2, link_bw_pkts_per_tick=1)
+
+
+def run_ingest(dev, model, impl, n_shards) -> dict:
+    """Phase 6b, one arm: stream ``n_shards`` full-size shards, each tile
+    preprocessed on the card as it lands, and score every landed batch
+    with the DLRM (loss and accuracy against the synthetic labels)."""
+    import torch
+    from repro_torch.core.ingest import BalboaIngest, make_dlrm_tile_decoder
+    from repro_torch.data import synthetic as syn
+
+    def poisoned(raw):
+        raise AssertionError("host decode touched payload bytes")
+
+    ing = BalboaIngest(
+        _ingest_cfg(), None, _dlrm_shard_fn(SHARD_PKTS), decode_fn=poisoned,
+        tile_to_batch=make_dlrm_tile_decoder(N_DENSE, N_SPARSE, MOD,
+                                             impl=impl), device=dev)
+    shards = []
+    t0 = time.perf_counter()
+    stream_s = score_s = 0.0
+    it = ing.stream_batches(n_shards)
+    for i in range(n_shards):
+        ts = time.perf_counter()
+        batch, rep = next(it)
+        torch.cuda.synchronize()
+        tm = time.perf_counter()
+        stream_s += tm - ts
+        raw = syn.dlrm_shard(i, RPP * SHARD_PKTS, N_DENSE, N_SPARSE)
+        label = torch.from_numpy(syn.dlrm_labels(raw, N_DENSE, MOD)).to(dev)
+        with torch.no_grad():
+            loss, m = model.loss({**batch, "label": label})
+            logits = model(batch["dense"], batch["sparse"])
+        loss, acc = float(loss), float(m["acc"])
+        score_s += time.perf_counter() - tm
+        np.testing.assert_allclose(
+            batch["dense"].cpu().numpy(),
+            np.log1p(np.maximum(raw[:, :N_DENSE], 0)), rtol=1e-5)
+        assert np.isfinite(loss) and logits.shape == (len(raw),)
+        shards.append(dict(
+            report=(rep.ticks, rep.tiles, rep.overlap_efficiency,
+                    rep.refetches, rep.events),
+            dense=batch["dense"], sparse=batch["sparse"], logits=logits,
+            loss=loss, acc=acc))
+    wall = time.perf_counter() - t0
+    assert ing.host_payload_bytes == 0
+    return dict(shards=shards, wall_s=wall, stream_s=stream_s,
+                score_s=score_s)
+
+
+def run_ingest_onpath(dev) -> dict:
+    """Phase 6c: shard 0 with the preprocessing ON-PATH, inside the
+    trainer's RX pipeline (``PreprocService``); the tile decoder only
+    splits columns."""
+    import torch
+    from repro_torch.core.ingest import BalboaIngest, make_dlrm_tile_decoder
+    from repro_torch.core.services import PreprocService, ServiceChain
+    chain = ServiceChain(on_path=[PreprocService(
+        n_dense=N_DENSE, n_sparse=N_SPARSE, modulus=MOD, device=dev)])
+    ing = BalboaIngest(
+        _ingest_cfg(), chain, _dlrm_shard_fn(SHARD_PKTS),
+        tile_to_batch=make_dlrm_tile_decoder(N_DENSE, N_SPARSE, None),
+        device=dev)
+    t0 = time.perf_counter()
+    batch, rep = ing.fetch_shard_streaming(0)
+    torch.cuda.synchronize()
+    return dict(batch=batch, ticks=rep.ticks, tiles=rep.tiles,
+                wall_s=time.perf_counter() - t0)
+
+
+def _allreduce_tensors(n_elems: int, world: int = 4, seed: int = 13):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(n_elems).astype(np.float32)
+            for _ in range(world)]
+
+
+def run_allreduce(dev, xs, *, offload, impl=None, fabric_cfg=None) -> dict:
+    """One allreduce over the verbs (make_ring_group defaults unless a
+    fabric is given), its output held bit for bit against the oracle."""
+    from repro_torch.core.collectives import allreduce_oracle, make_ring_group
+    world, n_elems = len(xs), xs[0].size
+    t0 = time.perf_counter()
+    g = make_ring_group(world, n_elems * 4 + world * 4, fabric_cfg=fabric_cfg,
+                        offload=offload, impl=impl, device=dev)
+    out = g.allreduce(xs)
+    wall = time.perf_counter() - t0
+    want = allreduce_oracle(xs)
+    for r in range(world):
+        assert (out[r].view(np.uint8) == want.view(np.uint8)).all(), \
+            f"allreduce rank {r} not bit-identical to the oracle " \
+            f"(offload={offload}, impl={impl})"
+    nbytes = n_elems * 4
+    ticks = max(g.stats.ticks, 1)
+    res = {"world": world, "message_bytes": nbytes,
+           "mode": "offload" if offload else "ring", "cc": "ack_clocked",
+           "lossy": g.net.cfg.loss_prob > 0, "ticks": ticks,
+           "algbw_B_per_tick": round(nbytes / ticks, 2),
+           "busbw_B_per_tick": round(2 * (world - 1) / world * nbytes
+                                     / ticks, 2),
+           "retransmissions": sum(n.stats.retransmissions for n in g.nodes),
+           "tail_dropped": g.net.total_tail_dropped}
+    if offload:
+        red = g.service.reducer
+        res.update(switch_absorbed=red.absorbed,
+                   switch_forwarded=red.reduced_forwarded,
+                   switch_acks=red.acks_synthesized,
+                   switch_naks=red.naks_synthesized,
+                   switch_peak_slots=red.peak_slots)
+    return dict(row=res, reducer=g.snapshot(), wall_s=wall)
+
+
+def phase_fig11(dev) -> list:
+    """Phase 7a: BENCH_fig11_allreduce.json's 4-node smoke rows on the
+    card, on benchmarks/fig11_allreduce.py's base fabric."""
+    from repro_torch.core.netsim import FabricConfig
+    base = FabricConfig(port_bandwidth=4, port_delay=2, queue_capacity=48,
+                        seed=7)
+    rows = json.loads((ROOT / "BENCH_fig11_allreduce.json").read_text())
+    got = []
+    for want in rows["allreduce"]:
+        xs = _allreduce_tensors(want["message_bytes"] // 4, want["world"])
+        row = run_allreduce(dev, xs, offload=want["mode"] == "offload",
+                            fabric_cfg=base)["row"]
+        assert row == want, (row, want)
+        got.append(row)
+    print(f"[allreduce] fig11 smoke rows on {dev}: "
+          + "; ".join(f"{r['mode']} ticks={r['ticks']}" for r in got)
+          + " == BENCH_fig11_allreduce.json, bit-identical to the oracle")
+    return got
+
+
+def phase_ingest(dev) -> dict:
+    """Phase 6: the fig10 rows, then the full-size streaming ingest into
+    the full-config DLRM with the kernels and with the plain versions,
+    then the on-path variant.  Returns the launch counts of the two
+    ingest paths."""
+    import torch
+    from repro_torch.configs.dlrm import config
+    from repro_torch.kernels import ops
+    from repro_torch.models.dlrm import DLRM
+    phase_fig10(dev)
+    cfg = config()
+    model = DLRM(cfg, seed=0, device=dev).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    ops.reset_launches()
+    kern = run_ingest(dev, model, None, N_SHARDS)
+    on_ingest = ops.launches()
+    ops.reset_launches()
+    onpath = run_ingest_onpath(dev)
+    on_onpath = ops.launches()
+    ops.reset_launches()
+    plain = run_ingest(dev, model, "ref", N_SHARDS)
+    assert not any(ops.launches().values()), "the plain arm launched a kernel"
+
+    worst_ulp, worst_logit = 0, 0.0
+    for i, (k, p) in enumerate(zip(kern["shards"], plain["shards"])):
+        assert k["report"] == p["report"], \
+            f"shard {i}: ticks/tiles/overlap/refetches/events differ"
+        assert torch.equal(k["sparse"], p["sparse"]), f"shard {i}: sparse"
+        ulps = int((k["dense"].view(torch.int32).long()
+                    - p["dense"].view(torch.int32).long()).abs().max())
+        assert ulps <= 1, f"shard {i}: dense {ulps} ulp between arms"
+        worst_ulp = max(worst_ulp, ulps)
+        torch.testing.assert_close(k["logits"], p["logits"], rtol=LOGIT_RTOL,
+                                   atol=LOGIT_ATOL)
+        worst_logit = max(worst_logit,
+                          float((k["logits"] - p["logits"]).abs().max()))
+    s0 = kern["shards"][0]
+    assert torch.equal(onpath["batch"]["dense"].view(torch.int32),
+                       s0["dense"].view(torch.int32)), "on-path dense"
+    assert torch.equal(onpath["batch"]["sparse"], s0["sparse"]), \
+        "on-path sparse"
+    rep = s0["report"]
+    losses = [s["loss"] for s in kern["shards"]]
+    accs = [s["acc"] for s in kern["shards"]]
+    print(f"[ingest] full size: {N_SHARDS} shards x {SHARD_PKTS} packets "
+          f"({RPP * SHARD_PKTS} records) over 4 replicas x 2 QPs, 2-packet "
+          f"tiles; shard 0 ticks={rep[0]} tiles={rep[1]} overlap={rep[2]} "
+          f"refetches={rep[3]}; DLRM {n_params} parameters, loss "
+          f"{min(losses):.4f}..{max(losses):.4f} acc {min(accs):.3f}.."
+          f"{max(accs):.3f}; kernels vs plain: reports equal, sparse "
+          f"bit-exact, dense worst {worst_ulp} ulp, logits worst abs "
+          f"{worst_logit:.3e} (rtol=atol={LOGIT_RTOL}); host_payload_bytes=0")
+    print(f"[ingest] wall_s kernels={kern['wall_s']:.2f} (stream "
+          f"{kern['stream_s']:.2f} score {kern['score_s']:.2f}) plain="
+          f"{plain['wall_s']:.2f} (stream {plain['stream_s']:.2f} score "
+          f"{plain['score_s']:.2f})")
+    print(f"[ingest] on-path PreprocService: shard 0 ticks="
+          f"{onpath['ticks']} tiles={onpath['tiles']} wall_s="
+          f"{onpath['wall_s']:.2f}, landed batch bit-identical to the "
+          f"tile-decoder arm")
+    print(f"[ingest] kernel launches on ingest: {on_ingest}; on "
+          f"ingest_onpath: {on_onpath}")
+    assert on_ingest["preproc"] > 0, "preproc not launched on ingest"
+    assert on_onpath["preproc"] > 0, "preproc not launched on ingest_onpath"
+    return {"ingest": on_ingest, "ingest_onpath": on_onpath}
+
+
+def phase_allreduce(dev) -> dict:
+    """Phase 7: the fig11 rows, then the full-size allreduce (ring and
+    offload) with the kernels and with the plain versions.  Returns the
+    launch counts of the two allreduce paths."""
+    from repro_torch.kernels import ops
+    phase_fig11(dev)
+    xs = _allreduce_tensors(ALLREDUCE_ELEMS)
+    counts, runs = {}, {}
+    for mode in ("ring", "offload"):
+        ops.reset_launches()
+        runs[mode] = run_allreduce(dev, xs, offload=mode == "offload")
+        counts[f"allreduce_{mode}"] = ops.launches()
+    ops.reset_launches()
+    plain = {mode: run_allreduce(dev, xs, offload=mode == "offload",
+                                 impl="ref") for mode in ("ring", "offload")}
+    assert not any(ops.launches().values()), "the plain arm launched a kernel"
+    for mode, k in runs.items():
+        p = plain[mode]
+        assert k["row"] == p["row"] and k["reducer"] == p["reducer"], \
+            f"allreduce {mode}: kernels {k['row']} vs plain {p['row']}"
+        r = k["row"]
+        print(f"[allreduce] full size {mode}: 4 ranks x {ALLREDUCE_ELEMS} "
+              f"f32 ({r['message_bytes']} B), bit-identical to the oracle, "
+              f"ticks={r['ticks']} busbw={r['busbw_B_per_tick']} B/tick "
+              f"retransmissions={r['retransmissions']}"
+              + (f" switch_absorbed={r['switch_absorbed']}"
+                 if mode == "offload" else "")
+              + f"; wall_s kernels={k['wall_s']:.2f} plain={p['wall_s']:.2f}"
+              f"; launches {counts[f'allreduce_{mode}']}")
+        assert counts[f"allreduce_{mode}"]["reduce_fold"] > 0, \
+            f"reduce_fold not launched on allreduce_{mode}"
+    return counts
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: the port's sources (src/repro_torch) are not "
@@ -401,10 +842,14 @@ def main() -> int:
     for name in ("aes_ecb", "dpi_mlp"):
         assert on_main[name] > 0, f"kernel {name} was not launched on the " \
             "main path"
-    for name, n in on_chain.items():
-        assert n > 0, f"kernel {name} was not launched on the ICRC chain"
+    for name in ("aes_ecb", "crc32", "dpi_mlp"):
+        assert on_chain[name] > 0, f"kernel {name} was not launched on " \
+            "the ICRC chain"
 
     phase_incast(dev)
+    counts = {"main": on_main, "icrc_chain": on_chain}
+    counts.update(phase_ingest(dev))
+    counts.update(phase_allreduce(dev))
 
     # name -> (source, TPU kernel it replaces, the path it is counted on)
     sources = {"aes_ecb": ("src/repro_torch/csrc/aes_ecb.cu",
@@ -412,8 +857,12 @@ def main() -> int:
                "crc32": ("src/repro_torch/csrc/crc32.cu",
                          "src/repro/kernels/crc32.py:58", "icrc_chain"),
                "dpi_mlp": ("src/repro_torch/csrc/dpi_mlp.cu",
-                           "src/repro/kernels/dpi_mlp.py:48", "main")}
-    counts = {"main": on_main, "icrc_chain": on_chain}
+                           "src/repro/kernels/dpi_mlp.py:48", "main"),
+               "preproc": ("src/repro_torch/csrc/preproc.cu",
+                           "src/repro/kernels/preproc.py:39", "ingest"),
+               "reduce_fold": ("src/repro_torch/csrc/reduce.cu",
+                               "src/repro/kernels/reduce.py:55",
+                               "allreduce_offload")}
     print(f"[done] {smi}; total wall_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -7,10 +7,14 @@ retransmit / netsim      — reliability under loss (§4.2); netsim also
 services                 — on-path & parallel-path enhancements (§5)
 rdma                     — the full endpoint (verbs of §4.6)
 sniffer                  — PCAP traffic capture (§4.7)
+ingest                   — §8 streaming ingest: storage -> RDMA -> device
+collectives              — ring / in-fabric-offloaded allreduce and friends
 
 ``packet``, ``qp``, ``chaos``, ``flow_control``, ``retransmit``,
 ``netsim`` and ``sniffer`` are pure numpy/Python in the reference and
 are kept here as copies (the port imports nothing of ``repro``); the
 wire-format and scenario tests hold them equal.  ``pipeline``,
-``services`` and ``rdma`` are rewritten on torch tensors.
+``services`` and ``rdma`` are rewritten on torch tensors; ``ingest`` and
+``collectives`` keep the reference's host-side control logic around
+device tensors and the port's kernels.
 """

@@ -823,6 +823,21 @@ def network_pending(nodes: List[RdmaNode]) -> bool:
     return False
 
 
+EPOCH_MODES = (None, "tick", "fused")
+
+
+def check_epoch_mode(epoch_mode: Optional[str]) -> None:
+    """Per-tick stepping (``None`` or ``"tick"``) is the only mode the
+    port has; the reference's fused epoch core (``"fused"``) is not
+    ported yet and raises.  No environment variable picks the mode."""
+    if epoch_mode == "fused":
+        raise NotImplementedError(
+            "epoch_mode='fused' (the fused epoch core) is not ported yet")
+    if epoch_mode not in EPOCH_MODES:
+        raise ValueError(f"unknown epoch_mode {epoch_mode!r}; "
+                         f"choose from {EPOCH_MODES}")
+
+
 def run_network(nodes: List[RdmaNode], max_ticks: int = 100_000,
                 idle_done: int = 8, *,
                 epoch_mode: Optional[str] = None) -> int:
@@ -834,13 +849,7 @@ def run_network(nodes: List[RdmaNode], max_ticks: int = 100_000,
     the port so far; the reference's fused epoch core
     (``epoch_mode="fused"``) is not ported yet and raises.  The port
     reads no environment variable to pick the mode."""
-    mode = epoch_mode or "tick"
-    if mode == "fused":
-        raise NotImplementedError(
-            "epoch_mode='fused' (the fused epoch core) is not ported yet")
-    if mode != "tick":
-        raise ValueError(f"unknown epoch_mode {mode!r}; "
-                         f"choose from ('tick', 'fused')")
+    check_epoch_mode(epoch_mode)
     idle = 0
     for t in range(max_ticks):
         step_network(nodes)

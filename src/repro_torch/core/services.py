@@ -115,8 +115,13 @@ class DpiService(ParallelPathService):
 
 @dataclasses.dataclass
 class PreprocService(OnPathService):
-    """DLRM preprocessing offload (paper §8.1).  Its kernel belongs to
-    the streaming-ingest slice of the port and is not here yet."""
+    """DLRM preprocessing offload (paper §8.1): Neg2Zero -> Log on dense
+    features, Modulus on sparse features, at line rate on the stream.
+    Payload layout: int32 little-endian, ``n_dense`` dense then
+    ``n_sparse`` sparse columns per record, as many whole records per
+    packet as fit; the words past the last whole record pass through
+    untouched.  The kernel reads the records in place, through the
+    packets' row stride."""
     n_dense: int = 13
     n_sparse: int = 26
     modulus: int = 100_000
@@ -125,7 +130,19 @@ class PreprocService(OnPathService):
     name: str = "dlrm-preproc"
 
     def __post_init__(self):
-        raise NotImplementedError("ported in the ingest slice")
+        self.device = resolve_device(self.device)
+
+    def __call__(self, payload: torch.Tensor, plen: torch.Tensor
+                 ) -> torch.Tensor:
+        n, mtu = payload.shape
+        rec_words = self.n_dense + self.n_sparse
+        n_rec = (mtu // 4) // rec_words
+        x = payload.contiguous().view(torch.int32)          # (N, MTU/4)
+        out = ops.preproc(x[:, :n_rec * rec_words], self.n_dense,
+                          self.modulus, rec_w=rec_words, impl=self.impl)
+        words = torch.cat([out.reshape(n, n_rec * rec_words),
+                           x[:, n_rec * rec_words:]], dim=1)
+        return words.view(torch.uint8)
 
 
 @dataclasses.dataclass

@@ -1,4 +1,5 @@
-"""Synthetic DPI data and the committed DPI parameter fixture."""
+"""Synthetic DPI data, synthetic DLRM records (``synthetic``) and the
+committed DPI parameter fixture."""
 from pathlib import Path
 from typing import Dict
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
@@ -29,7 +30,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 def to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
     """Copy a numpy array onto ``device``.  Always a copy: a tensor made
     by ``torch.from_numpy`` aliases the numpy buffer, and on the CPU
-    ``.to("cpu")`` would hand that alias straight back."""
+    ``.to("cpu")`` would hand that alias straight back.  A read-only
+    array (a view of another framework's buffer) is copied on the host
+    first, since torch does not take read-only memory."""
+    if isinstance(a, np.ndarray) and not a.flags.writeable:
+        a = a.copy()
     t = torch.as_tensor(a)
     if dtype is not None and t.dtype != dtype:
         return t.to(device=device, dtype=dtype)

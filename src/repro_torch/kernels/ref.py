@@ -228,3 +228,36 @@ def dpi_scores_ref(payload: torch.Tensor, params: Dict) -> torch.Tensor:
                    + params["b2"])
     y = h @ (params["w3"].to(torch.float32) * params["s3"])
     return y[:, 0].reshape(n, beats)
+
+
+# ===========================================================================
+# DLRM preprocessing (paper §8.1): Neg2Zero -> Log (dense), Modulus (sparse)
+# ===========================================================================
+
+def preproc_ref(recs: torch.Tensor, n_dense: int, modulus: int
+                ) -> torch.Tensor:
+    """recs (M, n_dense+n_sparse) int32.  Dense part: clip negatives to
+    zero then log1p, stored as the float32 bit pattern; sparse part:
+    value mod ``modulus``, floor-mod (the sign follows the divisor, as
+    ``jnp.remainder``)."""
+    if modulus == 0:
+        raise ValueError("preproc: modulus must be non-zero")
+    dense = recs[:, :n_dense]
+    sparse = recs[:, n_dense:]
+    d = torch.log1p(torch.clamp_min(dense.to(torch.float32), 0.0))
+    s = torch.remainder(sparse, modulus)
+    return torch.cat([d.view(torch.int32), s.to(torch.int32)], dim=1)
+
+
+# ===========================================================================
+# Segmented payload reduction (the collectives' fold)
+# ===========================================================================
+
+def reduce_fold_ref(x: torch.Tensor) -> torch.Tensor:
+    """(K, L) -> (L,): strict left fold over rows, ``((x0 + x1) + x2) +
+    ...`` per lane.  The order is the contract (float32 addition does
+    not associate); int32 wraps on overflow."""
+    acc = x[0].clone()
+    for i in range(1, x.shape[0]):
+        acc = acc + x[i]
+    return acc

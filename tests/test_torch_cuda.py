@@ -7,8 +7,10 @@ imports no JAX, so it runs on a machine with the card and PyTorch only:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
-AES and CRC32 must be bit-exact (CRC32 also against zlib); DPI scores
-within rtol = atol = 1e-5, the worst error printed.
+AES, CRC32 and the segmented reduce must be bit-exact (CRC32 also against
+zlib), preprocessing bit-exact on the sparse words and within 1 ulp on
+the dense ones; DPI scores within rtol = atol = 1e-5, the worst error
+printed.
 """
 import zlib
 
@@ -81,4 +83,78 @@ def test_cuda_launch_counters_count_kernel_launches_only(cuda):
     ops.crc32(pay, plen)
     ops.crc32(pay, plen, impl="ref")
     ops.aes_ecb(pay.reshape(-1, 16), ops.expand_key(np.zeros(16, np.uint8)))
-    assert ops.launches() == {"aes_ecb": 1, "crc32": 1, "dpi_mlp": 0}
+    assert ops.launches() == {"aes_ecb": 1, "crc32": 1, "dpi_mlp": 0,
+                              "preproc": 0, "reduce_fold": 0}
+
+
+def _preproc_inputs(rng, m, rec_w=39):
+    recs = rng.integers(-2**31, 2**31, (m, rec_w), dtype=np.int64)
+    recs[:, :13] = rng.integers(-100, 100_000, (m, 13))
+    recs[0, 13:16] = (-2**31, 2**31 - 1, -1)
+    return recs.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,modulus", [(1, 7), (52, 100_000), (4099, 1000),
+                                       (212_992, 100_000), (33, -9)])
+def test_cuda_preproc_matches_plain(cuda, m, modulus):
+    recs = _t(_preproc_inputs(np.random.default_rng(m), m)).to(cuda)
+    got = ops.preproc(recs, 13, modulus)
+    want = ops.preproc(recs, 13, modulus, impl="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 13:], want[:, 13:])
+    ulps = int((got[:, :13].long() - want[:, :13].long()).abs().max())
+    print(f"preproc cuda m={m}: dense worst {ulps} ulp")
+    assert ulps <= 1
+
+
+@pytest.mark.cuda
+def test_cuda_preproc_reads_a_packet_strided_tile(cuda):
+    """The tile decoder's shape: 26 records at the head of each 1024-word
+    packet, read in place through the packets' row stride."""
+    rng = np.random.default_rng(5)
+    pkts = rng.integers(-2**31, 2**31, (3, 1024), dtype=np.int64)
+    words = _t(pkts.astype(np.int32)).to(cuda)
+    got = ops.preproc(words[:, :26 * 39], 13, 1000, rec_w=39)
+    want = ops.preproc(words[:, :26 * 39].contiguous(), 13, 1000, rec_w=39,
+                       impl="ref")
+    torch.cuda.synchronize()
+    assert got.shape == (78, 39)
+    assert torch.equal(got[:, 13:], want[:, 13:])
+    assert int((got[:, :13].long() - want[:, :13].long()).abs().max()) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,lanes", [(1, 5), (2, 1001), (3, 513), (8, 77),
+                                     (5, 1 << 20)])
+def test_cuda_reduce_fold_matches_plain(cuda, k, lanes):
+    rng = np.random.default_rng(k * lanes)
+    xf = rng.standard_normal((k, lanes)).astype(np.float32)
+    xf[0, :1] = np.nan
+    if lanes >= 5:
+        xf[:, 1:5] = [np.inf, -np.inf, -0.0, 1e38]
+    xi = rng.integers(-2**31, 2**31, (k, lanes), dtype=np.int64)
+    for x in (_t(xf), _t(xi.astype(np.int32))):
+        x = x.to(cuda)
+        got = ops.reduce_fold(x)
+        want = ops.reduce_fold(x, impl="ref")
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    payload = _t(xf).to(cuda).view(torch.uint8)             # (k, 4 * lanes)
+    assert torch.equal(ops.chunk_reduce(payload),
+                       ops.chunk_reduce(payload, impl="ref"))
+
+
+@pytest.mark.cuda
+def test_cuda_launch_counters_of_preproc_and_reduce(cuda):
+    recs = torch.zeros((4, 39), dtype=torch.int32, device=cuda)
+    pay = torch.zeros((3, 64), dtype=torch.uint8, device=cuda)
+    ops.reset_launches()
+    ops.preproc(recs, 13, 1000)
+    ops.preproc(recs, 13, 1000, impl="ref")
+    ops.preproc_tile(recs, 13, 1000)
+    ops.chunk_reduce(pay)
+    ops.chunk_reduce(pay, dtype="int32")
+    ops.chunk_reduce(pay, impl="ref")
+    assert ops.launches() == {"aes_ecb": 0, "crc32": 0, "dpi_mlp": 0,
+                              "preproc": 2, "reduce_fold": 2}

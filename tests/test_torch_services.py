@@ -147,8 +147,10 @@ def test_null_services_and_unported_preproc():
     plen = torch.full((3,), 64, dtype=torch.int32)
     assert svc.OnPathService()(pay, plen) is pay
     assert svc.ParallelPathService()(pay, plen).tolist() == [0, 0, 0]
-    with pytest.raises(NotImplementedError, match="ingest slice"):
-        svc.PreprocService(device="cpu")
+    # the preprocessing service is ported now: a 64-byte payload holds
+    # no whole 39-word record, so every word passes through untouched
+    pre = svc.PreprocService(device="cpu")
+    assert torch.equal(pre(pay + 7, plen), pay + 7)
 
 
 def test_services_default_to_the_card():
@@ -158,3 +160,5 @@ def test_services_default_to_the_card():
         svc.AesService(key=KEY)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         svc.CrcService()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        svc.PreprocService()

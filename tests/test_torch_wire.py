@@ -163,7 +163,11 @@ def test_port_imports_neither_jax_nor_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(mods) >= 17
+    assert {"repro_torch.core.ingest", "repro_torch.core.collectives",
+            "repro_torch.models.dlrm", "repro_torch.data.synthetic",
+            "repro_torch.kernels.preproc",
+            "repro_torch.kernels.reduce"} <= set(mods)
+    assert len(mods) >= 28
 
 
 def test_no_import_lines_of_jax_or_reference():
