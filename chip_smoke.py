@@ -4,15 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written Hopper kernels from ``src/repro_torch/
-csrc`` and drives three paths of the system: the service-enhanced RDMA
+csrc`` and drives four paths of the system: the service-enhanced RDMA
 datapath (paper Fig. 1), the §8 streaming ingest into a full-size DLRM,
-and the allreduce fabric.
+the allreduce fabric, and the §8 ingest of encrypted shards that trains
+the DLRM.
 
   0. device   the card's name and power limit (nvidia-smi)
   1. build    nvcc, one process per kernel source, all at once
-  2. kernels  AES-128-ECB, CRC32, the DPI MLP, the DLRM preprocessing
-              and the segmented reduce at main-path sizes against their
-              plain PyTorch versions on the card.  A kernel's ``ms`` is
+  2. kernels  AES-128-ECB, CRC32, the DPI MLP, the DLRM preprocessing,
+              the segmented reduce and the fused decrypt+DPI pass at
+              main-path sizes against their plain PyTorch versions on
+              the card.  A kernel's ``ms`` is
               its device time from a torch.profiler trace (median
               launch; CUDA events around back-to-back calls if the
               trace holds no device time), ``call_ms`` the wrapper's
@@ -40,13 +42,22 @@ and the allreduce fabric.
               DLRM's 499,521 dense-MLP parameters as float32, ring and
               in-fabric offload, with the kernels and with the plain
               versions, bit-identical to the oracle
+  8. secure   full size, as 6b, but the replicas hold every shard
+              AES-128-ECB encrypted at rest: each tile goes through the
+              fused decrypt+DPI kernel, then the preprocessing kernel on
+              the plaintext, and every landed batch trains the full-config
+              DLRM for 5 SGD steps at lr 0.05 (examples/dlrm_ingest.py's
+              trainer), with the kernels and with the plain versions from
+              the same seeded weights: equal reports, landed words and DPI
+              flags, and the loss falls on every shard
 
-Six paths are driven through the kernels, each with the launch counters
-set to 0 just before it and read just after it: the main path (phase 3,
-kernel arm: AES, DPI), the ICRC chain (phase 4: all three services),
-ingest (6b, kernel arm, its warm-up tile included: preproc),
+Seven paths are driven through the kernels, each with the launch
+counters set to 0 just before it and read just after it: the main path
+(phase 3, kernel arm: AES, DPI), the ICRC chain (phase 4: all three
+services), ingest (6b, kernel arm, its warm-up tile included: preproc),
 ingest_onpath (6c: preproc), allreduce_ring and allreduce_offload (7b,
-kernel arms: reduce_fold).  The line before the last is a JSON object
+kernel arms: reduce_fold), secure_ingest (8, kernel arm, its warm-up
+tile included: fused decrypt+DPI, preproc).  The line before the last is a JSON object
 with every kernel's path, launches on that path (and on each path
 apart), error, time, plain time, bound and library time; the last line
 is the run's verdict.  Any failure raises, so the script exits non-zero
@@ -85,6 +96,12 @@ SHARD_PKTS = (1 << 20) // MTU                         # IngestConfig default
 # and lands the previous shard's bytes on the second QP of each replica
 N_SHARDS = 2
 LOGIT_RTOL = LOGIT_ATOL = 1e-5
+# phase 8 trains as examples/dlrm_ingest.py does: 5 SGD steps per shard.
+# Between the arms the losses may differ only by the order of the
+# embedding gradient's atomic adds on the card
+SGD_STEPS, SGD_LR = 5, 0.05
+LOSS_RTOL, LOSS_ATOL = 1e-5, 1e-6
+DPI_THRESHOLD = 1.0             # DpiService's flag threshold
 ALLREDUCE_ELEMS = 154_944 + 344_577     # full DLRM's dense-MLP parameters
 
 # H100 SXM data-sheet peaks
@@ -275,7 +292,85 @@ def phase_kernels(dev, params) -> dict:
           f"bound_ms={bound:.4f} ({by})")
     out["preproc"] = _kernel_preproc(dev, gen)
     out["reduce_fold"] = _kernel_reduce(dev, gen)
+    out["fused_decrypt_dpi"] = _kernel_fused(dev, gen, tparams)
     return out
+
+
+def _secure_key():
+    """The at-rest AES key of the secure paths: 16 bytes from a seeded
+    torch.Generator."""
+    import torch
+    return torch.randint(0, 256, (16,), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(8)).numpy()
+
+
+def _kernel_fused(dev, gen, tparams) -> dict:
+    """The fused decrypt+DPI pass at the main path's batch (8192 packets
+    x 4 KiB, 32 MiB): plaintext bit-exact and scores within 1e-5 against
+    the plain version; an encrypt -> fused-decrypt round trip; a packet
+    count that is not a multiple of BLOCK_N; the tile entry (a full and
+    a short final tile) against the one-shot rows.  Timed beside the
+    port's own two-kernel chain (aes_ecb decrypt, then dpi_mlp) on the
+    same bytes."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_chain import (BLOCK_N, fused_decrypt_dpi,
+                                                 fused_decrypt_dpi_tile)
+    rk = torch.as_tensor(ops.expand_key(_secure_key())).to(dev)
+    pay = torch.randint(0, 256, (N_PKTS, MTU), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    plain, scores = fused_decrypt_dpi(pay, rk, tparams)
+    wplain, wscores = fused_decrypt_dpi(pay, rk, tparams, impl="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(plain, wplain), "fused: plaintext differs from plain"
+    worst = float((scores - wscores).abs().max())
+    torch.testing.assert_close(scores, wscores, rtol=DPI_RTOL, atol=DPI_ATOL)
+    back, _ = fused_decrypt_dpi(
+        ops.aes_ecb(pay.reshape(-1, 16), rk).reshape(N_PKTS, MTU), rk,
+        tparams)
+    ragged = N_PKTS // 8 + 3
+    assert ragged % BLOCK_N
+    r_plain, r_scores = fused_decrypt_dpi(pay[:ragged], rk, tparams)
+    t_full = fused_decrypt_dpi_tile(pay[:2], rk, tparams, tile_pkts=2)
+    t_short = fused_decrypt_dpi_tile(pay[2:3], rk, tparams, tile_pkts=2)
+    torch.cuda.synchronize()
+    assert torch.equal(back, pay), "fused: encrypt -> decrypt round trip"
+    assert torch.equal(r_plain, plain[:ragged]) and \
+        torch.equal(r_scores, scores[:ragged]), f"fused: {ragged} packets"
+    for (tp, ts), lo, hi in ((t_full, 0, 2), (t_short, 2, 3)):
+        assert torch.equal(tp, plain[lo:hi]) and \
+            torch.equal(ts, scores[lo:hi]), f"fused: tile [{lo}, {hi})"
+    fn = lambda: fused_decrypt_dpi(pay, rk, tparams)  # noqa: E731
+    ms, ms_from = _kernel_ms(fn, "fused_chain_kernel", 10)
+    call_ms = _median_ms(fn, 5, burst=5)
+    plain_ms = _median_ms(
+        lambda: fused_decrypt_dpi(pay, rk, tparams, impl="ref"), 3)
+    # the launch phase 8 makes: one 2-packet tile
+    tile_ms, _ = _kernel_ms(lambda: fused_decrypt_dpi_tile(
+        pay[:2], rk, tparams, tile_pkts=2), "fused_chain_kernel", 20)
+    # the yardstick this kernel exists to beat: the port's two kernels
+    blocks = pay.reshape(-1, 16)
+    aes_ms, _ = _kernel_ms(lambda: ops.aes_ecb(blocks, rk, decrypt=True),
+                           "aes_ecb_kernel", 10)
+    dpi_ms, _ = _kernel_ms(lambda: ops.dpi_scores(plain, tparams),
+                           "dpi_mlp_kernel", 10)
+    chain_call_ms = _median_ms(lambda: ops.dpi_scores(ops.aes_ecb(
+        blocks, rk, decrypt=True).reshape(N_PKTS, MTU), tparams).amax(dim=1),
+        5, burst=5)
+    beats = pay.numel() // 64
+    bound, by = _bound_ms(2 * pay.numel() + 4 * N_PKTS, 2 * 16448 * beats)
+    print(f"[kernels] fused_decrypt_dpi {N_PKTS}x{MTU} ({pay.numel()} B): "
+          f"plaintext bit-exact, scores worst abs error {worst:.3e} "
+          f"(rtol=atol={DPI_RTOL}), round trip, {ragged} packets and tiles "
+          f"equal; kernel_ms={ms:.4f} ({ms_from}) call_ms={call_ms:.4f} "
+          f"plain_ms={plain_ms:.3f} two-kernel chain kernel_ms="
+          f"{aes_ms + dpi_ms:.4f} (aes decrypt {aes_ms:.4f} + dpi "
+          f"{dpi_ms:.4f}) call_ms={chain_call_ms:.4f} 2-packet tile "
+          f"kernel_ms={tile_ms:.4f} bound_ms={bound:.4f} ({by})")
+    return dict(max_abs_err=worst, ms=ms, ms_from=ms_from, call_ms=call_ms,
+                plain_ms=plain_ms, tile_ms=tile_ms, chain_ms=aes_ms + dpi_ms,
+                chain_call_ms=chain_call_ms, bound_ms=bound, bound_by=by,
+                library_ms=None)
 
 
 def _dense_ulps(got, want) -> int:
@@ -782,6 +877,168 @@ def phase_allreduce(dev) -> dict:
     return counts
 
 
+def _sgd_step(model, batch) -> float:
+    """One step of examples/dlrm_ingest.py's trainer: the loss, its
+    gradient, ``p - lr * g``.  Returns the loss before the update."""
+    import torch
+    model.zero_grad(set_to_none=True)
+    loss, _ = model.loss(batch)
+    loss.backward()
+    with torch.no_grad():
+        for p in model.parameters():
+            p -= SGD_LR * p.grad
+    return float(loss.detach())
+
+
+def _secure_shards(dev) -> list:
+    """Phase 8's data: each full-size shard's record packets, AES-128-ECB
+    encrypted at rest under the seeded key (once, with the kernel, before
+    any timed window), as numpy for the storage replicas."""
+    import torch
+    from repro_torch.kernels import ops
+    rk = torch.as_tensor(ops.expand_key(_secure_key())).to(dev)
+    shards = []
+    for i in range(N_SHARDS):
+        pt = _dlrm_shard_fn(SHARD_PKTS)(i)
+        ct = ops.aes_ecb(torch.from_numpy(pt.reshape(-1, 16).copy()).to(dev),
+                         rk).cpu().numpy().reshape(-1)
+        assert not np.array_equal(ct, pt)
+        shards.append(ct)
+    return shards
+
+
+def run_secure_ingest(dev, model, tparams, shards, impl) -> dict:
+    """Phase 8, one arm: stream the encrypted shards; each tile is
+    decrypted and inspected by the fused pass as it lands, then
+    preprocessed from the plaintext; every landed batch trains the DLRM
+    for SGD_STEPS steps."""
+    import torch
+    from repro_torch.core.ingest import BalboaIngest, make_dlrm_tile_decoder
+    from repro_torch.data import synthetic as syn
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_chain import fused_decrypt_dpi_tile
+    rk = torch.as_tensor(ops.expand_key(_secure_key())).to(dev)
+    decode = make_dlrm_tile_decoder(N_DENSE, N_SPARSE, MOD, impl=impl)
+
+    def tile_to_batch(tile):
+        plain, score = fused_decrypt_dpi_tile(tile, rk, tparams, tile_pkts=2,
+                                              impl=impl)
+        return {**decode(plain), "dpi_score": score}
+
+    def poisoned(raw):
+        raise AssertionError("host decode touched payload bytes")
+
+    ing = BalboaIngest(_ingest_cfg(), None, lambda i: shards[i],
+                       decode_fn=poisoned, tile_to_batch=tile_to_batch,
+                       device=dev)
+    out = []
+    t0 = time.perf_counter()
+    stream_s = train_s = 0.0
+    it = ing.stream_batches(len(shards))
+    for i in range(len(shards)):
+        ts = time.perf_counter()
+        batch, rep = next(it)
+        torch.cuda.synchronize()
+        tm = time.perf_counter()
+        stream_s += tm - ts
+        raw = syn.dlrm_shard(i, RPP * SHARD_PKTS, N_DENSE, N_SPARSE)
+        label = torch.from_numpy(syn.dlrm_labels(raw, N_DENSE, MOD)).to(dev)
+        b = {"dense": batch["dense"], "sparse": batch["sparse"],
+             "label": label}
+        losses = [_sgd_step(model, b) for _ in range(SGD_STEPS)]
+        with torch.no_grad():
+            after = float(model.loss(b)[0])
+        torch.cuda.synchronize()
+        train_s += time.perf_counter() - tm
+        # the decrypted records are the plaintext records
+        np.testing.assert_allclose(
+            batch["dense"].cpu().numpy(),
+            np.log1p(np.maximum(raw[:, :N_DENSE], 0)), rtol=1e-5)
+        assert np.array_equal(batch["sparse"].cpu().numpy(),
+                              raw[:, N_DENSE:] % MOD), f"shard {i}: sparse"
+        assert batch["dpi_score"].shape == (SHARD_PKTS,)
+        assert bool(torch.isfinite(batch["dpi_score"]).all())
+        assert all(np.isfinite(losses)) and after < losses[0], \
+            f"shard {i}: loss {losses[0]} -> {after} did not fall"
+        out.append(dict(
+            report=(rep.ticks, rep.tiles, rep.overlap_efficiency,
+                    rep.refetches, rep.events),
+            dense=batch["dense"], sparse=batch["sparse"],
+            scores=batch["dpi_score"], losses=losses, after=after))
+    wall = time.perf_counter() - t0
+    assert ing.host_payload_bytes == 0
+    return dict(shards=out, wall_s=wall, stream_s=stream_s, train_s=train_s)
+
+
+def phase_secure_ingest(dev, params) -> dict:
+    """Phase 8: the full-size ingest with the shards encrypted at rest,
+    fused decrypt+DPI per tile, training the full-config DLRM, with the
+    kernels and with the plain versions (each arm from the same seeded
+    weights).  Returns the launch counts of the secure_ingest path."""
+    import torch
+    from repro_torch.configs.dlrm import config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dpi_mlp import dpi_params_from_numpy
+    from repro_torch.models.dlrm import DLRM
+    cfg = config()
+    tparams = dpi_params_from_numpy(params, dev)
+    shards = _secure_shards(dev)
+    arms = {}
+    for impl in (None, "ref"):
+        model = DLRM(cfg, seed=0, device=dev)
+        ops.reset_launches()
+        arms[impl] = run_secure_ingest(dev, model, tparams, shards, impl)
+        counts = ops.launches()
+        if impl is None:
+            on_secure = counts
+        else:
+            assert not any(counts.values()), "the plain arm launched a kernel"
+        del model
+    kern, plain = arms[None], arms["ref"]
+    worst_score, worst_loss, flagged = 0.0, 0.0, []
+    for i, (k, p) in enumerate(zip(kern["shards"], plain["shards"])):
+        assert k["report"] == p["report"], \
+            f"shard {i}: ticks/tiles/overlap/refetches/events differ"
+        assert torch.equal(k["sparse"], p["sparse"]), f"shard {i}: sparse"
+        assert torch.equal(k["dense"].view(torch.int32),
+                           p["dense"].view(torch.int32)), f"shard {i}: dense"
+        torch.testing.assert_close(k["scores"], p["scores"], rtol=DPI_RTOL,
+                                   atol=DPI_ATOL)
+        worst_score = max(worst_score,
+                          float((k["scores"] - p["scores"]).abs().max()))
+        nk = int((k["scores"] > DPI_THRESHOLD).sum())
+        assert nk == int((p["scores"] > DPI_THRESHOLD).sum()), \
+            f"shard {i}: flagged counts differ"
+        flagged.append(nk)
+        np.testing.assert_allclose(k["losses"] + [k["after"]],
+                                   p["losses"] + [p["after"]],
+                                   rtol=LOSS_RTOL, atol=LOSS_ATOL)
+        worst_loss = max(worst_loss, float(np.abs(np.subtract(
+            k["losses"] + [k["after"]], p["losses"] + [p["after"]])).max()))
+    rep = kern["shards"][0]["report"]
+    print(f"[secure] full size: {N_SHARDS} AES-encrypted shards x "
+          f"{SHARD_PKTS} packets ({RPP * SHARD_PKTS} records) over 4 "
+          f"replicas x 2 QPs, 2-packet tiles through fused decrypt+DPI then "
+          f"preproc; shard 0 ticks={rep[0]} tiles={rep[1]} overlap={rep[2]} "
+          f"refetches={rep[3]}; DPI flagged {flagged} of {SHARD_PKTS} "
+          f"packets per shard (score > {DPI_THRESHOLD})")
+    for i, s in enumerate(kern["shards"]):
+        print(f"[secure] shard {i}: {SGD_STEPS} SGD steps at lr {SGD_LR}, "
+              f"loss {s['losses'][0]:.6f} -> {s['after']:.6f} (steps "
+              + ", ".join(f"{x:.6f}" for x in s["losses"]) + ")")
+    print(f"[secure] kernels vs plain: reports equal, sparse and dense words "
+          f"equal, scores worst abs {worst_score:.3e} (rtol=atol={DPI_RTOL}), "
+          f"flagged counts equal, losses worst abs {worst_loss:.3e} "
+          f"(rtol={LOSS_RTOL}, atol={LOSS_ATOL}); host_payload_bytes=0")
+    for name, a in (("kernels", kern), ("plain", plain)):
+        print(f"[secure] wall_s {name}: stream {a['stream_s']:.2f} train "
+              f"{a['train_s']:.2f} total {a['wall_s']:.2f}")
+    print(f"[secure] kernel launches on secure_ingest: {on_secure}")
+    for name in ("fused_decrypt_dpi", "preproc"):
+        assert on_secure[name] > 0, f"{name} not launched on secure_ingest"
+    return {"secure_ingest": on_secure}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: the port's sources (src/repro_torch) are not "
@@ -850,6 +1107,7 @@ def main() -> int:
     counts = {"main": on_main, "icrc_chain": on_chain}
     counts.update(phase_ingest(dev))
     counts.update(phase_allreduce(dev))
+    counts.update(phase_secure_ingest(dev, params))
 
     # name -> (source, TPU kernel it replaces, the path it is counted on)
     sources = {"aes_ecb": ("src/repro_torch/csrc/aes_ecb.cu",
@@ -862,7 +1120,10 @@ def main() -> int:
                            "src/repro/kernels/preproc.py:39", "ingest"),
                "reduce_fold": ("src/repro_torch/csrc/reduce.cu",
                                "src/repro/kernels/reduce.py:55",
-                               "allreduce_offload")}
+                               "allreduce_offload"),
+               "fused_decrypt_dpi": ("src/repro_torch/csrc/fused_chain.cu",
+                                     "src/repro/kernels/fused_chain.py:66",
+                                     "secure_ingest")}
     print(f"[done] {smi}; total wall_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

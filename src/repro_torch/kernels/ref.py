@@ -12,7 +12,7 @@ code but must agree bit for bit (pinned by tests/test_torch_kernels.py).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -228,6 +228,21 @@ def dpi_scores_ref(payload: torch.Tensor, params: Dict) -> torch.Tensor:
                    + params["b2"])
     y = h @ (params["w3"].to(torch.float32) * params["s3"])
     return y[:, 0].reshape(n, beats)
+
+
+# ===========================================================================
+# Fused receive chain: AES-128-ECB decrypt, then DPI on the plaintext
+# ===========================================================================
+
+def fused_decrypt_dpi_ref(payload: torch.Tensor, round_keys, params: Dict
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """payload (N, MTU) uint8 ciphertext -> (plaintext (N, MTU) uint8,
+    (N,) float32 max DPI score over EVERY beat of the MTU).  The score is
+    not masked by a packet length, unlike ``DpiService``."""
+    n, mtu = payload.shape
+    plain = aes_decrypt_ref(payload.reshape(n * (mtu // 16), 16),
+                            round_keys).reshape(n, mtu)
+    return plain, dpi_scores_ref(plain, params).amax(dim=1)
 
 
 # ===========================================================================

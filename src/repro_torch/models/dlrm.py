@@ -1,7 +1,8 @@
 """DLRM — the paper's own §8 workload: deep learning recommendation
 model (bottom MLP over dense features, embedding tables for sparse
-features, pairwise dot interaction, top MLP), scoring the batches the
-BALBOA ingest lands on the card.
+features, pairwise dot interaction, top MLP), scored and trained on the
+batches the BALBOA ingest lands on the card.  Training is torch autograd
+on these products, as the reference leaves them to ``jax.grad``.
 
 The parameters keep the reference's layout (``repro.models.dlrm``):
 weights are ``(in, out)`` and a layer computes ``x @ w + b``; the 26
@@ -75,14 +76,20 @@ class DLRM(nn.Module):
 
         Ids outside ``[0, embed_rows)`` are taken as the reference's
         gather takes them: a negative id counts from the end, then the
-        id is clamped into the table (torch's indexing would raise)."""
+        id is clamped into the table (torch's indexing would raise).  The
+        reference's gradient of that gather is a scatter that DROPS an
+        id still out of range after the wrap, so such an id reads the
+        clamped row but sends it no gradient."""
         rows = self.cfg.embed_rows
         x = dense
         for w, b in zip(self.bottom_w, self.bottom_b):
             x = torch.relu(x @ w + b)
         idx = sparse.to(torch.int64)
-        idx = torch.where(idx < 0, idx + rows, idx).clamp(0, rows - 1)
-        embs = self.tables[self._cols[None, :], idx]          # (B, S, D)
+        idx = torch.where(idx < 0, idx + rows, idx)
+        valid = (idx >= 0) & (idx < rows)
+        embs = self.tables[self._cols[None, :], idx.clamp(0, rows - 1)]
+        if embs.requires_grad:                                # (B, S, D)
+            embs = torch.where(valid[..., None], embs, embs.detach())
         feats = torch.cat([x[:, None, :], embs], dim=1)       # (B, F, D)
         inter = torch.bmm(feats, feats.transpose(1, 2))       # (B, F, F)
         z = torch.cat([x, inter[:, self._iu[0], self._iu[1]]], dim=1)

@@ -10,7 +10,8 @@ imports no JAX, so it runs on a machine with the card and PyTorch only:
 AES, CRC32 and the segmented reduce must be bit-exact (CRC32 also against
 zlib), preprocessing bit-exact on the sparse words and within 1 ulp on
 the dense ones; DPI scores within rtol = atol = 1e-5, the worst error
-printed.
+printed.  The fused decrypt+DPI chain: plaintext bit-exact, scores
+within 1e-5.
 """
 import zlib
 
@@ -21,6 +22,8 @@ import torch
 from repro_torch.data import load_dpi_params_seed0
 from repro_torch.kernels import ops
 from repro_torch.kernels.dpi_mlp import dpi_params_from_numpy
+from repro_torch.kernels.fused_chain import (fused_decrypt_dpi,
+                                             fused_decrypt_dpi_tile)
 
 DPI_RTOL = DPI_ATOL = 1e-5
 
@@ -84,7 +87,8 @@ def test_cuda_launch_counters_count_kernel_launches_only(cuda):
     ops.crc32(pay, plen, impl="ref")
     ops.aes_ecb(pay.reshape(-1, 16), ops.expand_key(np.zeros(16, np.uint8)))
     assert ops.launches() == {"aes_ecb": 1, "crc32": 1, "dpi_mlp": 0,
-                              "preproc": 0, "reduce_fold": 0}
+                              "preproc": 0, "reduce_fold": 0,
+                              "fused_decrypt_dpi": 0}
 
 
 def _preproc_inputs(rng, m, rec_w=39):
@@ -157,4 +161,82 @@ def test_cuda_launch_counters_of_preproc_and_reduce(cuda):
     ops.chunk_reduce(pay, dtype="int32")
     ops.chunk_reduce(pay, impl="ref")
     assert ops.launches() == {"aes_ecb": 0, "crc32": 0, "dpi_mlp": 0,
-                              "preproc": 2, "reduce_fold": 2}
+                              "preproc": 2, "reduce_fold": 2,
+                              "fused_decrypt_dpi": 0}
+
+
+def _fused_inputs(cuda, n, mtu, seed):
+    rng = np.random.default_rng(seed)
+    pay = _t(rng.integers(0, 256, (n, mtu), dtype=np.uint8)).to(cuda)
+    rk = _t(ops.expand_key(rng.integers(0, 256, 16, dtype=np.uint8))).to(cuda)
+    return pay, rk, dpi_params_from_numpy(load_dpi_params_seed0(), cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,mtu", [(1, 64), (17, 256), (33, 1024),
+                                   (131, 4096), (5, 8192)])
+def test_cuda_fused_chain_matches_plain(cuda, n, mtu):
+    """Ragged packet counts (not multiples of 16), MTUs below, at and
+    above the kernel's 4 KiB chunk."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pay, rk, params = _fused_inputs(cuda, n, mtu, n + mtu)
+    plain, scores = fused_decrypt_dpi(pay, rk, params)
+    wplain, wscores = fused_decrypt_dpi(pay, rk, params, impl="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(plain, wplain)
+    print(f"fused cuda n={n} mtu={mtu}: scores worst abs error "
+          f"{float((scores - wscores).abs().max()):.3e}")
+    torch.testing.assert_close(scores, wscores, rtol=DPI_RTOL, atol=DPI_ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_chain_roundtrip_and_tiles(cuda):
+    """AES-encrypt on the card, fused-decrypt: the bytes come back; a
+    full tile and a short final tile give the one-shot rows."""
+    pay, rk, params = _fused_inputs(cuda, 13, 4096, 7)
+    ct = ops.aes_ecb(pay.reshape(-1, 16), rk).reshape(13, 4096)
+    plain, scores = fused_decrypt_dpi(ct, rk, params)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, pay)
+    for lo, hi in ((0, 8), (8, 13)):
+        p_t, s_t = fused_decrypt_dpi_tile(ct[lo:hi], rk, params, tile_pkts=8)
+        assert torch.equal(p_t, plain[lo:hi])
+        assert torch.equal(s_t, scores[lo:hi])
+    with pytest.raises(ValueError, match="tile carries"):
+        fused_decrypt_dpi_tile(ct, rk, params, tile_pkts=8)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_chain_is_fp32_not_tf32(cuda):
+    """The kernel's MLP is float32 FMA whatever PyTorch's TF32 switch
+    says: with TF32 allowed for matmuls, its scores still sit within
+    1e-5 of a float64 evaluation of the same MLP (TF32 keeps about three
+    decimal digits)."""
+    pay, rk, params = _fused_inputs(cuda, 64, 4096, 9)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        plain, scores = fused_decrypt_dpi(pay, rk, params)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    x = plain.reshape(-1, 64).double() / 128.0 - 1.0
+    h = torch.relu(x @ (params["w1"].double() * params["s1"].double())
+                   + params["b1"].double())
+    h = torch.relu(h @ (params["w2"].double() * params["s2"].double())
+                   + params["b2"].double())
+    y = (h @ (params["w3"].double() * params["s3"].double())).reshape(64, -1)
+    worst = float((scores.double() - y.amax(dim=1)).abs().max())
+    print(f"fused cuda vs float64: worst abs error {worst:.3e}")
+    assert worst <= DPI_ATOL
+
+
+@pytest.mark.cuda
+def test_cuda_fused_chain_counts_kernel_launches_only(cuda):
+    pay, rk, params = _fused_inputs(cuda, 3, 256, 1)
+    ops.reset_launches()
+    fused_decrypt_dpi(pay, rk, params)
+    fused_decrypt_dpi(pay, rk, params, impl="ref")
+    fused_decrypt_dpi_tile(pay[:1], rk, params, tile_pkts=2)
+    assert ops.launches()["fused_decrypt_dpi"] == 2
+    assert sum(ops.launches().values()) == 2
