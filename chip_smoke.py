@@ -24,7 +24,8 @@ the DLRM.
               sender encrypts, the receiver decrypts on-path and runs DPI
               on the parallel path.  Run with the kernels, then with the
               plain versions: every byte must land and the two runs must
-              agree on every tick and counter
+              agree on every tick and counter; prints the beats of each
+              DPI kernel launch
   4. chain    the receive chain with an ICRC tap on one 8192-packet batch
               of that traffic, kernels against plain versions, bit-exact
   5. incast   the 8:1 ack-clocked incast on the card reproduces the row
@@ -104,9 +105,11 @@ LOSS_RTOL, LOSS_ATOL = 1e-5, 1e-6
 DPI_THRESHOLD = 1.0             # DpiService's flag threshold
 ALLREDUCE_ELEMS = 154_944 + 344_577     # full DLRM's dense-MLP parameters
 
-# H100 SXM data-sheet peaks
+# H100 SXM data-sheet peaks (dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+INT8_OPS = 1979e12
+BF16_FLOPS = 989e12
 
 
 def _median_ms(fn, reps: int, burst: int = 1) -> float:
@@ -151,11 +154,35 @@ def _kernel_ms(fn, kernel: str, reps: int):
     return _median_ms(fn, 5, burst=10), "events"
 
 
-def _bound_ms(n_bytes: float, flops: float):
+def _bound_ms(n_bytes: float, flops: float = 0.0, *, int8_ops: float = 0.0,
+              bf16_flops: float = 0.0):
+    """The larger of the bytes' time at the memory rate and the
+    operations' time: fp32 FLOPs on the CUDA cores plus int8 and bf16 work
+    on the tensor cores, each at its own peak."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / FP32_FLOPS * 1e3
+    by_ops = (flops / FP32_FLOPS + int8_ops / INT8_OPS
+              + bf16_flops / BF16_FLOPS) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                             "operations")
+
+
+# the DPI MLP's operations per beat in the kernels' design (csrc/
+# dpi_mma.cuh): layer 1 in int8 (64 x 128 MACs), layer 2 as three bf16
+# passes (3 x 128 x 64 MACs), layer 3 in fp32 (64 MACs); and the fp32 MLP
+# that the plain version and the earlier kernels run (16,448 MACs)
+DPI_INT8_OPS = 2 * 64 * 128
+DPI_BF16_FLOPS = 3 * 2 * 128 * 64
+DPI_FP32_FLOPS = 2 * 64
+DPI_FP32_MLP_FLOPS = 2 * (64 * 128 + 128 * 64 + 64)
+
+
+def _dpi_bounds(n_bytes: float, beats: int):
+    """(bound_ms, bound_by, bound_fp32_ms) of a DPI pass over ``beats``
+    beats that moves ``n_bytes``."""
+    bound, by = _bound_ms(n_bytes, DPI_FP32_FLOPS * beats,
+                          int8_ops=DPI_INT8_OPS * beats,
+                          bf16_flops=DPI_BF16_FLOPS * beats)
+    return bound, by, _bound_ms(n_bytes, DPI_FP32_MLP_FLOPS * beats)[0]
 
 
 def phase_device() -> str:
@@ -282,14 +309,15 @@ def phase_kernels(dev, params) -> dict:
         return h @ w3
     library_ms = _median_ms(library, 5)
     beats = pay.numel() // 64
-    bound, by = _bound_ms(pay.numel() + 4 * beats, 2 * 16448 * beats)
+    bound, by, bound_fp32 = _dpi_bounds(pay.numel() + 4 * beats, beats)
     out["dpi_mlp"] = dict(max_abs_err=worst, ms=ms, ms_from=ms_from,
                           call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound,
-                          bound_by=by, library_ms=library_ms)
+                          bound_by=by, bound_fp32_ms=bound_fp32,
+                          library_ms=library_ms)
     print(f"[kernels] dpi_mlp {beats} beats: worst abs error {worst:.3e} "
           f"(rtol=atol={DPI_RTOL}), kernel_ms={ms:.4f} ({ms_from}) "
           f"call_ms={call_ms:.4f} plain_ms={plain_ms:.3f} library_ms={library_ms:.4f} "
-          f"bound_ms={bound:.4f} ({by})")
+          f"bound_ms={bound:.4f} ({by}) bound_fp32_ms={bound_fp32:.4f}")
     out["preproc"] = _kernel_preproc(dev, gen)
     out["reduce_fold"] = _kernel_reduce(dev, gen)
     out["fused_decrypt_dpi"] = _kernel_fused(dev, gen, tparams)
@@ -340,6 +368,9 @@ def _kernel_fused(dev, gen, tparams) -> dict:
     for (tp, ts), lo, hi in ((t_full, 0, 2), (t_short, 2, 3)):
         assert torch.equal(tp, plain[lo:hi]) and \
             torch.equal(ts, scores[lo:hi]), f"fused: tile [{lo}, {hi})"
+    # one device MLP for both kernels: the same bits per beat
+    assert torch.equal(scores, ops.dpi_scores(plain, tparams).amax(dim=1)), \
+        "fused: scores differ from dpi_mlp's max over the plaintext"
     fn = lambda: fused_decrypt_dpi(pay, rk, tparams)  # noqa: E731
     ms, ms_from = _kernel_ms(fn, "fused_chain_kernel", 10)
     call_ms = _median_ms(fn, 5, burst=5)
@@ -358,7 +389,7 @@ def _kernel_fused(dev, gen, tparams) -> dict:
         blocks, rk, decrypt=True).reshape(N_PKTS, MTU), tparams).amax(dim=1),
         5, burst=5)
     beats = pay.numel() // 64
-    bound, by = _bound_ms(2 * pay.numel() + 4 * N_PKTS, 2 * 16448 * beats)
+    bound, by, bound_fp32 = _dpi_bounds(2 * pay.numel() + 4 * N_PKTS, beats)
     print(f"[kernels] fused_decrypt_dpi {N_PKTS}x{MTU} ({pay.numel()} B): "
           f"plaintext bit-exact, scores worst abs error {worst:.3e} "
           f"(rtol=atol={DPI_RTOL}), round trip, {ragged} packets and tiles "
@@ -366,11 +397,12 @@ def _kernel_fused(dev, gen, tparams) -> dict:
           f"plain_ms={plain_ms:.3f} two-kernel chain kernel_ms="
           f"{aes_ms + dpi_ms:.4f} (aes decrypt {aes_ms:.4f} + dpi "
           f"{dpi_ms:.4f}) call_ms={chain_call_ms:.4f} 2-packet tile "
-          f"kernel_ms={tile_ms:.4f} bound_ms={bound:.4f} ({by})")
+          f"kernel_ms={tile_ms:.4f} bound_ms={bound:.4f} ({by}) "
+          f"bound_fp32_ms={bound_fp32:.4f}")
     return dict(max_abs_err=worst, ms=ms, ms_from=ms_from, call_ms=call_ms,
                 plain_ms=plain_ms, tile_ms=tile_ms, chain_ms=aes_ms + dpi_ms,
                 chain_call_ms=chain_call_ms, bound_ms=bound, bound_by=by,
-                library_ms=None)
+                bound_fp32_ms=bound_fp32, library_ms=None)
 
 
 def _dense_ulps(got, want) -> int:
@@ -478,6 +510,27 @@ def _traffic():
     rng = np.random.default_rng(0)
     return [payload_with_embedded_malware(MSG_BYTES, 0.2 if q % 2 else 0.0,
                                           rng) for q in range(N_QPS)]
+
+
+class _BeatsPerLaunch:
+    """Records the beats of every DPI call that launches the dpi_mlp
+    kernel while it is entered: ``ops.dpi_scores``, which DpiService
+    calls, is wrapped; the launch counter stays the kernel wrapper's."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.beats, self._orig = [], ops.dpi_scores
+
+        def recording(payload, params, *, impl=None):
+            if payload.is_cuda and impl is None and payload.numel():
+                self.beats.append(payload.numel() // 64)
+            return self._orig(payload, params, impl=impl)
+        ops.dpi_scores = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.dpi_scores = self._orig
 
 
 def run_main_path(dev, params, data, impl):
@@ -1065,8 +1118,10 @@ def main() -> int:
     data = _traffic()
     # ---- each path with the kernels, counters from 0 around each --------
     ops.reset_launches()
-    main_k = run_main_path(dev, params, data, impl=None)
+    with _BeatsPerLaunch() as dpi_beats:
+        main_k = run_main_path(dev, params, data, impl=None)
     on_main = ops.launches()
+    assert len(dpi_beats.beats) == on_main["dpi_mlp"]
     ops.reset_launches()
     chain_k = run_chain(dev, params, main_k["ciphertext"], impl=None)
     on_chain = ops.launches()
@@ -1094,7 +1149,11 @@ def main() -> int:
     assert bool((chain_k[1] & 2).any()), "chain: DPI flagged nothing"
     print(f"[chain] crc | aes-dec | dpi on {chain_k[0].shape[0]} packets: "
           f"payload and flags bit-exact between kernels and plain versions")
-    print(f"[main] kernel launches on the main path: {on_main}")
+    print(f"[main] kernel launches on the main path: {on_main}; dpi_mlp "
+          f"beats per launch: median {statistics.median(dpi_beats.beats)}, "
+          f"all {dpi_beats.beats}")
+    kern["dpi_mlp"]["main_beats_per_launch"] = statistics.median(
+        dpi_beats.beats)
     print(f"[chain] kernel launches on the ICRC chain: {on_chain}")
     for name in ("aes_ecb", "dpi_mlp"):
         assert on_main[name] > 0, f"kernel {name} was not launched on the " \

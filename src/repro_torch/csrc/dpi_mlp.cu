@@ -1,148 +1,114 @@
 // Ternary DPI MLP (64 -> 128 -> 64 -> 1, ReLU) over every 64-byte beat,
-// for Hopper (sm_90a).
+// for Hopper (sm_90a), on the tensor cores.
 //
 // Replaces the TPU kernel src/repro/kernels/dpi_mlp.py:dpi_scores_pallas
 // (body _dpi_kernel), which runs the three layers as MXU dots over a
-// VMEM tile of 512 beats.  Here every block first stages the weights in
-// shared memory, already scaled (w * s in float32, the same product the
-// reference forms), with layer 1 transposed so that both big layers read
-// contiguous float4 runs: 2 x 32 KiB + biases, 66,560 B of dynamic
-// shared memory (above the 48 KiB default, so the launch opts in).
-// Then each thread owns one beat at a time: it loads the 64 bytes as
-// four uint4, keeps x = byte/128 - 1 in 64 registers, and for each of
-// the 128 hidden units forms h1[j] with 64 FMAs and immediately adds
-// h1[j] * w2[j, :] into 64 register accumulators, so the 128-wide
-// hidden layer never exists in memory.  Every lane of a warp reads the
-// same weight address, so the shared-memory reads are broadcasts.  A
-// persistent grid (a few blocks per SM, grid-stride over beats) stages
-// the weights once per block instead of once per tile.
+// VMEM tile of 512 beats.  The MLP is dpi_mma.cuh's: exact int8 layer 1,
+// layer 2 as three bf16 MMAs over an exact split of h1, layer 3 in fp32,
+// one warp per 16-beat tile.  Here a persistent grid (up to four 4-warp
+// blocks an SM) copies the weight image in once per block (25,616 B, one
+// bulk copy), then every warp walks its own 16-beat tiles (a block covers
+// 64 beats a step),
+// double-buffered: the next tile's 1 KiB comes in by cp.async while the
+// tensor cores work on this one.  Rows past n_beats are loaded as zero
+// and not stored.
 //
-// Bound on the H100: operations.  2 x 16,448 FLOP per beat in float32 on
-// the CUDA cores (67 TFLOP/s) against 64 B read + 4 B written per beat:
-// about 480 FLOP per byte, far above the card's balance point.  No
-// tensor cores: TF32 would give up the precision the tests hold the
-// scores to (rtol = atol = 1e-5 against the float32 reference).
+// Bound on the H100: operations.  Per beat 16,384 int8 ops (1,979 TOP/s)
+// + 3 x 16,384 bf16 FLOP (989 TFLOP/s) + 128 fp32 FLOP (67 TFLOP/s)
+// against 64 B read and 4 B written (3.35 TB/s): 0.031 ms of operations
+// against 0.011 ms of bytes for 524,288 beats.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dpi_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kIn = 64, kH1 = 128, kH2 = 64;
-constexpr int kSmemFloats = kH1 * kIn + kH1 * kH2 + kH2 + kH1 + kH2;
-constexpr int kSmemBytes = kSmemFloats * 4;
-
-__global__ void __launch_bounds__(kThreads)
-dpi_mlp_kernel(const uint8_t* __restrict__ payload,
-               const int8_t* __restrict__ w1, const float* __restrict__ b1,
-               const int8_t* __restrict__ w2, const float* __restrict__ b2,
-               const int8_t* __restrict__ w3, const float* __restrict__ s1p,
-               const float* __restrict__ s2p, const float* __restrict__ s3p,
-               float* __restrict__ out, long long n_beats) {
-  extern __shared__ __align__(16) float sm[];
-  float* w1t = sm;                  // [j][i]  = w1[i][j] * s1
-  float* w2s = w1t + kH1 * kIn;     // [j][k]  = w2[j][k] * s2
-  float* w3s = w2s + kH1 * kH2;     // [k]     = w3[k][0] * s3
-  float* b1s = w3s + kH2;
-  float* b2s = b1s + kH1;
-  const float s1 = *s1p, s2 = *s2p, s3 = *s3p;
-  for (int idx = threadIdx.x; idx < kIn * kH1; idx += blockDim.x) {
-    const int i = idx / kH1, j = idx % kH1;     // w1 is (64, 128)
-    w1t[j * kIn + i] = float(w1[idx]) * s1;
-    w2s[idx] = float(w2[idx]) * s2;             // w2 is (128, 64)
-  }
-  for (int idx = threadIdx.x; idx < kH2; idx += blockDim.x) {
-    w3s[idx] = float(w3[idx]) * s3;
-    b2s[idx] = b2[idx];
-  }
-  for (int idx = threadIdx.x; idx < kH1; idx += blockDim.x) b1s[idx] = b1[idx];
-  __syncthreads();
-
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long beat = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       beat < n_beats; beat += stride) {
-    const uint4* src = reinterpret_cast<const uint4*>(payload + beat * 64);
-    float x[kIn];
+// one warp: tile t's 64 chunks of 16 B into buf, rows past n_beats zeroed
+__device__ __forceinline__ void load_tile(uint8_t* buf,
+                                          const uint8_t* payload,
+                                          long long t, long long n_beats,
+                                          int lane) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const uint4 v = src[q];
-      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int e = 0; e < 16; ++e)
-        x[16 * q + e] =
-            float((w[e >> 2] >> (8 * (e & 3))) & 0xffu) / 128.0f - 1.0f;
-    }
-    float h2[kH2];
-#pragma unroll
-    for (int k = 0; k < kH2; ++k) h2[k] = 0.0f;
-    for (int j = 0; j < kH1; ++j) {
-      const float4* r1 = reinterpret_cast<const float4*>(w1t + j * kIn);
-      float acc = 0.0f;
-#pragma unroll
-      for (int i4 = 0; i4 < kIn / 4; ++i4) {
-        const float4 w = r1[i4];
-        acc = fmaf(x[4 * i4 + 0], w.x, acc);
-        acc = fmaf(x[4 * i4 + 1], w.y, acc);
-        acc = fmaf(x[4 * i4 + 2], w.z, acc);
-        acc = fmaf(x[4 * i4 + 3], w.w, acc);
-      }
-      const float h = fmaxf(acc + b1s[j], 0.0f);
-      const float4* r2 = reinterpret_cast<const float4*>(w2s + j * kH2);
-#pragma unroll
-      for (int k4 = 0; k4 < kH2 / 4; ++k4) {
-        const float4 w = r2[k4];
-        h2[4 * k4 + 0] = fmaf(h, w.x, h2[4 * k4 + 0]);
-        h2[4 * k4 + 1] = fmaf(h, w.y, h2[4 * k4 + 1]);
-        h2[4 * k4 + 2] = fmaf(h, w.z, h2[4 * k4 + 2]);
-        h2[4 * k4 + 3] = fmaf(h, w.w, h2[4 * k4 + 3]);
-      }
-    }
-    float y = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kH2; ++k)
-      y = fmaf(fmaxf(h2[k] + b2s[k], 0.0f), w3s[k], y);
-    out[beat] = y;
+  for (int h = 0; h < 2; ++h) {
+    const int c = lane + 32 * h, row = c >> 2, part = c & 3;
+    const long long beat = t * dpi::kRows + row;
+    const bool valid = beat < n_beats;
+    dpi::cp_async16(buf + row * dpi::kRowBytes + part * 16,
+                    valid ? payload + beat * 64 + part * 16 : payload, valid);
   }
 }
+
+__global__ void __launch_bounds__(dpi::kWarps * 32, dpi::kBlocksPerSm)
+dpi_mlp_kernel(const uint8_t* __restrict__ payload,
+               const uint8_t* __restrict__ image, float* __restrict__ out,
+               long long n_beats) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // shared memory: the weights, then two tiles a warp
+  uint8_t* buf = reinterpret_cast<uint8_t*>(sm + dpi::kWeightWords) +
+                 warp * 2 * dpi::kTileBytes;
+  const long long n_tiles = (n_beats + dpi::kRows - 1) / dpi::kRows;
+  const long long stride = (long long)gridDim.x * dpi::kWarps;
+  long long t = (long long)blockIdx.x * dpi::kWarps + warp;
+  if (t < n_tiles) load_tile(buf, payload, t, n_beats, lane);
+  dpi::cp_async_commit();
+  dpi::Copies c(sm);
+  if (tid == 0) {
+    c.start(dpi::kImageBytes);
+    c.copy(sm, image, dpi::kImageBytes);
+  }
+  __syncthreads();                               // the mbarrier is set up
+  c.wait();
+  const dpi::Weights w = dpi::weights_at(sm);
+
+  for (int s = 0; t < n_tiles; t += stride, s ^= 1) {
+    if (t + stride < n_tiles)
+      load_tile(buf + (s ^ 1) * dpi::kTileBytes, payload, t + stride,
+                n_beats, lane);
+    dpi::cp_async_commit();
+    dpi::cp_async_wait<1>();                     // this tile has landed
+    __syncwarp();
+    const float2 y = dpi::tile_scores(buf + s * dpi::kTileBytes, w, lane);
+    if ((lane & 3) == 0) {
+      const long long beat = t * dpi::kRows + (lane >> 2);
+      if (beat < n_beats) out[beat] = y.x;
+      if (beat + 8 < n_beats) out[beat + 8] = y.y;
+    }
+    __syncwarp();                                // buf s is free again
+  }
+}
+
+constexpr int kSmem = dpi::kWeightBytes + dpi::kWarps * 2 * dpi::kTileBytes;
 
 }  // namespace
 
 extern "C" {
 
-// payload: n_beats x 64 uint8, 16-byte aligned.  w1 (64,128), w2
-// (128,64), w3 (64,1) int8; b1 (128,), b2 (64,) float32; s1, s2, s3 one
-// float32 each.  out: (n_beats,) float32.  The shared-memory opt-in and
-// the SM count are looked up once per device, not on every launch.
-int dpi_mlp_launch(const void* payload, const void* w1, const void* b1,
-                   const void* w2, const void* b2, const void* w3,
-                   const void* s1, const void* s2, const void* s3, void* out,
+// payload: n_beats x 64 uint8; image: the weight image (dpi::kImageBytes,
+// see dpi_mma.cuh); both 16-byte aligned.  out: (n_beats,) float32.  The
+// SM count is looked up once per device, not on every launch.
+int dpi_mlp_launch(const void* payload, const void* image, void* out,
                    long long n_beats, void* stream) {
   constexpr int kMaxDevices = 64;
-  static int sms_of[kMaxDevices] = {0};          // 0: not configured yet
+  static int sms_of[kMaxDevices] = {0};          // 0: not looked up yet
   if (n_beats <= 0) return 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (sms_of[dev] == 0) {
-    err = cudaFuncSetAttribute(
-        dpi_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
     int sms = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
     sms_of[dev] = sms;
   }
-  long long blocks = (n_beats + kThreads - 1) / kThreads;
-  const long long resident = 4LL * sms_of[dev];  // persistent grid
-  if (blocks > resident) blocks = resident;
-  dpi_mlp_kernel<<<(unsigned)blocks, kThreads, kSmemBytes,
-                   (cudaStream_t)stream>>>(
-      (const uint8_t*)payload, (const int8_t*)w1, (const float*)b1,
-      (const int8_t*)w2, (const float*)b2, (const int8_t*)w3,
-      (const float*)s1, (const float*)s2, (const float*)s3, (float*)out,
-      n_beats);
+  const long long blocks = dpi::grid_blocks(
+      (n_beats + dpi::kRows - 1) / dpi::kRows, dpi::kWarps, sms_of[dev]);
+  dpi_mlp_kernel<<<(unsigned)blocks, dpi::kWarps * 32, kSmem,
+                   (cudaStream_t)stream>>>((const uint8_t*)payload,
+                                           (const uint8_t*)image, (float*)out,
+                                           n_beats);
   return (int)cudaGetLastError();
 }
 

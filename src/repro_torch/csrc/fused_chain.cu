@@ -6,57 +6,49 @@
 // Replaces the TPU kernel src/repro/kernels/fused_chain.py:
 // fused_decrypt_dpi_pallas (body _fused_kernel), which decrypts a
 // 16-packet VMEM tile with whole-tile gathers and runs the three layers
-// as MXU dots on it.  Here a persistent block (two per SM) stages the
-// inverse S-box, the round keys and the DPI weights (pre-scaled to
-// float32, as dpi_mlp.cu does) in shared memory once, then walks over
-// packets.  Each packet goes through in chunks of 64 beats (4 KiB, the
-// whole packet at the 4096-byte MTU):
-//   1. AES: 256 threads, one 16-byte block each, the round structure of
-//      aes_ecb.cu (state as four 32-bit column words in registers).  The
-//      plaintext is stored to device memory once and kept in shared
-//      memory for the MLP: the bytes never make a second trip.
-//   2. Layer 1: a 64 x 128 output tile, each thread 4 beats x 8 hidden
-//      units in registers (32 accumulators), x = byte/128 - 1 formed on
-//      the fly from the shared plaintext, weights read as float4.  h1
-//      goes to shared memory beat-minor ([unit][beat]).
-//   3. Layers 2 and 3: each thread 4 beats x 4 units of h2 (16
-//      accumulators), ReLU, times w3, summed across the 16 threads of a
-//      half-warp by shuffles; then the block's max over valid beats.
-// No thread holds a whole beat's 64 inputs and 64 outputs at once, as
-// dpi_mlp.cu's one-thread-per-beat layout does (255 registers and a
-// spill there): the register tile here is 32 floats, and the AES state
-// is dead before the MLP starts.
+// as MXU dots on it.  Here the payload is a flat run of beats cut into
+// 16-beat tiles, whatever the MTU (64 to 8192 B and beyond), so a
+// packet's beats spread over warps and blocks.  A block stages the
+// inverse S-box, the round keys and the MLP's weights (dpi_mma.cuh) in
+// shared memory once, by bulk copies (the S-box as 256 words and the
+// weights as dpi_mma.cuh's image, both built by the host); then per tile:
+//   1. AES: the tile's 64 16-byte blocks (its ciphertext double-buffered
+//      by cp.async), the round structure of aes_ecb.cu (state as four
+//      32-bit column words in registers).  The plaintext is stored to
+//      device memory once and kept in shared memory for the MLP: the
+//      bytes never make a second trip.  The S-box lookups keep
+//      aes_ecb.cu's bank conflicts; they go with that kernel's redesign.
+//   2. The MLP of dpi_mma.cuh on the tensor cores: the same device code
+//      as dpi_mlp.cu, so a beat scores the same bits in both kernels.
+//   3. The max per packet over the tile's rows, then one atomic max per
+//      packet and tile into scores.  Max is exact, so the result does not
+//      depend on which warp gets there first.
+// A large launch gives each warp whole tiles (four warps a block, up to
+// four blocks an SM).  A small one, such as the 2-packet tile of the
+// secure ingest (8 tiles), gives each tile a pair of warps in a block of
+// its own: each decrypts 32 of the blocks and computes half of layer 2,
+// and rank 1 hands its half of layer 3 to rank 0 through shared memory.
 //
-// Bound on the H100: operations.  2 x 16,448 FLOP per beat in float32
-// FMA on the CUDA cores (67 TFLOP/s) against 64 B read + 64 B written per
-// beat (+4 B per packet): about 257 FLOP per byte, above the card's
-// balance point.  No tensor cores: TF32 would give up the precision the
-// scores are held to (1e-5 against the float32 plain version).
+// Bound on the H100: operations.  Per beat the MLP's 16,384 int8 ops
+// (1,979 TOP/s) + 3 x 16,384 bf16 FLOP (989 TFLOP/s) + 128 fp32 FLOP
+// against 64 B read + 64 B written per beat (+4 B per packet): 0.031 ms
+// of operations against 0.020 ms of bytes at 8192 x 4 KiB.  AES's integer
+// work is not in that figure; it has no data-sheet peak.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "dpi_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kChunkBeats = 64;                  // 4 KiB of payload
-constexpr int kChunkBlocks = kChunkBeats * 4;    // 16-byte AES blocks
-constexpr int kIn = 64, kH1 = 128, kH2 = 64;
-constexpr int kBlocksPerSm = 2;
-
-// dynamic shared memory layout, in floats / words
-constexpr int kW1 = 0;                           // [k][u] = w1[k][u] * s1
-constexpr int kW2 = kW1 + kIn * kH1;             // [k][u] = w2[k][u] * s2
-constexpr int kH1T = kW2 + kH1 * kH2;            // [u][beat] layer-1 out
-constexpr int kW3 = kH1T + kH1 * kChunkBeats;    // [u] = w3[u][0] * s3
-constexpr int kB1 = kW3 + kH2;
-constexpr int kB2 = kB1 + kH1;
-constexpr int kBox = kB2 + kH2;                  // inverse S-box, 256 u32
+// dynamic shared memory layout, in 32-bit words after the staged weights
+constexpr int kBox = dpi::kWeightWords;          // inverse S-box, 256 u32
 constexpr int kRk = kBox + 256;                  // round keys, 44 u32
-constexpr int kWmax = kRk + 44;                  // per-warp maxima, 8
-constexpr int kPt = kWmax + 12;                  // plaintext chunk, 4 KiB
-constexpr int kSmemBytes = (kPt + kChunkBlocks * 4) * 4;
-static_assert(kPt % 4 == 0, "the plaintext chunk must be 16-byte aligned");
+constexpr int kPt = kRk + 44;                    // then per warp: a plaintext
+static_assert(kPt % 4 == 0, "the tiles must be 16-byte aligned");
+constexpr int kCtBytes = 2 * 32 * 16;            // and 2 x its lanes' blocks
+constexpr int kWarpBytes = dpi::kTileBytes + 2 * kCtBytes;
 
 __device__ __forceinline__ uint32_t xt4(uint32_t x) {
   // GF(2^8) xtime on the four bytes of x independently
@@ -112,166 +104,154 @@ __device__ __forceinline__ uint4 aes_decrypt_block(uint4 v,
                     t[3] ^ s_rk[3]);
 }
 
-// x = byte / 128 - 1, exactly the plain version's value
-__device__ __forceinline__ float beat_input(uint32_t word, int r) {
-  return fmaf(float(byte_of(word, r)), 0.0078125f, -1.0f);
+// scores[pkt] = max(scores[pkt], v), exact, so the order of the atomics
+// from different warps does not change the bits.  The launch fills scores
+// with 0xff bytes (a negative NaN), which both branches replace: as an
+// int it is -1, below any non-negative float; as an unsigned it is the
+// largest, above any negative float.
+__device__ __forceinline__ void atomic_max_score(float* addr, float v) {
+  if (__float_as_int(v) >= 0)
+    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
+  else
+    atomicMin(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
 }
 
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-fused_chain_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
-                   float* __restrict__ scores,
-                   const uint8_t* __restrict__ round_keys,
-                   const uint8_t* __restrict__ inv_sbox,
-                   const int8_t* __restrict__ w1, const float* __restrict__ b1,
-                   const int8_t* __restrict__ w2, const float* __restrict__ b2,
-                   const int8_t* __restrict__ w3,
-                   const float* __restrict__ s1p,
-                   const float* __restrict__ s2p,
-                   const float* __restrict__ s3p, long long n_pkts,
-                   int mtu) {
-  extern __shared__ __align__(16) float sm[];
-  float* w1s = sm + kW1;
-  float* w2s = sm + kW2;
-  float* h1t = sm + kH1T;
-  float* w3s = sm + kW3;
-  float* b1s = sm + kB1;
-  float* b2s = sm + kB2;
-  uint32_t* s_box = reinterpret_cast<uint32_t*>(sm + kBox);
-  uint32_t* s_rk = reinterpret_cast<uint32_t*>(sm + kRk);
-  float* wmax = sm + kWmax;
-  uint4* pt4 = reinterpret_cast<uint4*>(sm + kPt);
-  const uint32_t* pt32 = reinterpret_cast<const uint32_t*>(sm + kPt);
-
-  const int tid = threadIdx.x;
-  {
-    const float s1 = *s1p, s2 = *s2p, s3 = *s3p;
-    for (int i = tid; i < kIn * kH1; i += kThreads) {
-      w1s[i] = float(w1[i]) * s1;                // w1 is (64, 128)
-      w2s[i] = float(w2[i]) * s2;                // w2 is (128, 64)
-    }
-    for (int i = tid; i < kH1; i += kThreads) b1s[i] = b1[i];
-    for (int i = tid; i < kH2; i += kThreads) {
-      b2s[i] = b2[i];
-      w3s[i] = float(w3[i]) * s3;
-    }
-    for (int i = tid; i < 256; i += kThreads) s_box[i] = inv_sbox[i];
-    for (int i = tid; i < 44; i += kThreads) {
-      const uint8_t* k = round_keys + 4 * i;
-      s_rk[i] = uint32_t(k[0]) | (uint32_t(k[1]) << 8) |
-                (uint32_t(k[2]) << 16) | (uint32_t(k[3]) << 24);
+// The max of each packet over the rows of the tile at beat tb0, one
+// atomic each; all 32 lanes of the warp that holds the scores y call it.
+__device__ __forceinline__ void max_per_packet(float* scores, float2 y,
+                                               long long tb0,
+                                               long long n_beats, int beats,
+                                               int lane) {
+  const long long pkt0 = tb0 / beats;
+  const long long last = min(tb0 + dpi::kRows, n_beats) - 1;
+  if ((last / beats) == pkt0) {                  // one packet: a warp max
+    const long long row = tb0 + (lane >> 2);     // rows g and g + 8
+    float m = fmaxf(row <= last ? y.x : -CUDART_INF_F,
+                    row + 8 <= last ? y.y : -CUDART_INF_F);
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (lane == 0) atomic_max_score(scores + pkt0, m);
+    return;
+  }
+  // packets end inside the tile: lane 0 walks the rows
+  long long pkt = pkt0;
+  int in_pkt = int(tb0 - pkt0 * beats);
+  float m = -CUDART_INF_F;
+#pragma unroll
+  for (int r = 0; r < dpi::kRows; ++r) {
+    const float v = __shfl_sync(0xffffffffu, r < 8 ? y.x : y.y, (r & 7) * 4);
+    if (lane == 0 && tb0 + r <= last) {
+      m = fmaxf(m, v);
+      if (++in_pkt == beats || tb0 + r == last) {
+        atomic_max_score(scores + pkt, m);
+        m = -CUDART_INF_F;
+        in_pkt = 0;
+        ++pkt;
+      }
     }
   }
-  __syncthreads();
+}
 
-  const int bg = tid >> 4;            // beat group: beats 4bg .. 4bg+3
-  const int ug = tid & 15;            // unit group
-  const int lane = tid & 31, warp = tid >> 5;
-  const int beats = mtu / 64;
-  const long long blocks_per_pkt = mtu / 16;
-  const float4* w1s4 = reinterpret_cast<const float4*>(w1s);
-  const float4* w2s4 = reinterpret_cast<const float4*>(w2s);
-  const float4* h1t4 = reinterpret_cast<const float4*>(h1t);
+// the two warps of a pair meet (named barrier 1 + pair; 0 is
+// __syncthreads)
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
+}
 
-  for (long long pkt = blockIdx.x; pkt < n_pkts; pkt += gridDim.x) {
-    float run_max = -CUDART_INF_F;                 // read by thread 0
-    for (int beat0 = 0; beat0 < beats; beat0 += kChunkBeats) {
-      const int nb = min(kChunkBeats, beats - beat0);
-      // ---- 1. AES decrypt: one 16-byte block per thread ------------------
-      if (tid < 4 * nb) {
-        const long long blk = pkt * blocks_per_pkt + 4LL * beat0 + tid;
-        const uint4 p = aes_decrypt_block(in[blk], s_box, s_rk);
-        out[blk] = p;
-        pt4[tid] = p;
-      }
-      __syncthreads();
+__global__ void __launch_bounds__(dpi::kWarps * 32, dpi::kBlocksPerSm)
+fused_chain_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
+                   float* __restrict__ scores,
+                   const uint32_t* __restrict__ round_keys,
+                   const uint32_t* __restrict__ inv_sbox,
+                   const uint8_t* __restrict__ image, long long n_pkts,
+                   int mtu, int paired) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  const uint32_t* s_box = sm + kBox;
+  const uint32_t* s_rk = sm + kRk;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warps = blockDim.x >> 5;
+  // paired: two warps a tile (rank 0 and 1), each decrypting half of it
+  // and computing half of layer 2; else one warp a tile, rank 0
+  const int per_tile = paired ? 2 : 1, rank = paired ? warp & 1 : 0;
+  uint8_t* pts = reinterpret_cast<uint8_t*>(sm + kPt);
+  uint8_t* pt = pts + (warp - rank) * dpi::kTileBytes;
+  // a pair's second plaintext slot carries rank 1's half of layer 3
+  float2* share = reinterpret_cast<float2*>(pt + dpi::kTileBytes);
+  uint4* ct = reinterpret_cast<uint4*>(pts + warps * dpi::kTileBytes +
+                                       warp * 2 * kCtBytes);
 
-      // ---- 2. layer 1: 4 beats x 8 units per thread ----------------------
-      // units ug*4 .. ug*4+3 and 64 + ug*4 .. 64 + ug*4+3, so that the
-      // 16 threads of a half-warp read 16 consecutive float4s
-      float acc[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-      for (int k4 = 0; k4 < kIn / 4; ++k4) {
-        uint32_t xw[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xw[i] = pt32[(4 * bg + i) * 16 + k4];
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const int k = 4 * k4 + kk;
-          const float4 wa = w1s4[k * (kH1 / 4) + ug];
-          const float4 wb = w1s4[k * (kH1 / 4) + 16 + ug];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float x = beat_input(xw[i], kk);
-            acc[i][0] = fmaf(x, wa.x, acc[i][0]);
-            acc[i][1] = fmaf(x, wa.y, acc[i][1]);
-            acc[i][2] = fmaf(x, wa.z, acc[i][2]);
-            acc[i][3] = fmaf(x, wa.w, acc[i][3]);
-            acc[i][4] = fmaf(x, wb.x, acc[i][4]);
-            acc[i][5] = fmaf(x, wb.y, acc[i][5]);
-            acc[i][6] = fmaf(x, wb.z, acc[i][6]);
-            acc[i][7] = fmaf(x, wb.w, acc[i][7]);
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int u = (j < 4) ? 4 * ug + j : 64 + 4 * ug + (j - 4);
-        const float b = b1s[u];
-        reinterpret_cast<float4*>(h1t + u * kChunkBeats)[bg] = make_float4(
-            fmaxf(acc[0][j] + b, 0.0f), fmaxf(acc[1][j] + b, 0.0f),
-            fmaxf(acc[2][j] + b, 0.0f), fmaxf(acc[3][j] + b, 0.0f));
-      }
-      __syncthreads();
-
-      // ---- 3. layers 2 and 3: 4 beats x 4 units per thread ---------------
-      float acc2[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc2[i][j] = 0.0f;
-#pragma unroll 4
-      for (int k = 0; k < kH1; ++k) {
-        const float4 h = h1t4[k * (kChunkBeats / 4) + bg];
-        const float4 w = w2s4[k * (kH2 / 4) + ug];
-        const float hv[4] = {h.x, h.y, h.z, h.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc2[i][0] = fmaf(hv[i], w.x, acc2[i][0]);
-          acc2[i][1] = fmaf(hv[i], w.y, acc2[i][1]);
-          acc2[i][2] = fmaf(hv[i], w.z, acc2[i][2]);
-          acc2[i][3] = fmaf(hv[i], w.w, acc2[i][3]);
-        }
-      }
-      float y[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        y[i] = 0.0f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int u = 4 * ug + j;
-          y[i] = fmaf(fmaxf(acc2[i][j] + b2s[u], 0.0f), w3s[u], y[i]);
-        }
-        // sum over the 16 unit groups of this half-warp (same beats)
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          y[i] += __shfl_xor_sync(0xffffffffu, y[i], off);
-      }
-      float m = -CUDART_INF_F;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (4 * bg + i < nb) m = fmaxf(m, y[i]);
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
-      if (lane == 0) wmax[warp] = m;
-      __syncthreads();
-      if (tid == 0) {
-#pragma unroll
-        for (int q = 0; q < kThreads / 32; ++q) run_max = fmaxf(run_max, wmax[q]);
-      }
+  const int beats = mtu / 64;                    // per packet
+  const long long n_beats = n_pkts * beats;
+  const long long n_tiles = (n_beats + dpi::kRows - 1) / dpi::kRows;
+  const long long stride = (long long)gridDim.x * warps / per_tile;
+  // a lane's 16-byte blocks of tile t: lane + 32 (h + rank), h < n_mine,
+  // into stage st of its ciphertext buffer (zero past the end); the next
+  // tile's come in while this one is decrypted and scored
+  const int n_mine = 2 / per_tile;
+  auto load = [&](long long t, int st) {
+    for (int h = 0; h < n_mine; ++h) {
+      const long long blk = 4 * t * dpi::kRows + lane + 32 * (h + rank);
+      const bool valid = blk < 4 * n_beats;
+      dpi::cp_async16(ct + st * 64 + 32 * h + lane, valid ? in + blk : in,
+                      valid);
     }
-    if (tid == 0) scores[pkt] = run_max;
+  };
+  long long t = ((long long)blockIdx.x * warps + warp) / per_tile;
+  if (t < n_tiles) load(t, 0);                   // in flight while staging
+  dpi::cp_async_commit();
+  dpi::Copies c(sm);
+  if (tid == 0) {
+    c.start(dpi::kImageBytes + 256 * 4 + 44 * 4);
+    c.copy(sm, image, dpi::kImageBytes);
+    c.copy(sm + kBox, inv_sbox, 256 * 4);
+    c.copy(sm + kRk, round_keys, 44 * 4);
+  }
+  __syncthreads();                               // the mbarrier is set up
+  c.wait();
+  const dpi::Weights w = dpi::weights_at(sm);
+
+  for (int st = 0; t < n_tiles; t += stride, st ^= 1) {
+    const long long beat0 = t * dpi::kRows;
+    if (t + stride < n_tiles) load(t + stride, st ^ 1);
+    dpi::cp_async_commit();
+    dpi::cp_async_wait<1>();                     // this tile's blocks are in
+    // ---- AES decrypt, both of a lane's blocks before either is stored, so
+    // that the two round chains overlap
+    uint4 p[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (h < n_mine)
+        p[h] = aes_decrypt_block(ct[st * 64 + 32 * h + lane], s_box, s_rk);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h >= n_mine) break;
+      const int c = lane + 32 * (h + rank), row = c >> 2;
+      if (beat0 + row < n_beats) out[4 * beat0 + c] = p[h];
+      else p[h] = make_uint4(0u, 0u, 0u, 0u);    // rows past the end: zero
+      *reinterpret_cast<uint4*>(pt + row * dpi::kRowBytes + (c & 3) * 16) =
+          p[h];
+    }
+    if (paired) pair_sync(warp >> 1); else __syncwarp();
+    // ---- the MLP on the plaintext -----------------------------------------
+    float2 y;
+    if (!paired) {
+      y = dpi::tile_scores(pt, w, lane);
+    } else {
+      float2 half[1];
+      if (rank == 0) {
+        dpi::tile_halves<0, 1>(pt, w, lane, half);
+      } else {
+        dpi::tile_halves<1, 1>(pt, w, lane, half);
+        share[lane] = half[0];
+      }
+      pair_sync(warp >> 1);
+      const float2 other = share[lane];          // used by rank 0 only
+      y = make_float2(half[0].x + other.x, half[0].y + other.y);
+    }
+    // ---- rank 0: the max of each packet over this tile's rows
+    if (rank == 0) max_per_packet(scores, y, beat0, n_beats, beats, lane);
+    if (paired) pair_sync(warp >> 1); else __syncwarp();  // slots free again
   }
 }
 
@@ -279,19 +259,17 @@ fused_chain_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
 
 extern "C" {
 
-// in/out: n_pkts x mtu bytes, 16-byte aligned, mtu % 64 == 0.  scores:
-// (n_pkts,) float32.  round_keys (11, 16) uint8; inv_sbox 256 uint8.  w1
-// (64,128), w2 (128,64), w3 (64,1) int8; b1 (128,), b2 (64,) float32; s1,
-// s2, s3 one float32 each.  The shared-memory opt-in and the SM count are
-// looked up once per device, not on every launch.
+// in/out: n_pkts x mtu bytes, mtu % 64 == 0.  scores: (n_pkts,) float32.
+// round_keys: the (11, 16) uint8 schedule, read as 44 words; inv_sbox:
+// the inverse S-box as 256 uint32; image: the weight image
+// (dpi::kImageBytes, see dpi_mma.cuh).  Every array 16-byte aligned.  The
+// SM count is looked up once per device, not on every launch.
 int fused_chain_launch(const void* in, void* out, void* scores,
                        const void* round_keys, const void* inv_sbox,
-                       const void* w1, const void* b1, const void* w2,
-                       const void* b2, const void* w3, const void* s1,
-                       const void* s2, const void* s3, long long n_pkts,
-                       int mtu, void* stream) {
+                       const void* image, long long n_pkts, int mtu,
+                       void* stream) {
   constexpr int kMaxDevices = 64;
-  static int sms_of[kMaxDevices] = {0};          // 0: not configured yet
+  static int sms_of[kMaxDevices] = {0};          // 0: not looked up yet
   if (n_pkts <= 0) return 0;
   if (mtu <= 0 || mtu % 64) return (int)cudaErrorInvalidValue;
   int dev = 0;
@@ -299,25 +277,30 @@ int fused_chain_launch(const void* in, void* out, void* scores,
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (sms_of[dev] == 0) {
-    err = cudaFuncSetAttribute(fused_chain_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
     int sms = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
     sms_of[dev] = sms;
   }
-  long long blocks = n_pkts;
-  const long long resident = (long long)kBlocksPerSm * sms_of[dev];
-  if (blocks > resident) blocks = resident;        // persistent grid
-  fused_chain_kernel<<<(unsigned)blocks, kThreads, kSmemBytes,
-                       (cudaStream_t)stream>>>(
+  // the identity of atomic_max_score
+  err = cudaMemsetAsync(scores, 0xff, n_pkts * sizeof(float),
+                        (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  // A launch too small to give every SM's tensor cores a tile of their own
+  // (a 2-packet tile is 8 tiles) pairs the warps: two a tile, one pair a
+  // block, so that each warp decrypts and scores half as much and the
+  // blocks spread over as many SMs.
+  const long long n_tiles =
+      (n_pkts * (mtu / 64) + dpi::kRows - 1) / dpi::kRows;
+  const int paired = 2 * n_tiles <= (long long)dpi::kWarps * sms_of[dev];
+  const int warps = paired ? 2 : dpi::kWarps;
+  const long long blocks =
+      dpi::grid_blocks(n_tiles * (paired ? 2 : 1), warps, sms_of[dev]);
+  fused_chain_kernel<<<(unsigned)blocks, warps * 32,
+                       kPt * 4 + warps * kWarpBytes, (cudaStream_t)stream>>>(
       (const uint4*)in, (uint4*)out, (float*)scores,
-      (const uint8_t*)round_keys, (const uint8_t*)inv_sbox,
-      (const int8_t*)w1, (const float*)b1, (const int8_t*)w2,
-      (const float*)b2, (const int8_t*)w3, (const float*)s1,
-      (const float*)s2, (const float*)s3, n_pkts, mtu);
+      (const uint32_t*)round_keys, (const uint32_t*)inv_sbox,
+      (const uint8_t*)image, n_pkts, mtu, paired);
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled on
 its own into ``build/repro_torch/<name>-<hash>.so`` for ``sm_90a``.  The
-hash covers the source and the flags, so a changed source rebuilds and
-an unchanged one is reused.  The build runs at first use: the first
+hash covers the source, every shared header ``csrc/*.cuh`` and the
+flags, so a changed source or header rebuilds and an unchanged one is
+reused.  The build runs at first use: the first
 kernel launch (or ``build_all()``, which ``chip_smoke.py`` times) starts
 one ``nvcc`` per source, all at once, and waits for them.  Nothing is
 downloaded; the sources are the ones in this checkout.
@@ -44,8 +45,12 @@ def _nvcc() -> str:
 
 
 def target(name: str) -> Path:
-    """The shared library ``name`` builds into (content-addressed)."""
+    """The shared library ``name`` builds into (content-addressed: the
+    source, the headers it may include, the flags)."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

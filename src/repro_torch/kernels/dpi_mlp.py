@@ -3,8 +3,12 @@
 A ternary fully-connected network (weights in {-1, 0, +1} with a float
 scale per layer) scores every 64-byte beat of every payload.
 ``dpi_scores_cuda`` launches the hand-written Hopper kernel in
-``csrc/dpi_mlp.cu`` (weights staged pre-scaled in shared memory, one
-thread per beat, fp32 FMA on the CUDA cores).  ``dpi_scores_ref`` is the
+``csrc/dpi_mlp.cu``: the MLP of ``csrc/dpi_mma.cuh`` on the tensor cores,
+one warp per 16-beat tile, layer 1 exact in int8 (``byte ^ 0x80`` is
+``128 * x`` as s8), layer 2 as three bf16 products over an exact split of
+h1 with fp32 accumulation, layer 3 in fp32.  The kernels take the
+weights as one image in the order the tensor cores read them
+(``weight_image``), built once per weight set.  ``dpi_scores_ref`` is the
 plain PyTorch version from ``ref.py``.
 
 Training and ternarization stay in the reference package for now: the
@@ -17,7 +21,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from collections import OrderedDict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -55,10 +60,68 @@ def dpi_params_from_numpy(params: Dict[str, np.ndarray],
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("dpi_mlp")
-    lib.dpi_mlp_launch.argtypes = [ctypes.c_void_p] * 10 + [
+    lib.dpi_mlp_launch.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_longlong, ctypes.c_void_p]
     lib.dpi_mlp_launch.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def fragment_order() -> Tuple[np.ndarray, np.ndarray]:
+    """The order in which the kernels read w1 and w2 as the tensor cores'
+    B operands (``csrc/dpi_mma.cuh``): for each byte of the packed w1 (s8)
+    and each element of the packed w2 (bf16), its flat index into w1 (64,
+    128) and w2 (128, 64).  w1: [ks 2][j 16][lane 32][word 2][byte 4] of
+    w1[32ks + 16word + 4t + byte][8j + g]; w2: [kc 8][n 8][lane 32][word
+    2][half 2] of w2[16kc + 8word + 2t + half][8n + g]; lane = 4g + t.
+    These are the m16n8k32 s8 and m16n8k16 bf16 B-fragment layouts."""
+    ks, j, lane, word, byte = np.meshgrid(np.arange(2), np.arange(16),
+                                          np.arange(32), np.arange(2),
+                                          np.arange(4), indexing="ij")
+    w1 = (32 * ks + 16 * word + 4 * (lane & 3) + byte) * D_H1 \
+        + 8 * j + (lane >> 2)
+    kc, n, lane, word, half = np.meshgrid(np.arange(8), np.arange(8),
+                                          np.arange(32), np.arange(2),
+                                          np.arange(2), indexing="ij")
+    w2 = (16 * kc + 8 * word + 2 * (lane & 3) + half) * D_H2 \
+        + 8 * n + (lane >> 2)
+    return w1.reshape(-1), w2.reshape(-1)
+
+
+def weight_image(params: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The kernels' weights as one image that a block copies into shared
+    memory as it is (25,616 uint8 on the parameters' device): w1 as s8
+    and w2 as bf16 (exact: both are ternary) in ``fragment_order()``, then
+    float32 b1, b2, w3 * s3 (the plain version's product), s1 / 128 (exact:
+    a power of two) and s2, and two zero words."""
+    p = params
+    i1, i2 = (torch.from_numpy(i).to(p["w1"].device)
+              for i in fragment_order())
+    tail = torch.cat([p["b1"], p["b2"],
+                      p["w3"].reshape(-1).to(torch.float32) * p["s3"],
+                      (p["s1"] * (1.0 / 128)).reshape(1), p["s2"].reshape(1),
+                      p["b1"].new_zeros(2)])
+    return torch.cat([p["w1"].reshape(-1)[i1].view(torch.uint8),
+                      p["w2"].reshape(-1)[i2].to(torch.bfloat16)
+                      .view(torch.uint8),
+                      tail.view(torch.uint8)])
+
+
+# the images of the last few weight sets, so that a set is packed once and
+# not on every launch.  An entry keeps its tensors alive, so that their
+# addresses cannot be reused, and names their version counters, so that
+# an in-place update of any of them packs anew.
+_IMAGES: "OrderedDict[tuple, tuple]" = OrderedDict()
+
+
+def _image_of(p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    key = tuple((p[k].data_ptr(), p[k]._version) for k in _SHAPES)
+    hit = _IMAGES.get(key)
+    if hit is None:
+        hit = _IMAGES[key] = (dict(p), weight_image(p))
+        while len(_IMAGES) > 4:
+            _IMAGES.popitem(last=False)
+    return hit[1]
 
 
 def _checked(params: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
@@ -94,11 +157,9 @@ def dpi_scores_cuda(payload: torch.Tensor, params: Dict) -> torch.Tensor:
         lib = _lib()
         with torch.cuda.device(payload.device):
             stream = torch.cuda.current_stream(payload.device).cuda_stream
-            err = lib.dpi_mlp_launch(
-                payload.data_ptr(), p["w1"].data_ptr(), p["b1"].data_ptr(),
-                p["w2"].data_ptr(), p["b2"].data_ptr(), p["w3"].data_ptr(),
-                p["s1"].data_ptr(), p["s2"].data_ptr(), p["s3"].data_ptr(),
-                out.data_ptr(), n * beats, stream)
+            err = lib.dpi_mlp_launch(payload.data_ptr(),
+                                     _image_of(p).data_ptr(), out.data_ptr(),
+                                     n * beats, stream)
             dpi_scores_cuda.launches += 1
         _build.check(lib, err, "dpi_mlp")
     return out.reshape(n, beats)

@@ -4,8 +4,11 @@ the plaintext, in one pass over the payload.
 ``fused_decrypt_dpi_cuda`` launches the hand-written Hopper kernel in
 ``csrc/fused_chain.cu`` (the plaintext stays in shared memory between
 the two services, so the payload is read from device memory once and
-written once).  ``fused_decrypt_dpi_ref`` is the plain PyTorch version
-from ``ref.py``: decrypt, then score.  ``fused_decrypt_dpi`` dispatches
+written once; the MLP is ``csrc/dpi_mma.cuh``'s, the same device code as
+``dpi_mlp``, so each beat scores the same bits as there; a packet's
+beats are spread over blocks in 16-beat tiles).
+``fused_decrypt_dpi_ref`` is the plain PyTorch version from ``ref.py``:
+decrypt, then score.  ``fused_decrypt_dpi`` dispatches
 between them as ``ops.py`` does.
 
 The score is the reference's: the max over EVERY 64-byte beat of the
@@ -21,12 +24,13 @@ import ctypes
 import functools
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as R
-from repro_torch.kernels.aes_ecb import _round_keys_on, _sbox
-from repro_torch.kernels.dpi_mlp import _checked
+from repro_torch.kernels.aes_ecb import _round_keys_on
+from repro_torch.kernels.dpi_mlp import _checked, _image_of
 
 BLOCK_N = 16              # packets per tile, as the reference's grid step
 
@@ -34,9 +38,16 @@ fused_decrypt_dpi_ref = R.fused_decrypt_dpi_ref
 
 
 @functools.lru_cache(maxsize=None)
+def _inv_sbox_words(device: torch.device) -> torch.Tensor:
+    """The inverse S-box as 256 int32 words on ``device``, as the kernel
+    keeps it in shared memory (made once per device)."""
+    return torch.as_tensor(R.INV_SBOX.astype(np.int32)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_chain")
-    lib.fused_chain_launch.argtypes = [ctypes.c_void_p] * 13 + [
+    lib.fused_chain_launch.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     lib.fused_chain_launch.restype = ctypes.c_int
     return lib
@@ -58,6 +69,8 @@ def fused_decrypt_dpi_cuda(payload: torch.Tensor, round_keys,
         raise ValueError("payload must be contiguous and 16-byte aligned")
     dev = payload.device
     rk = _round_keys_on(round_keys, dev)
+    if rk.data_ptr() % 16:               # the kernel copies it in 16 B
+        rk = rk.clone()
     p = _checked(params, dev)
     n, mtu = payload.shape
     plain = torch.empty_like(payload)
@@ -69,10 +82,8 @@ def fused_decrypt_dpi_cuda(payload: torch.Tensor, round_keys,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_chain_launch(
             payload.data_ptr(), plain.data_ptr(), scores.data_ptr(),
-            rk.data_ptr(), _sbox(dev, True).data_ptr(),
-            p["w1"].data_ptr(), p["b1"].data_ptr(), p["w2"].data_ptr(),
-            p["b2"].data_ptr(), p["w3"].data_ptr(), p["s1"].data_ptr(),
-            p["s2"].data_ptr(), p["s3"].data_ptr(), n, mtu, stream)
+            rk.data_ptr(), _inv_sbox_words(dev).data_ptr(),
+            _image_of(p).data_ptr(), n, mtu, stream)
         fused_decrypt_dpi_cuda.launches += 1
     _build.check(lib, err, "fused_chain")
     return plain, scores

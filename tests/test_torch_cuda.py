@@ -10,8 +10,11 @@ imports no JAX, so it runs on a machine with the card and PyTorch only:
 AES, CRC32 and the segmented reduce must be bit-exact (CRC32 also against
 zlib), preprocessing bit-exact on the sparse words and within 1 ulp on
 the dense ones; DPI scores within rtol = atol = 1e-5, the worst error
-printed.  The fused decrypt+DPI chain: plaintext bit-exact, scores
-within 1e-5.
+printed, and within 1e-5 of a float64 evaluation of the same MLP.  The
+fused decrypt+DPI chain: plaintext bit-exact, scores within 1e-5, and
+bit-equal to ``dpi_scores(plaintext).amax(1)`` (both kernels run the MLP
+of ``csrc/dpi_mma.cuh``, and a beat's score does not depend on the tile,
+warp or block that computes it).
 """
 import zlib
 
@@ -64,8 +67,26 @@ def test_cuda_crc32_matches_plain(cuda, n, mtu):
     np.testing.assert_array_equal(got, want)
 
 
+def _float64_scores(pay, params):
+    """The MLP of the reference in float64, (N, MTU) -> (N, MTU // 64)."""
+    x = pay.reshape(-1, 64).double() / 128.0 - 1.0
+    h = torch.relu(x @ (params["w1"].double() * params["s1"].double())
+                   + params["b1"].double())
+    h = torch.relu(h @ (params["w2"].double() * params["s2"].double())
+                   + params["b2"].double())
+    y = h @ (params["w3"].double() * params["s3"].double())
+    return y.reshape(pay.shape[0], -1)
+
+
+def _excess(got, want) -> float:
+    """The largest |got - want| / (atol + rtol * |want|): <= 1 passes."""
+    return float(((got.double() - want).abs()
+                  / (DPI_ATOL + DPI_RTOL * want.abs())).max())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,mtu", [(1, 64), (77, 4096)])
+@pytest.mark.parametrize("n,mtu", [(1, 64), (77, 4096), (5, 192), (3, 320),
+                                   (7, 1024), (9, 8192), (1029, 1088)])
 def test_cuda_dpi_matches_plain(cuda, n, mtu):
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(n)
@@ -73,9 +94,54 @@ def test_cuda_dpi_matches_plain(cuda, n, mtu):
     params = dpi_params_from_numpy(load_dpi_params_seed0(), cuda)
     got = ops.dpi_scores(pay, params)
     want = ops.dpi_scores(pay, params, impl="ref")
-    print(f"dpi cuda: worst abs error "
+    print(f"dpi cuda n={n} mtu={mtu}: worst abs error "
           f"{float((got - want).abs().max()):.3e}")
     torch.testing.assert_close(got, want, rtol=DPI_RTOL, atol=DPI_ATOL)
+    assert _excess(got, _float64_scores(pay, params)) <= 1.0
+
+
+def _adversarial_params(cuda, weights):
+    p = {k: np.asarray(v) for k, v in load_dpi_params_seed0().items()}
+    if weights != "fixture":
+        for k in ("w1", "w2", "w3"):
+            p[k] = np.full_like(p[k], 1 if weights == "plus1" else -1)
+    return dpi_params_from_numpy(p, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["fixture", "plus1", "minus1"])
+@pytest.mark.parametrize("bytes_", ["random", "0x00", "0xFF"])
+def test_cuda_dpi_adversarial_bytes_and_weights(cuda, weights, bytes_):
+    """The largest sums: weights forced to all +1 or all -1, beats of all
+    0x00 or all 0xFF.  The kernel stays within 1e-5 of float64, and of the
+    plain version wherever the plain version's own float32 rounding keeps
+    it within 1e-5 of float64 (all +1 on random bytes sums cancelling
+    products; there the kernel must be the closer of the two)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = _adversarial_params(cuda, weights)
+    if bytes_ == "random":
+        pay = _t(np.random.default_rng(0).integers(0, 256, (33, 4096),
+                                                   dtype=np.uint8)).to(cuda)
+    else:
+        pay = torch.full((33, 4096), 0 if bytes_ == "0x00" else 0xFF,
+                         dtype=torch.uint8, device=cuda)
+    got = ops.dpi_scores(pay, params)
+    want = ops.dpi_scores(pay, params, impl="ref")
+    exact = _float64_scores(pay, params)
+    print(f"dpi cuda ({weights}, {bytes_}): worst abs error vs plain "
+          f"{float((got - want).abs().max()):.3e}, vs float64 "
+          f"{float((got.double() - exact).abs().max()):.3e}")
+    assert _excess(got, exact) <= 1.0
+    if _excess(want, exact) <= 1.0:
+        torch.testing.assert_close(got, want, rtol=DPI_RTOL, atol=DPI_ATOL)
+    else:
+        assert _excess(got, exact) < _excess(want, exact)
+    # the fused kernel scores the same bits as dpi_mlp
+    rk = ops.expand_key(np.arange(16, dtype=np.uint8))
+    ct = ops.aes_ecb(pay.reshape(-1, 16), rk).reshape(pay.shape)
+    plain, fused = fused_decrypt_dpi(ct, rk, params)
+    assert torch.equal(plain, pay)
+    assert torch.equal(fused, got.amax(dim=1))
 
 
 @pytest.mark.cuda
@@ -190,6 +256,31 @@ def test_cuda_fused_chain_matches_plain(cuda, n, mtu):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,mtu", [(1, 64), (17, 256), (33, 1024),
+                                   (131, 4096), (5, 8192), (300, 4096)])
+def test_cuda_fused_scores_are_dpi_mlp_bits(cuda, n, mtu):
+    """Per packet the fused kernel's score is dpi_mlp's max over the
+    plaintext's beats, bit for bit: one device MLP for both kernels,
+    whether the launch pairs its warps (small) or not (300 packets)."""
+    pay, rk, params = _fused_inputs(cuda, n, mtu, 3 * n + mtu)
+    plain, scores = fused_decrypt_dpi(pay, rk, params)
+    assert torch.equal(scores, ops.dpi_scores(plain, params).amax(dim=1))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_two_packet_tiles_are_the_one_shot_rows(cuda):
+    """The secure ingest's launch: 2-packet tiles (paired warps) against
+    one launch over all 131 packets (one warp a tile), bit for bit."""
+    pay, rk, params = _fused_inputs(cuda, 131, 4096, 11)
+    plain, scores = fused_decrypt_dpi(pay, rk, params)
+    for lo in range(0, 131, 2):
+        hi = min(lo + 2, 131)
+        p_t, s_t = fused_decrypt_dpi_tile(pay[lo:hi], rk, params, tile_pkts=2)
+        assert torch.equal(p_t, plain[lo:hi])
+        assert torch.equal(s_t, scores[lo:hi]), f"tile [{lo}, {hi})"
+
+
+@pytest.mark.cuda
 def test_cuda_fused_chain_roundtrip_and_tiles(cuda):
     """AES-encrypt on the card, fused-decrypt: the bytes come back; a
     full tile and a short final tile give the one-shot rows."""
@@ -208,27 +299,27 @@ def test_cuda_fused_chain_roundtrip_and_tiles(cuda):
 
 @pytest.mark.cuda
 def test_cuda_fused_chain_is_fp32_not_tf32(cuda):
-    """The kernel's MLP is float32 FMA whatever PyTorch's TF32 switch
-    says: with TF32 allowed for matmuls, its scores still sit within
-    1e-5 of a float64 evaluation of the same MLP (TF32 keeps about three
-    decimal digits)."""
+    """The kernels' MLP is exact int8, exact bf16 products summed in fp32
+    and fp32 FMA, whatever PyTorch's TF32 switch says: with TF32 allowed
+    for matmuls, the fused and the dpi_mlp scores still sit within 1e-5 of
+    a float64 evaluation of the same MLP (TF32 keeps about three decimal
+    digits)."""
     pay, rk, params = _fused_inputs(cuda, 64, 4096, 9)
     before = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         plain, scores = fused_decrypt_dpi(pay, rk, params)
+        beats = ops.dpi_scores(plain, params)
         torch.cuda.synchronize()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
-    x = plain.reshape(-1, 64).double() / 128.0 - 1.0
-    h = torch.relu(x @ (params["w1"].double() * params["s1"].double())
-                   + params["b1"].double())
-    h = torch.relu(h @ (params["w2"].double() * params["s2"].double())
-                   + params["b2"].double())
-    y = (h @ (params["w3"].double() * params["s3"].double())).reshape(64, -1)
+    y = _float64_scores(plain, params)
     worst = float((scores.double() - y.amax(dim=1)).abs().max())
-    print(f"fused cuda vs float64: worst abs error {worst:.3e}")
+    worst_beat = float((beats.double() - y).abs().max())
+    print(f"fused cuda vs float64: worst abs error {worst:.3e}; dpi_mlp "
+          f"{worst_beat:.3e}")
     assert worst <= DPI_ATOL
+    assert _excess(beats, y) <= 1.0
 
 
 @pytest.mark.cuda

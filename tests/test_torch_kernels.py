@@ -213,6 +213,30 @@ def test_cuda_impl_on_cpu_tensor_raises():
             ops.dpi_scores(pay, params, impl=bad)
 
 
+def test_build_target_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel's library is named by the hash of its source, the flags
+    and every shared header in csrc/: a changed header (dpi_mma.cuh, which
+    dpi_mlp.cu and fused_chain.cu include) names a new library, so a
+    stale one is never reused."""
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in _build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (csrc / f.name).write_bytes(f.read_bytes())
+    assert (csrc / "dpi_mma.cuh").exists()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {name: _build.target(name) for name in _build.SOURCES}
+    assert before == {name: _build.target(name) for name in _build.SOURCES}
+    header = csrc / "dpi_mma.cuh"
+    header.write_text(header.read_text() + "\n// changed\n")
+    after = {name: _build.target(name) for name in _build.SOURCES}
+    for name in ("dpi_mlp", "fused_chain"):
+        assert after[name] != before[name], name
+    (csrc / "new_helper.cuh").write_text("#pragma once\n")
+    assert _build.target("dpi_mlp") != after["dpi_mlp"]
+
+
 def test_default_device_needs_a_card():
     """Entry points default to the card; without one they raise instead
     of quietly running on the CPU."""
