@@ -10,7 +10,9 @@ the allreduce fabric, and the §8 ingest of encrypted shards that trains
 the DLRM.
 
   0. device   the card's name and power limit (nvidia-smi)
-  1. build    nvcc, one process per kernel source, all at once
+  1. build    nvcc, one process per kernel source, all at once; each
+              kernel function's registers, shared memory and spills
+              from ptxas's report
   2. kernels  AES-128-ECB, CRC32, the DPI MLP, the DLRM preprocessing,
               the segmented reduce and the fused decrypt+DPI pass at
               main-path sizes against their plain PyTorch versions on
@@ -18,7 +20,10 @@ the DLRM.
               its device time from a torch.profiler trace (median
               launch; CUDA events around back-to-back calls if the
               trace holds no device time), ``call_ms`` the wrapper's
-              whole call by CUDA events
+              whole call by CUDA events.  Also: the fused kernel with
+              each number of AES table copies (16, 32) in turns; the
+              segmented reduce and torch.sum in turns; the preprocessing
+              tile beside a one-element PyTorch add (the launch floor)
   3. main     256 QPs x 128 KiB (one 8192-packet, 32 MiB receive batch)
               RDMA-written across a lossy link by two RdmaNodes; the
               sender encrypts, the receiver decrypts on-path and runs DPI
@@ -66,6 +71,7 @@ and prints no verdict; it also exits non-zero, printing nothing, without
 a CUDA device or without the port's sources beside it.
 """
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -110,6 +116,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 INT8_OPS = 1979e12
 BF16_FLOPS = 989e12
+# shared-memory table lookups: one 32-lane wavefront an SM a cycle, at the
+# data sheet's 132 SMs and 1.98 GHz boost clock (the clock of the fp32
+# figure: 132 x 128 lanes x 2 x 1.98 GHz = 67 TFLOP/s)
+SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
+AES_LOOKUPS = 16 * 10           # a 16-byte block: 16 bytes x 10 rounds
 
 
 def _median_ms(fn, reps: int, burst: int = 1) -> float:
@@ -131,37 +142,57 @@ def _median_ms(fn, reps: int, burst: int = 1) -> float:
     return statistics.median(times)
 
 
+def _trace(calls, reps: int):
+    """One torch.profiler trace of ``reps`` turns of ``calls``, a list of
+    (key, fn) called in that order each turn, after one warm-up turn.
+    Returns key -> the device ms of each call in order (the CUDA kernel
+    events whose name holds key), or None if a key's events are not one a
+    call (a trace that holds no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _, fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for _, fn in calls:
+                fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.time_range.elapsed_us() > 0),
+                    key=lambda e: e.time_range.start)
+    out = {}
+    for key in dict(calls):
+        times = [e.time_range.elapsed_us() / 1e3 for e in events
+                 if key in e.name]
+        if len(times) != reps * sum(k == key for k, _ in calls):
+            return None
+        out[key] = times
+    return out
+
+
 def _kernel_ms(fn, kernel: str, reps: int):
     """Device time of one launch of the CUDA kernel whose name holds
     ``kernel``: the median over ``reps`` launches in a torch.profiler
     trace, so host work in the wrapper is not counted.  Returns (ms,
     "profiler"), or (ms, "events") from ``_median_ms`` over bursts of 10
     calls when the trace holds no device time for the kernel."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if kernel in e.name
-             and e.device_type == torch.autograd.DeviceType.CUDA
-             and e.time_range.elapsed_us() > 0]
-    if len(times) == reps:
-        return statistics.median(times), "profiler"
+    times = _trace([(kernel, fn)], reps)
+    if times is not None:
+        return statistics.median(times[kernel]), "profiler"
     return _median_ms(fn, 5, burst=10), "events"
 
 
 def _bound_ms(n_bytes: float, flops: float = 0.0, *, int8_ops: float = 0.0,
-              bf16_flops: float = 0.0):
+              bf16_flops: float = 0.0, lookups: float = 0.0):
     """The larger of the bytes' time at the memory rate and the
-    operations' time: fp32 FLOPs on the CUDA cores plus int8 and bf16 work
-    on the tensor cores, each at its own peak."""
+    operations' time: fp32 FLOPs on the CUDA cores, int8 and bf16 work on
+    the tensor cores and shared-memory table lookups, each at its own
+    peak."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = (flops / FP32_FLOPS + int8_ops / INT8_OPS
-              + bf16_flops / BF16_FLOPS) * 1e3
+              + bf16_flops / BF16_FLOPS + lookups / SMEM_LOOKUPS_PER_S) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                             "operations")
 
@@ -176,12 +207,13 @@ DPI_FP32_FLOPS = 2 * 64
 DPI_FP32_MLP_FLOPS = 2 * (64 * 128 + 128 * 64 + 64)
 
 
-def _dpi_bounds(n_bytes: float, beats: int):
+def _dpi_bounds(n_bytes: float, beats: int, lookups: float = 0.0):
     """(bound_ms, bound_by, bound_fp32_ms) of a DPI pass over ``beats``
-    beats that moves ``n_bytes``."""
+    beats that moves ``n_bytes`` (and makes ``lookups`` AES table
+    lookups)."""
     bound, by = _bound_ms(n_bytes, DPI_FP32_FLOPS * beats,
                           int8_ops=DPI_INT8_OPS * beats,
-                          bf16_flops=DPI_BF16_FLOPS * beats)
+                          bf16_flops=DPI_BF16_FLOPS * beats, lookups=lookups)
     return bound, by, _bound_ms(n_bytes, DPI_FP32_MLP_FLOPS * beats)[0]
 
 
@@ -194,25 +226,51 @@ def phase_device() -> str:
     return out
 
 
-def phase_build() -> float:
+def _ptxas(log: str) -> list:
+    """Per entry function of a ``ptxas -v`` report: its registers, static
+    shared memory, stack frame and spills in bytes."""
+    fields = (("registers", r"Used (\d+) registers"),
+              ("smem_bytes", r"(\d+) bytes smem"),
+              ("stack_bytes", r"(\d+) bytes stack frame"),
+              ("spill_stores", r"(\d+) bytes spill stores"),
+              ("spill_loads", r"(\d+) bytes spill loads"))
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            out.append(dict(function=m.group(1), **{k: 0 for k, _ in fields}))
+        elif out:
+            for key, pat in fields:
+                m = re.search(pat, line)
+                if m:
+                    out[-1][key] = int(m.group(1))
+    return out
+
+
+def phase_build() -> dict:
+    """Builds every kernel; returns source name -> its ptxas report."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     paths = _build.build_all()
     secs = time.perf_counter() - t0
     print(f"[build] {len(paths)} kernels in {secs:.2f} s")
+    reports = {}
     for name, so in paths.items():
         log = so.with_suffix(".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"[build] {name}: {line.strip()}")
-    return secs
+        reports[name] = _ptxas(log.read_text()) if log.exists() else []
+        for f in reports[name]:
+            print(f"[build] {name}: {f['function']}: {f['registers']} "
+                  f"registers, {f['smem_bytes']} B static smem, "
+                  f"{f['stack_bytes']} B stack, spill stores "
+                  f"{f['spill_stores']} B, spill loads {f['spill_loads']} B")
+    return reports
 
 
 def phase_kernels(dev, params) -> dict:
     """Each kernel against its plain version at main-path sizes."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels.aes_ecb import info as aes_info
     from repro_torch.kernels.dpi_mlp import dpi_params_from_numpy
     gen = torch.Generator(device=dev).manual_seed(0)
     # the round keys live on the card, as AesService keeps them
@@ -244,14 +302,21 @@ def phase_kernels(dev, params) -> dict:
     call_ms = _median_ms(dec, 5, burst=10)
     plain_ms = _median_ms(
         lambda: ops.aes_ecb(enc, rk, decrypt=True, impl="ref"), 3)
-    bound, by = _bound_ms(2 * blocks.numel(), 0)
+    n_bytes = 2 * blocks.numel()
+    bound, by = _bound_ms(n_bytes, lookups=AES_LOOKUPS * blocks.shape[0])
+    bound_bytes = _bound_ms(n_bytes)[0]
+    launch = {name: aes_info(dev, decrypt=d)
+              for name, d in (("encrypt", False), ("decrypt", True))}
     out["aes_ecb"] = dict(max_abs_err=err, ms=ms, ms_from=ms_from,
-                          call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound,
-                          bound_by=by, library_ms=None)
+                          ms_encrypt=enc_ms, call_ms=call_ms,
+                          plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                          bound_bytes_ms=bound_bytes, library_ms=None,
+                          copies=launch["decrypt"]["copies"], launch=launch)
     print(f"[kernels] aes_ecb {blocks.shape[0]} blocks: bit-exact enc+dec, "
           f"decrypt kernel_ms={ms:.4f} ({ms_from}) call_ms={call_ms:.4f} "
           f"encrypt kernel_ms={enc_ms:.4f} plain_ms={plain_ms:.3f} "
-          f"bound_ms={bound:.4f} ({by})")
+          f"bound_ms={bound:.4f} ({by}) bound_bytes_ms={bound_bytes:.4f}; "
+          f"kCopies={launch['decrypt']['copies']}, per launch {launch}")
 
     # --- CRC32: 8192 x 4096 payloads, ragged lengths ---------------------
     pay = torch.randint(0, 256, (N_PKTS, MTU), generator=gen, device=dev,
@@ -337,12 +402,14 @@ def _kernel_fused(dev, gen, tparams) -> dict:
     x 4 KiB, 32 MiB): plaintext bit-exact and scores within 1e-5 against
     the plain version; an encrypt -> fused-decrypt round trip; a packet
     count that is not a multiple of BLOCK_N; the tile entry (a full and
-    a short final tile) against the one-shot rows.  Timed beside the
-    port's own two-kernel chain (aes_ecb decrypt, then dpi_mlp) on the
-    same bytes."""
+    a short final tile) against the one-shot rows; each number of AES
+    table copies against the default.  Timed beside the port's own
+    two-kernel chain (aes_ecb decrypt, then dpi_mlp) on the same
+    bytes."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.fused_chain import (BLOCK_N, fused_decrypt_dpi,
+    from repro_torch.kernels.fused_chain import (BLOCK_N, DEFAULT_AES_COPIES,
+                                                 fused_decrypt_dpi,
                                                  fused_decrypt_dpi_tile)
     rk = torch.as_tensor(ops.expand_key(_secure_key())).to(dev)
     pay = torch.randint(0, 256, (N_PKTS, MTU), generator=gen, device=dev,
@@ -388,8 +455,12 @@ def _kernel_fused(dev, gen, tparams) -> dict:
     chain_call_ms = _median_ms(lambda: ops.dpi_scores(ops.aes_ecb(
         blocks, rk, decrypt=True).reshape(N_PKTS, MTU), tparams).amax(dim=1),
         5, burst=5)
+    by_copies = _fused_copies(pay, rk, tparams, plain, scores)
     beats = pay.numel() // 64
-    bound, by, bound_fp32 = _dpi_bounds(2 * pay.numel() + 4 * N_PKTS, beats)
+    n_bytes = 2 * pay.numel() + 4 * N_PKTS
+    bound, by, bound_fp32 = _dpi_bounds(
+        n_bytes, beats, lookups=AES_LOOKUPS * pay.numel() // 16)
+    bound_bytes = _bound_ms(n_bytes)[0]
     print(f"[kernels] fused_decrypt_dpi {N_PKTS}x{MTU} ({pay.numel()} B): "
           f"plaintext bit-exact, scores worst abs error {worst:.3e} "
           f"(rtol=atol={DPI_RTOL}), round trip, {ragged} packets and tiles "
@@ -398,11 +469,55 @@ def _kernel_fused(dev, gen, tparams) -> dict:
           f"{aes_ms + dpi_ms:.4f} (aes decrypt {aes_ms:.4f} + dpi "
           f"{dpi_ms:.4f}) call_ms={chain_call_ms:.4f} 2-packet tile "
           f"kernel_ms={tile_ms:.4f} bound_ms={bound:.4f} ({by}) "
-          f"bound_fp32_ms={bound_fp32:.4f}")
+          f"bound_bytes_ms={bound_bytes:.4f} bound_fp32_ms={bound_fp32:.4f}; "
+          f"kCopies={DEFAULT_AES_COPIES}")
+    for c, v in by_copies.items():
+        print(f"[kernels] fused_decrypt_dpi kCopies={c}: kernel_ms "
+              f"{v['ms']:.4f} (turns {v['ms_turns']}), 2-packet tile "
+              f"{v['tile_ms']:.4f} (turns {v['tile_ms_turns']}); batch "
+              f"launch {v['batch']}, tile launch {v['tile']}")
     return dict(max_abs_err=worst, ms=ms, ms_from=ms_from, call_ms=call_ms,
                 plain_ms=plain_ms, tile_ms=tile_ms, chain_ms=aes_ms + dpi_ms,
                 chain_call_ms=chain_call_ms, bound_ms=bound, bound_by=by,
-                bound_fp32_ms=bound_fp32, library_ms=None)
+                bound_bytes_ms=bound_bytes, bound_fp32_ms=bound_fp32,
+                library_ms=None, copies=DEFAULT_AES_COPIES,
+                by_copies=by_copies)
+
+
+def _fused_copies(pay, rk, tparams, plain, scores) -> dict:
+    """The fused kernel with each number of AES table copies: the same
+    bits as the default launch, at the batch and at the 2-packet tile;
+    timed in turns (each count, then each in reverse order), the mean of
+    its two turns' medians; and its launch's shared memory and blocks an
+    SM."""
+    import torch
+    from repro_torch.kernels.fused_chain import (AES_COPIES,
+                                                 fused_decrypt_dpi_cuda)
+    from repro_torch.kernels.fused_chain import info as fused_info
+    for c in AES_COPIES:
+        b_plain, b_scores = fused_decrypt_dpi_cuda(pay, rk, tparams,
+                                                   aes_copies=c)
+        t_plain, t_scores = fused_decrypt_dpi_cuda(pay[:2], rk, tparams,
+                                                   aes_copies=c)
+        torch.cuda.synchronize()
+        assert torch.equal(b_plain, plain) and torch.equal(b_scores, scores)\
+            and torch.equal(t_plain, plain[:2]) and \
+            torch.equal(t_scores, scores[:2]), f"fused: {c} copies differ"
+    out = {c: dict(ms_turns=[], tile_ms_turns=[]) for c in AES_COPIES}
+    for c in (*AES_COPIES, *reversed(AES_COPIES)):
+        out[c]["ms_turns"].append(_kernel_ms(
+            lambda: fused_decrypt_dpi_cuda(pay, rk, tparams, aes_copies=c),
+            "fused_chain_kernel", 10)[0])
+        out[c]["tile_ms_turns"].append(_kernel_ms(
+            lambda: fused_decrypt_dpi_cuda(pay[:2], rk, tparams,
+                                           aes_copies=c),
+            "fused_chain_kernel", 20)[0])
+    for c, v in out.items():
+        v["ms"] = statistics.mean(v["ms_turns"])
+        v["tile_ms"] = statistics.mean(v["tile_ms_turns"])
+        v["batch"] = fused_info(pay.device, c, paired=False)
+        v["tile"] = fused_info(pay.device, c, paired=True)
+    return out
 
 
 def _dense_ulps(got, want) -> int:
@@ -449,19 +564,29 @@ def _kernel_preproc(dev, gen) -> dict:
     call_ms = _median_ms(fn, 5, burst=10)
     plain_ms = _median_ms(lambda: ops.preproc(raw, N_DENSE, MOD,
                                               impl="ref"), 5)
-    tile_ms, _ = _kernel_ms(lambda: ops.preproc(tile, N_DENSE, MOD,
-                                                rec_w=REC_W),
-                            "preproc_kernel", 20)
+    # the tile beside the launch floor: a one-element PyTorch add, the two
+    # in turns in one trace
+    one = torch.zeros(1, device=dev)
+    tile_fn = lambda: ops.preproc(tile, N_DENSE, MOD, rec_w=REC_W)  # noqa: E731
+    turns = _trace([("preproc_kernel", tile_fn),
+                    ("elementwise_kernel", lambda: one.add_(1.0))], 20)
+    if turns is not None:
+        tile_ms = statistics.median(turns["preproc_kernel"])
+        add_ms = statistics.median(turns["elementwise_kernel"])
+    else:
+        tile_ms, add_ms = _kernel_ms(tile_fn, "preproc_kernel", 20)[0], None
     bound, by = _bound_ms(2 * raw.numel() * 4, 0)
     print(f"[kernels] preproc {n_rec}x{REC_W} i32 ({raw.numel() * 4} B) and "
           f"a {tile.shape[0] * RPP}-record tile: sparse bit-exact, dense worst "
           f"{worst} ulp vs plain, kernel_ms={ms:.4f} ({ms_from}) "
           f"call_ms={call_ms:.4f} plain_ms={plain_ms:.3f} "
-          f"tile kernel_ms={tile_ms:.4f} bound_ms={bound:.4f} ({by})")
+          f"tile kernel_ms={tile_ms:.4f} bound_ms={bound:.4f} ({by}); "
+          f"launch floor, a one-element add in the same trace: "
+          f"{add_ms if add_ms is None else f'{add_ms:.4f}'} ms")
     return dict(max_abs_err=worst, err_unit="ulp (dense); sparse exact",
                 ms=ms, ms_from=ms_from, call_ms=call_ms, plain_ms=plain_ms,
-                tile_ms=tile_ms, bound_ms=bound, bound_by=by,
-                library_ms=None)
+                tile_ms=tile_ms, one_element_add_ms=add_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
 
 
 def _kernel_reduce(dev, gen) -> dict:
@@ -489,18 +614,47 @@ def _kernel_reduce(dev, gen) -> dict:
     call_ms = _median_ms(lambda: ops.reduce_fold(xf), 5, burst=10)
     plain_ms = _median_ms(lambda: ops.reduce_fold(xf, impl="ref"), 5)
     # the library yardstick: one torch.sum over the int32 rows (the same
-    # function for int32; for float32 its summation order differs)
-    library_ms = _median_ms(
-        lambda: torch.sum(xi, dim=0, dtype=torch.int32), 5, burst=10)
+    # function for int32; for float32 its summation order differs), timed
+    # in turns with the kernel on the same rows: library, kernel, kernel,
+    # library, 5 rounds
+    alt = _reduce_against_sum(xi)
     bound, by = _bound_ms((k + 1) * lanes * 4, 0)
     print(f"[kernels] reduce_fold ({k}, {lanes}) f32 and i32: bit-exact vs "
           f"plain (NaN/inf/-0.0, int32 wrap), kernel_ms f32={ms:.4f} "
           f"({ms_from}) i32={ms_i32:.4f} call_ms={call_ms:.4f} "
-          f"plain_ms={plain_ms:.3f} library_ms(torch.sum i32)="
-          f"{library_ms:.4f} bound_ms={bound:.4f} ({by})")
+          f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} ({by}); in turns "
+          f"({alt['from']}): i32 kernel median {alt['kernel_ms']:.4f} "
+          f"(spread {alt['kernel_spread_ms']:.4f}), torch.sum i32 median "
+          f"{alt['library_ms']:.4f} (spread {alt['library_spread_ms']:.4f})")
     return dict(max_abs_err=0, ms=ms, ms_from=ms_from, ms_int32=ms_i32,
                 call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=library_ms)
+                bound_by=by, library_ms=alt["library_ms"], against_sum=alt)
+
+
+def _reduce_against_sum(xi, rounds: int = 5) -> dict:
+    """reduce_fold and torch.sum on the same int32 rows in turns: library,
+    kernel, kernel, library, ``rounds`` times; device times from one
+    trace (CUDA events over bursts of 10 calls, in the same turns, if the
+    trace holds none).  Medians and spreads (max - min) in ms."""
+    import torch
+    from repro_torch.kernels import ops
+    lib = lambda: torch.sum(xi, dim=0, dtype=torch.int32)  # noqa: E731
+    kern = lambda: ops.reduce_fold(xi)  # noqa: E731
+    order = [("reduce_kernel", lib), ("reduce_fold_kernel", kern),
+             ("reduce_fold_kernel", kern), ("reduce_kernel", lib)]
+    times, how = _trace(order, rounds), "profiler"
+    if times is None:
+        times, how = {"reduce_kernel": [], "reduce_fold_kernel": []}, "events"
+        for _ in range(rounds):
+            for key, fn in order:
+                times[key].append(_median_ms(fn, 1, burst=10))
+    k, s = times["reduce_fold_kernel"], times["reduce_kernel"]
+    return {"from": how, "rounds": rounds,
+            "kernel_ms": statistics.median(k),
+            "kernel_spread_ms": max(k) - min(k),
+            "library_ms": statistics.median(s),
+            "library_spread_ms": max(s) - min(s),
+            "kernel_turns": k, "library_turns": s}
 
 
 def _traffic():
@@ -1111,7 +1265,7 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     smi = phase_device()
-    phase_build()
+    ptxas = phase_build()
     params = load_dpi_params_seed0()
     kern = phase_kernels(dev, params)
 
@@ -1188,7 +1342,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "path": path, "launches": counts[path][name],
          "launches_by_path": {p: c[name] for p, c in counts.items()},
-         **kern[name]}
+         **kern[name], "ptxas": ptxas[Path(src).stem]}
         for name, (src, rep, path) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,101 +8,70 @@
 // 16-packet VMEM tile with whole-tile gathers and runs the three layers
 // as MXU dots on it.  Here the payload is a flat run of beats cut into
 // 16-beat tiles, whatever the MTU (64 to 8192 B and beyond), so a
-// packet's beats spread over warps and blocks.  A block stages the
-// inverse S-box, the round keys and the MLP's weights (dpi_mma.cuh) in
-// shared memory once, by bulk copies (the S-box as 256 words and the
-// weights as dpi_mma.cuh's image, both built by the host); then per tile:
+// packet's beats spread over warps and blocks.  A block stages the MLP's
+// weights (dpi_mma.cuh's image, built by the host) by one bulk copy, and
+// while it comes in, the AES decrypt schedule and C copies of the inverse
+// T-table and InvS-box (aes_round.cuh, from the image the host builds);
+// then per tile:
 //   1. AES: the tile's 64 16-byte blocks (its ciphertext double-buffered
-//      by cp.async), the round structure of aes_ecb.cu (state as four
-//      32-bit column words in registers).  The plaintext is stored to
-//      device memory once and kept in shared memory for the MLP: the
-//      bytes never make a second trip.  The S-box lookups keep
-//      aes_ecb.cu's bank conflicts; they go with that kernel's redesign.
+//      by cp.async), decrypted by aes_round.cuh's rounds, the same device
+//      code as aes_ecb.cu: table lookups free of bank conflicts (C = 32)
+//      or at most 2-way (C = 16, half the shared memory), the launcher's
+//      choice.  The plaintext
+//      is stored to device memory once and kept in shared memory for the
+//      MLP: the bytes never make a second trip.
 //   2. The MLP of dpi_mma.cuh on the tensor cores: the same device code
 //      as dpi_mlp.cu, so a beat scores the same bits in both kernels.
 //   3. The max per packet over the tile's rows, then one atomic max per
 //      packet and tile into scores.  Max is exact, so the result does not
 //      depend on which warp gets there first.
-// A large launch gives each warp whole tiles (four warps a block, up to
-// four blocks an SM).  A small one, such as the 2-packet tile of the
-// secure ingest (8 tiles), gives each tile a pair of warps in a block of
-// its own: each decrypts 32 of the blocks and computes half of layer 2,
-// and rank 1 hands its half of layer 3 to rank 0 through shared memory.
+// A large launch gives each warp whole tiles, 16 warps an SM (one block
+// of 16 at C = 32, two of 8 at C = 16: a copy of the tables serves a
+// block).  A small one,
+// such as the 2-packet tile of the secure ingest (8 tiles), gives each
+// tile a pair of warps in a block of its own: each decrypts 32
+// of the blocks and computes half of layer 2, and rank 1 hands its half
+// of layer 3 to rank 0 through shared memory.
 //
 // Bound on the H100: operations.  Per beat the MLP's 16,384 int8 ops
-// (1,979 TOP/s) + 3 x 16,384 bf16 FLOP (989 TFLOP/s) + 128 fp32 FLOP
-// against 64 B read + 64 B written per beat (+4 B per packet): 0.031 ms
-// of operations against 0.020 ms of bytes at 8192 x 4 KiB.  AES's integer
-// work is not in that figure; it has no data-sheet peak.
+// (1,979 TOP/s) + 3 x 16,384 bf16 FLOP (989 TFLOP/s) + 128 fp32 FLOP,
+// and AES's 4 x 160 table lookups (one 32-lane shared-memory wavefront an
+// SM a cycle), against 64 B read + 64 B written per beat (+4 B per
+// packet): 0.031 ms of MLP and 0.040 ms of lookups against 0.020 ms of
+// bytes at 8192 x 4 KiB.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "aes_round.cuh"
 #include "dpi_mma.cuh"
 
 namespace {
 
 // dynamic shared memory layout, in 32-bit words after the staged weights
-constexpr int kBox = dpi::kWeightWords;          // inverse S-box, 256 u32
-constexpr int kRk = kBox + 256;                  // round keys, 44 u32
-constexpr int kPt = kRk + 44;                    // then per warp: a plaintext
-static_assert(kPt % 4 == 0, "the tiles must be 16-byte aligned");
+constexpr int kRk = dpi::kWeightWords;           // the decrypt schedule, 44
+constexpr int kTab = kRk + aes::kRkWords;        // C copies of the tables
+static_assert(kTab % 4 == 0, "the copies must be 16-byte aligned");
+template <int C>                                 // then per warp: a plaintext
+constexpr int kPt = kTab + aes::kTableWords<C>;
 constexpr int kCtBytes = 2 * 32 * 16;            // and 2 x its lanes' blocks
 constexpr int kWarpBytes = dpi::kTileBytes + 2 * kCtBytes;
-
-__device__ __forceinline__ uint32_t xt4(uint32_t x) {
-  // GF(2^8) xtime on the four bytes of x independently
-  return ((x & 0x7f7f7f7fu) << 1) ^ (((x >> 7) & 0x01010101u) * 0x1bu);
+template <int C>
+constexpr int smem_bytes(int warps) {
+  return kPt<C> * 4 + warps * kWarpBytes;
 }
-
-// byte r of the result is byte (r + k/8) % 4 of x
-__device__ __forceinline__ uint32_t rot(uint32_t x, int k) {
-  return __funnelshift_r(x, x, k);
-}
-
-__device__ __forceinline__ uint32_t mix(uint32_t a) {
-  const uint32_t a1 = rot(a, 8);
-  return xt4(a ^ a1) ^ a1 ^ rot(a, 16) ^ rot(a, 24);
-}
-
-__device__ __forceinline__ uint32_t inv_mix(uint32_t a) {
-  const uint32_t u = xt4(xt4(a ^ rot(a, 16)));
-  return mix(a ^ u);
-}
-
-__device__ __forceinline__ uint32_t byte_of(uint32_t w, int r) {
-  return (w >> (8 * r)) & 0xffu;
-}
-
-// InvSubBytes + InvShiftRows: row r of column c comes from column c - r
-__device__ __forceinline__ void inv_sub_shift(const uint32_t* s_box,
-                                              const uint32_t (&w)[4],
-                                              uint32_t (&o)[4]) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    o[c] = s_box[byte_of(w[c], 0)] |
-           (s_box[byte_of(w[(c + 3) & 3], 1)] << 8) |
-           (s_box[byte_of(w[(c + 2) & 3], 2)] << 16) |
-           (s_box[byte_of(w[(c + 1) & 3], 3)] << 24);
-  }
-}
-
-__device__ __forceinline__ uint4 aes_decrypt_block(uint4 v,
-                                                   const uint32_t* s_box,
-                                                   const uint32_t* s_rk) {
-  uint32_t w[4] = {v.x ^ s_rk[40], v.y ^ s_rk[41], v.z ^ s_rk[42],
-                   v.w ^ s_rk[43]};
-  uint32_t t[4];
-#pragma unroll
-  for (int r = 9; r > 0; --r) {
-    inv_sub_shift(s_box, w, t);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) w[c] = inv_mix(t[c] ^ s_rk[4 * r + c]);
-  }
-  inv_sub_shift(s_box, w, t);
-  return make_uint4(t[0] ^ s_rk[0], t[1] ^ s_rk[1], t[2] ^ s_rk[2],
-                    t[3] ^ s_rk[3]);
-}
+// A large launch's blocks: 16 warps an SM (as many as ~120 registers a
+// thread allow), sharing one copy of the tables a block: at C = 32 (64 KB
+// of tables) one block of 16 warps, at C = 16 two of 8.
+template <int C>
+constexpr int kWarps = C == 32 ? 16 : 8;
+template <int C>
+constexpr int kBlocksPerSm = 16 / kWarps<C>;
+static_assert(kBlocksPerSm<32> * (smem_bytes<32>(kWarps<32>) + 1024) <=
+                      233472 &&
+                  kBlocksPerSm<16> * (smem_bytes<16>(kWarps<16>) + 1024) <=
+                      233472,
+              "the blocks of an SM fit in its 228 KB of shared memory");
 
 // scores[pkt] = max(scores[pkt], v), exact, so the order of the atomics
 // from different warps does not change the bits.  The launch fills scores
@@ -159,22 +128,22 @@ __device__ __forceinline__ void pair_sync(int pair) {
   asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
 }
 
-__global__ void __launch_bounds__(dpi::kWarps * 32, dpi::kBlocksPerSm)
+template <int C>
+__global__ void __launch_bounds__(kWarps<C> * 32, kBlocksPerSm<C>)
 fused_chain_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
                    float* __restrict__ scores,
                    const uint32_t* __restrict__ round_keys,
-                   const uint32_t* __restrict__ inv_sbox,
+                   const uint32_t* __restrict__ aes_image,
                    const uint8_t* __restrict__ image, long long n_pkts,
                    int mtu, int paired) {
   extern __shared__ __align__(16) uint32_t sm[];
-  const uint32_t* s_box = sm + kBox;
   const uint32_t* s_rk = sm + kRk;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int warps = blockDim.x >> 5;
   // paired: two warps a tile (rank 0 and 1), each decrypting half of it
   // and computing half of layer 2; else one warp a tile, rank 0
   const int per_tile = paired ? 2 : 1, rank = paired ? warp & 1 : 0;
-  uint8_t* pts = reinterpret_cast<uint8_t*>(sm + kPt);
+  uint8_t* pts = reinterpret_cast<uint8_t*>(sm + kPt<C>);
   uint8_t* pt = pts + (warp - rank) * dpi::kTileBytes;
   // a pair's second plaintext slot carries rank 1's half of layer 3
   float2* share = reinterpret_cast<float2*>(pt + dpi::kTileBytes);
@@ -202,14 +171,16 @@ fused_chain_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
   dpi::cp_async_commit();
   dpi::Copies c(sm);
   if (tid == 0) {
-    c.start(dpi::kImageBytes + 256 * 4 + 44 * 4);
+    c.start(dpi::kImageBytes);
     c.copy(sm, image, dpi::kImageBytes);
-    c.copy(sm + kBox, inv_sbox, 256 * 4);
-    c.copy(sm + kRk, round_keys, 44 * 4);
   }
-  __syncthreads();                               // the mbarrier is set up
+  // the AES tables and schedule while the weights come in
+  aes::stage_round_keys<true>(sm + kRk, round_keys, tid, blockDim.x);
+  aes::stage_tables<C, 2>(sm + kTab, aes_image, tid, blockDim.x);
+  __syncthreads();                               // and the mbarrier is set up
   c.wait();
   const dpi::Weights w = dpi::weights_at(sm);
+  const aes::Tables<C> tb(sm + kTab, lane);
 
   for (int st = 0; t < n_tiles; t += stride, st ^= 1) {
     const long long beat0 = t * dpi::kRows;
@@ -219,10 +190,15 @@ fused_chain_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
     // ---- AES decrypt, both of a lane's blocks before either is stored, so
     // that the two round chains overlap
     uint4 p[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      if (h < n_mine)
-        p[h] = aes_decrypt_block(ct[st * 64 + 32 * h + lane], s_box, s_rk);
+    if (n_mine == 2) {
+      p[0] = ct[st * 64 + lane];
+      p[1] = ct[st * 64 + 32 + lane];
+      aes::crypt<true, C, 2>(p, tb, s_rk);
+    } else {
+      uint4 q[1] = {ct[st * 64 + lane]};
+      aes::crypt<true, C, 1>(q, tb, s_rk);
+      p[0] = q[0];
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (h >= n_mine) break;
@@ -255,36 +231,66 @@ fused_chain_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
   }
 }
 
+// A launch's shape on the current device, paired or not: shape[0] warps a
+// block, [1] dynamic shared memory a block in bytes, [2] resident blocks
+// an SM.
+template <int C>
+cudaError_t shape_of(int paired, int* shape) {
+  shape[0] = paired ? 2 : kWarps<C>;
+  shape[1] = smem_bytes<C>(shape[0]);
+  return aes::blocks_per_sm(fused_chain_kernel<C>, shape[0] * 32, shape[1],
+                            smem_bytes<C>(kWarps<C>), &shape[2]);
+}
+
+template <int C>
+cudaError_t launch(const void* in, void* out, void* scores,
+                   const void* round_keys, const void* aes_image,
+                   const void* image, long long n_pkts, int mtu,
+                   long long n_tiles, int dev, int sms, int paired,
+                   cudaStream_t stream) {
+  // per device, the shape when paired and not (resident blocks 0: not yet)
+  static int shapes[aes::kMaxDevices][2][3] = {};
+  int* shape = shapes[dev][paired];
+  cudaError_t err;
+  if (shape[2] == 0) {
+    err = shape_of<C>(paired, shape);
+    if (err != cudaSuccess) return err;
+  }
+  // the identity of atomic_max_score
+  err = cudaMemsetAsync(scores, 0xff, n_pkts * sizeof(float), stream);
+  if (err != cudaSuccess) return err;
+  // one block per `warps` warp tiles (a pair a tile when paired),
+  // persistent beyond the resident blocks
+  const int warps = shape[0];
+  long long blocks = (n_tiles * (paired ? 2 : 1) + warps - 1) / warps;
+  const long long resident = (long long)shape[2] * sms;
+  if (blocks > resident) blocks = resident;
+  fused_chain_kernel<C><<<(unsigned)blocks, warps * 32, shape[1], stream>>>(
+      (const uint4*)in, (uint4*)out, (float*)scores,
+      (const uint32_t*)round_keys, (const uint32_t*)aes_image,
+      (const uint8_t*)image, n_pkts, mtu, paired);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // in/out: n_pkts x mtu bytes, mtu % 64 == 0.  scores: (n_pkts,) float32.
-// round_keys: the (11, 16) uint8 schedule, read as 44 words; inv_sbox:
-// the inverse S-box as 256 uint32; image: the weight image
-// (dpi::kImageBytes, see dpi_mma.cuh).  Every array 16-byte aligned.  The
-// SM count is looked up once per device, not on every launch.
+// round_keys: the (11, 16) uint8 schedule, read as 44 words on the card
+// at every launch; aes_image: the decrypt direction's aes::kImageWords
+// table words (kernels/aes_ecb.py:table_image); image: the weight image
+// (dpi::kImageBytes, see dpi_mma.cuh).  Every array 16-byte aligned.
+// copies: the AES tables' copies in shared memory, 16 or 32.  The SM count
+// and the resident blocks are looked up once per device.
 int fused_chain_launch(const void* in, void* out, void* scores,
-                       const void* round_keys, const void* inv_sbox,
+                       const void* round_keys, const void* aes_image,
                        const void* image, long long n_pkts, int mtu,
-                       void* stream) {
-  constexpr int kMaxDevices = 64;
-  static int sms_of[kMaxDevices] = {0};          // 0: not looked up yet
+                       int copies, void* stream) {
   if (n_pkts <= 0) return 0;
   if (mtu <= 0 || mtu % 64) return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (sms_of[dev] == 0) {
-    int sms = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    sms_of[dev] = sms;
-  }
-  // the identity of atomic_max_score
-  err = cudaMemsetAsync(scores, 0xff, n_pkts * sizeof(float),
-                        (cudaStream_t)stream);
+  int dev = 0, sms = 0;
+  cudaError_t err = aes::current_device(&dev, &sms);
   if (err != cudaSuccess) return (int)err;
   // A launch too small to give every SM's tensor cores a tile of their own
   // (a 2-packet tile is 8 tiles) pairs the warps: two a tile, one pair a
@@ -292,16 +298,24 @@ int fused_chain_launch(const void* in, void* out, void* scores,
   // blocks spread over as many SMs.
   const long long n_tiles =
       (n_pkts * (mtu / 64) + dpi::kRows - 1) / dpi::kRows;
-  const int paired = 2 * n_tiles <= (long long)dpi::kWarps * sms_of[dev];
-  const int warps = paired ? 2 : dpi::kWarps;
-  const long long blocks =
-      dpi::grid_blocks(n_tiles * (paired ? 2 : 1), warps, sms_of[dev]);
-  fused_chain_kernel<<<(unsigned)blocks, warps * 32,
-                       kPt * 4 + warps * kWarpBytes, (cudaStream_t)stream>>>(
-      (const uint4*)in, (uint4*)out, (float*)scores,
-      (const uint32_t*)round_keys, (const uint32_t*)inv_sbox,
-      (const uint8_t*)image, n_pkts, mtu, paired);
-  return (int)cudaGetLastError();
+  const int paired = 2 * n_tiles <= (long long)dpi::kWarps * sms;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (copies == 32)
+    return (int)launch<32>(in, out, scores, round_keys, aes_image, image,
+                           n_pkts, mtu, n_tiles, dev, sms, paired, s);
+  if (copies == 16)
+    return (int)launch<16>(in, out, scores, round_keys, aes_image, image,
+                           n_pkts, mtu, n_tiles, dev, sms, paired, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// What a launch of `copies` (16 or 32) is made of on the current device,
+// paired or not: info[0] warps a block, [1] dynamic shared memory a block
+// in bytes, [2] resident blocks an SM.
+int fused_chain_info(int copies, int paired, int* info) {
+  if (copies == 32) return (int)shape_of<32>(paired, info);
+  if (copies == 16) return (int)shape_of<16>(paired, info);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* balboa_error_string(int err) {

@@ -4,9 +4,10 @@ the plaintext, in one pass over the payload.
 ``fused_decrypt_dpi_cuda`` launches the hand-written Hopper kernel in
 ``csrc/fused_chain.cu`` (the plaintext stays in shared memory between
 the two services, so the payload is read from device memory once and
-written once; the MLP is ``csrc/dpi_mma.cuh``'s, the same device code as
-``dpi_mlp``, so each beat scores the same bits as there; a packet's
-beats are spread over blocks in 16-beat tiles).
+written once; the AES rounds are ``csrc/aes_round.cuh``'s and the MLP
+``csrc/dpi_mma.cuh``'s, the same device code as ``aes_ecb`` and
+``dpi_mlp``, so each block decrypts and each beat scores to the same bits
+as there; a packet's beats are spread over blocks in 16-beat tiles).
 ``fused_decrypt_dpi_ref`` is the plain PyTorch version from ``ref.py``:
 decrypt, then score.  ``fused_decrypt_dpi`` dispatches
 between them as ``ops.py`` does.
@@ -24,40 +25,55 @@ import ctypes
 import functools
 from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as R
-from repro_torch.kernels.aes_ecb import _round_keys_on
+from repro_torch.kernels.aes_ecb import _round_keys_on, _table_image_on
 from repro_torch.kernels.dpi_mlp import _checked, _image_of
 
 BLOCK_N = 16              # packets per tile, as the reference's grid step
+# copies of the AES tables in a block's shared memory: 32 keeps every
+# lookup free of bank conflicts, 16 allows 2-way ones in 32 KB less (the
+# slower at 8192 x 4 KiB, the same at the 2-packet tile; PERF.md)
+AES_COPIES = (16, 32)
+DEFAULT_AES_COPIES = 32
 
 fused_decrypt_dpi_ref = R.fused_decrypt_dpi_ref
-
-
-@functools.lru_cache(maxsize=None)
-def _inv_sbox_words(device: torch.device) -> torch.Tensor:
-    """The inverse S-box as 256 int32 words on ``device``, as the kernel
-    keeps it in shared memory (made once per device)."""
-    return torch.as_tensor(R.INV_SBOX.astype(np.int32)).to(device)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_chain")
     lib.fused_chain_launch.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.fused_chain_launch.restype = ctypes.c_int
+    lib.fused_chain_info.argtypes = [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p]
+    lib.fused_chain_info.restype = ctypes.c_int
     return lib
 
 
-def fused_decrypt_dpi_cuda(payload: torch.Tensor, round_keys,
-                           params: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+def info(device: torch.device, copies: int, paired: bool) -> dict:
+    """What a launch on ``device`` with ``copies`` table copies is made of,
+    paired (a small launch) or not: the warps of a block, the dynamic
+    shared memory it takes and the blocks an SM holds."""
+    out = (ctypes.c_int * 3)()
+    lib = _lib()
+    with torch.cuda.device(device):
+        _build.check(lib, lib.fused_chain_info(copies, int(paired), out),
+                     "fused_chain")
+    return dict(copies=copies, warps=out[0], smem_bytes=out[1],
+                blocks_per_sm=out[2])
+
+
+def fused_decrypt_dpi_cuda(payload: torch.Tensor, round_keys, params: Dict,
+                           *, aes_copies: int = DEFAULT_AES_COPIES
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """payload (N, MTU) uint8 ciphertext on the card -> (plaintext (N,
     MTU) uint8, (N,) float32 max beat score).  Pass the round keys as a
-    tensor on the card to keep them there between calls."""
+    tensor on the card to keep them there between calls.  ``aes_copies``
+    (one of ``AES_COPIES``) changes the speed, never the result."""
     if not payload.is_cuda:
         raise ValueError("fused_decrypt_dpi_cuda needs a CUDA tensor")
     if payload.dtype != torch.uint8 or payload.dim() != 2 \
@@ -67,10 +83,11 @@ def fused_decrypt_dpi_cuda(payload: torch.Tensor, round_keys,
                          f"{payload.dtype}")
     if not payload.is_contiguous() or payload.data_ptr() % 16:
         raise ValueError("payload must be contiguous and 16-byte aligned")
+    if aes_copies not in AES_COPIES:
+        raise ValueError(f"aes_copies must be one of {AES_COPIES}, got "
+                         f"{aes_copies}")
     dev = payload.device
     rk = _round_keys_on(round_keys, dev)
-    if rk.data_ptr() % 16:               # the kernel copies it in 16 B
-        rk = rk.clone()
     p = _checked(params, dev)
     n, mtu = payload.shape
     plain = torch.empty_like(payload)
@@ -82,8 +99,8 @@ def fused_decrypt_dpi_cuda(payload: torch.Tensor, round_keys,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_chain_launch(
             payload.data_ptr(), plain.data_ptr(), scores.data_ptr(),
-            rk.data_ptr(), _inv_sbox_words(dev).data_ptr(),
-            _image_of(p).data_ptr(), n, mtu, stream)
+            rk.data_ptr(), _table_image_on(dev, True).data_ptr(),
+            _image_of(p).data_ptr(), n, mtu, aes_copies, stream)
         fused_decrypt_dpi_cuda.launches += 1
     _build.check(lib, err, "fused_chain")
     return plain, scores

@@ -7,14 +7,16 @@ imports no JAX, so it runs on a machine with the card and PyTorch only:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
-AES, CRC32 and the segmented reduce must be bit-exact (CRC32 also against
-zlib), preprocessing bit-exact on the sparse words and within 1 ulp on
-the dense ones; DPI scores within rtol = atol = 1e-5, the worst error
+AES (both directions, at block counts around the lane, warp, block and
+persistent-grid edges, and with its round keys rewritten in place), CRC32
+and the segmented reduce must be bit-exact (CRC32 also against zlib),
+preprocessing bit-exact on the sparse words and within 1 ulp on the dense
+ones; DPI scores within rtol = atol = 1e-5, the worst error
 printed, and within 1e-5 of a float64 evaluation of the same MLP.  The
 fused decrypt+DPI chain: plaintext bit-exact, scores within 1e-5, and
 bit-equal to ``dpi_scores(plaintext).amax(1)`` (both kernels run the MLP
 of ``csrc/dpi_mma.cuh``, and a beat's score does not depend on the tile,
-warp or block that computes it).
+warp or block that computes it), with either number of AES table copies.
 """
 import zlib
 
@@ -25,7 +27,8 @@ import torch
 from repro_torch.data import load_dpi_params_seed0
 from repro_torch.kernels import ops
 from repro_torch.kernels.dpi_mlp import dpi_params_from_numpy
-from repro_torch.kernels.fused_chain import (fused_decrypt_dpi,
+from repro_torch.kernels.fused_chain import (AES_COPIES, fused_decrypt_dpi,
+                                             fused_decrypt_dpi_cuda,
                                              fused_decrypt_dpi_tile)
 
 DPI_RTOL = DPI_ATOL = 1e-5
@@ -42,8 +45,13 @@ def cuda():
     return torch.device("cuda")
 
 
+# block counts around a lane (1), a warp (31-33), a block of 256 threads
+# (255-257) and the persistent grid: 1,100,000 blocks is more than the
+# resident blocks x 256 threads x 2 blocks a lane of any H100 launch
+# (132 SMs x at most 5 blocks of 41 KB x 512 = 337,920)
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 255, 4097])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 255, 256, 257, 4097,
+                               1_100_000])
 def test_cuda_aes_matches_plain(cuda, n):
     rng = np.random.default_rng(n)
     blocks = _t(rng.integers(0, 256, (n, 16), dtype=np.uint8)).to(cuda)
@@ -53,6 +61,24 @@ def test_cuda_aes_matches_plain(cuda, n):
         want = ops.aes_ecb(blocks, rk, decrypt=decrypt, impl="ref")
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_aes_reads_round_keys_rewritten_in_place(cuda):
+    """AesService keeps its schedule on the card: two keys in successive
+    calls on one buffer, rewritten in place between them, give each key's
+    blocks (the decrypt schedule is derived on the card at every launch,
+    never cached by the buffer's address)."""
+    rng = np.random.default_rng(21)
+    blocks = _t(rng.integers(0, 256, (3000, 16), dtype=np.uint8)).to(cuda)
+    rk = torch.empty((11, 16), dtype=torch.uint8, device=cuda)
+    for key in (rng.integers(0, 256, 16, dtype=np.uint8) for _ in range(2)):
+        rk.copy_(_t(ops.expand_key(key)))
+        for decrypt in (False, True):
+            got = ops.aes_ecb(blocks, rk, decrypt=decrypt)
+            want = ops.aes_ecb(blocks, rk, decrypt=decrypt, impl="ref")
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (key, decrypt)
 
 
 @pytest.mark.cuda
@@ -331,3 +357,22 @@ def test_cuda_fused_chain_counts_kernel_launches_only(cuda):
     fused_decrypt_dpi_tile(pay[:1], rk, params, tile_pkts=2)
     assert ops.launches()["fused_decrypt_dpi"] == 2
     assert sum(ops.launches().values()) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aes_copies", AES_COPIES)
+@pytest.mark.parametrize("mtu", [64, 4096])
+@pytest.mark.parametrize("n", [2, 131, 8192])
+def test_cuda_fused_aes_copies_bit_exact(cuda, n, mtu, aes_copies):
+    """Either number of AES table copies: the plaintext is the plain
+    decrypt's, bit for bit, and the scores are dpi_mlp's max over it, at
+    the 2-packet tile (paired warps), 131 packets and the main path's
+    8192 packets."""
+    pay, rk, params = _fused_inputs(cuda, n, mtu, 5 * n + mtu)
+    plain, scores = fused_decrypt_dpi_cuda(pay, rk, params,
+                                           aes_copies=aes_copies)
+    want = ops.aes_ecb(pay.reshape(-1, 16), rk, decrypt=True,
+                       impl="ref").reshape(n, mtu)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, want)
+    assert torch.equal(scores, ops.dpi_scores(plain, params).amax(dim=1))
