@@ -20,17 +20,18 @@ the DLRM.
               its device time from a torch.profiler trace (median
               launch; CUDA events around back-to-back calls if the
               trace holds no device time), ``call_ms`` the wrapper's
-              whole call by CUDA events.  Also: the fused kernel with
-              each number of AES table copies (16, 32) in turns; the
-              segmented reduce and torch.sum in turns; the preprocessing
-              tile beside a one-element PyTorch add (the launch floor)
+              whole call by CUDA events.  Also: the segmented reduce and
+              torch.sum in turns; the preprocessing tile beside a
+              one-element PyTorch add (the launch floor)
   3. main     256 QPs x 128 KiB (one 8192-packet, 32 MiB receive batch)
               RDMA-written across a lossy link by two RdmaNodes; the
               sender encrypts, the receiver decrypts on-path and runs DPI
               on the parallel path.  Run with the kernels, then with the
               plain versions: every byte must land and the two runs must
               agree on every tick and counter; prints the beats of each
-              DPI kernel launch
+              DPI kernel launch and the blocks of each AES launch, and
+              times AES at each of those sizes and the fused kernel at
+              launches of a few hundred tiles
   4. chain    the receive chain with an ICRC tap on one 8192-packet batch
               of that traffic, kernels against plain versions, bit-exact
   5. incast   the 8:1 ack-clocked incast on the card reproduces the row
@@ -118,9 +119,16 @@ INT8_OPS = 1979e12
 BF16_FLOPS = 989e12
 # shared-memory table lookups: one 32-lane wavefront an SM a cycle, at the
 # data sheet's 132 SMs and 1.98 GHz boost clock (the clock of the fp32
-# figure: 132 x 128 lanes x 2 x 1.98 GHz = 67 TFLOP/s)
+# figure: 132 x 128 lanes x 2 x 1.98 GHz = 67 TFLOP/s).  The kernels'
+# AES design makes 160 a 16-byte block (16 bytes x 10 rounds); AES needs
+# none (a bitsliced body makes no lookups), so they bound the design
+# (``bound_design_ms``), not the function (``bound_ms``)
 SMEM_LOOKUPS_PER_S = 132 * 32 * 1.98e9
-AES_LOOKUPS = 16 * 10           # a 16-byte block: 16 bytes x 10 rounds
+AES_LOOKUPS = 16 * 10
+# the fused kernel at launches of a few hundred tiles (4 a 4 KiB packet):
+# 264 and 268 tiles paired, 1056 the last paired, 1060 the first unpaired
+# on an H100's 132 SMs x 16 warps; and the secure ingest's 2-packet tile
+FUSED_PKTS = (2, 66, 67, 264, 265)
 
 
 def _median_ms(fn, reps: int, burst: int = 1) -> float:
@@ -166,10 +174,24 @@ def _trace(calls, reps: int):
     for key in dict(calls):
         times = [e.time_range.elapsed_us() / 1e3 for e in events
                  if key in e.name]
-        if len(times) != reps * sum(k == key for k, _ in calls):
+        want = reps * sum(k == key for k, _ in calls)
+        if len(times) != want:
+            print(f"[trace] {key}: {len(times)} kernel events, {want} "
+                  "calls", file=sys.stderr)
             return None
         out[key] = times
     return out
+
+
+def _traced_medians(calls, reps: int, tries: int = 3):
+    """key -> the median device ms of ``_trace(calls, reps)``, taking the
+    trace again (up to ``tries`` times) when its kernel events do not
+    match the calls; None if none did."""
+    for _ in range(tries):
+        times = _trace(calls, reps)
+        if times is not None:
+            return {k: statistics.median(v) for k, v in times.items()}
+    return None
 
 
 def _kernel_ms(fn, kernel: str, reps: int):
@@ -177,22 +199,23 @@ def _kernel_ms(fn, kernel: str, reps: int):
     ``kernel``: the median over ``reps`` launches in a torch.profiler
     trace, so host work in the wrapper is not counted.  Returns (ms,
     "profiler"), or (ms, "events") from ``_median_ms`` over bursts of 10
-    calls when the trace holds no device time for the kernel."""
-    times = _trace([(kernel, fn)], reps)
+    calls when no trace holds the kernel's device time."""
+    times = _traced_medians([(kernel, fn)], reps)
     if times is not None:
-        return statistics.median(times[kernel]), "profiler"
+        return times[kernel], "profiler"
     return _median_ms(fn, 5, burst=10), "events"
 
 
 def _bound_ms(n_bytes: float, flops: float = 0.0, *, int8_ops: float = 0.0,
               bf16_flops: float = 0.0, lookups: float = 0.0):
-    """The larger of the bytes' time at the memory rate and the
-    operations' time: fp32 FLOPs on the CUDA cores, int8 and bf16 work on
-    the tensor cores and shared-memory table lookups, each at its own
-    peak."""
+    """The largest of the bytes' time at the memory rate and the time of
+    each unit's operations at its peak: fp32 FLOPs on the CUDA cores, int8
+    and bf16 work together on the tensor cores, shared-memory table
+    lookups.  The units run side by side, so their times do not add."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = (flops / FP32_FLOPS + int8_ops / INT8_OPS
-              + bf16_flops / BF16_FLOPS + lookups / SMEM_LOOKUPS_PER_S) * 1e3
+    by_ops = max(flops / FP32_FLOPS,
+                 int8_ops / INT8_OPS + bf16_flops / BF16_FLOPS,
+                 lookups / SMEM_LOOKUPS_PER_S) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                             "operations")
 
@@ -210,11 +233,18 @@ DPI_FP32_MLP_FLOPS = 2 * (64 * 128 + 128 * 64 + 64)
 def _dpi_bounds(n_bytes: float, beats: int, lookups: float = 0.0):
     """(bound_ms, bound_by, bound_fp32_ms) of a DPI pass over ``beats``
     beats that moves ``n_bytes`` (and makes ``lookups`` AES table
-    lookups)."""
+    lookups, which only a design bound counts)."""
     bound, by = _bound_ms(n_bytes, DPI_FP32_FLOPS * beats,
                           int8_ops=DPI_INT8_OPS * beats,
                           bf16_flops=DPI_BF16_FLOPS * beats, lookups=lookups)
     return bound, by, _bound_ms(n_bytes, DPI_FP32_MLP_FLOPS * beats)[0]
+
+
+def _aes_copies() -> int:
+    """kCopies, the table copies of ``csrc/aes_round.cuh``, from the
+    header."""
+    src = (SRC / "repro_torch/csrc/aes_round.cuh").read_text()
+    return int(re.search(r"constexpr int kCopies = (\d+);", src).group(1))
 
 
 def phase_device() -> str:
@@ -270,7 +300,6 @@ def phase_kernels(dev, params) -> dict:
     """Each kernel against its plain version at main-path sizes."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.aes_ecb import info as aes_info
     from repro_torch.kernels.dpi_mlp import dpi_params_from_numpy
     gen = torch.Generator(device=dev).manual_seed(0)
     # the round keys live on the card, as AesService keeps them
@@ -303,20 +332,20 @@ def phase_kernels(dev, params) -> dict:
     plain_ms = _median_ms(
         lambda: ops.aes_ecb(enc, rk, decrypt=True, impl="ref"), 3)
     n_bytes = 2 * blocks.numel()
-    bound, by = _bound_ms(n_bytes, lookups=AES_LOOKUPS * blocks.shape[0])
-    bound_bytes = _bound_ms(n_bytes)[0]
-    launch = {name: aes_info(dev, decrypt=d)
-              for name, d in (("encrypt", False), ("decrypt", True))}
+    bound, by = _bound_ms(n_bytes)
+    design, design_by = _bound_ms(n_bytes,
+                                  lookups=AES_LOOKUPS * blocks.shape[0])
     out["aes_ecb"] = dict(max_abs_err=err, ms=ms, ms_from=ms_from,
                           ms_encrypt=enc_ms, call_ms=call_ms,
                           plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                          bound_bytes_ms=bound_bytes, library_ms=None,
-                          copies=launch["decrypt"]["copies"], launch=launch)
+                          bound_bytes_ms=bound, bound_design_ms=design,
+                          bound_design_by=f"{design_by}: shared-memory "
+                          "lookups", library_ms=None, copies=_aes_copies())
     print(f"[kernels] aes_ecb {blocks.shape[0]} blocks: bit-exact enc+dec, "
           f"decrypt kernel_ms={ms:.4f} ({ms_from}) call_ms={call_ms:.4f} "
           f"encrypt kernel_ms={enc_ms:.4f} plain_ms={plain_ms:.3f} "
-          f"bound_ms={bound:.4f} ({by}) bound_bytes_ms={bound_bytes:.4f}; "
-          f"kCopies={launch['decrypt']['copies']}, per launch {launch}")
+          f"bound_ms={bound:.4f} ({by}) bound_bytes_ms={bound:.4f} "
+          f"bound_design_ms={design:.4f} (lookups); kCopies={_aes_copies()}")
 
     # --- CRC32: 8192 x 4096 payloads, ragged lengths ---------------------
     pay = torch.randint(0, 256, (N_PKTS, MTU), generator=gen, device=dev,
@@ -402,14 +431,12 @@ def _kernel_fused(dev, gen, tparams) -> dict:
     x 4 KiB, 32 MiB): plaintext bit-exact and scores within 1e-5 against
     the plain version; an encrypt -> fused-decrypt round trip; a packet
     count that is not a multiple of BLOCK_N; the tile entry (a full and
-    a short final tile) against the one-shot rows; each number of AES
-    table copies against the default.  Timed beside the port's own
-    two-kernel chain (aes_ecb decrypt, then dpi_mlp) on the same
-    bytes."""
+    a short final tile) against the one-shot rows.  Timed beside the
+    port's own two-kernel chain (aes_ecb decrypt, then dpi_mlp) on the
+    same bytes."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.fused_chain import (BLOCK_N, DEFAULT_AES_COPIES,
-                                                 fused_decrypt_dpi,
+    from repro_torch.kernels.fused_chain import (BLOCK_N, fused_decrypt_dpi,
                                                  fused_decrypt_dpi_tile)
     rk = torch.as_tensor(ops.expand_key(_secure_key())).to(dev)
     pay = torch.randint(0, 256, (N_PKTS, MTU), generator=gen, device=dev,
@@ -444,80 +471,49 @@ def _kernel_fused(dev, gen, tparams) -> dict:
     plain_ms = _median_ms(
         lambda: fused_decrypt_dpi(pay, rk, tparams, impl="ref"), 3)
     # the launch phase 8 makes: one 2-packet tile
-    tile_ms, _ = _kernel_ms(lambda: fused_decrypt_dpi_tile(
+    tile_ms, tile_from = _kernel_ms(lambda: fused_decrypt_dpi_tile(
         pay[:2], rk, tparams, tile_pkts=2), "fused_chain_kernel", 20)
-    # the yardstick this kernel exists to beat: the port's two kernels
+    # the yardstick this kernel exists to beat: the port's two kernels,
+    # in turns with it in one trace
     blocks = pay.reshape(-1, 16)
-    aes_ms, _ = _kernel_ms(lambda: ops.aes_ecb(blocks, rk, decrypt=True),
-                           "aes_ecb_kernel", 10)
-    dpi_ms, _ = _kernel_ms(lambda: ops.dpi_scores(plain, tparams),
-                           "dpi_mlp_kernel", 10)
+    turns = _traced_medians(
+        [("fused_chain_kernel", fn),
+         ("aes_ecb_kernel", lambda: ops.aes_ecb(blocks, rk, decrypt=True)),
+         ("dpi_mlp_kernel", lambda: ops.dpi_scores(plain, tparams))], 10)
+    if turns is None:
+        raise RuntimeError("fused: no trace of the kernel and its chain")
+    turn_ms, aes_ms = turns["fused_chain_kernel"], turns["aes_ecb_kernel"]
+    dpi_ms = turns["dpi_mlp_kernel"]
     chain_call_ms = _median_ms(lambda: ops.dpi_scores(ops.aes_ecb(
         blocks, rk, decrypt=True).reshape(N_PKTS, MTU), tparams).amax(dim=1),
         5, burst=5)
-    by_copies = _fused_copies(pay, rk, tparams, plain, scores)
     beats = pay.numel() // 64
     n_bytes = 2 * pay.numel() + 4 * N_PKTS
-    bound, by, bound_fp32 = _dpi_bounds(
+    bound, by, bound_fp32 = _dpi_bounds(n_bytes, beats)
+    design, design_by, _ = _dpi_bounds(
         n_bytes, beats, lookups=AES_LOOKUPS * pay.numel() // 16)
     bound_bytes = _bound_ms(n_bytes)[0]
     print(f"[kernels] fused_decrypt_dpi {N_PKTS}x{MTU} ({pay.numel()} B): "
           f"plaintext bit-exact, scores worst abs error {worst:.3e} "
           f"(rtol=atol={DPI_RTOL}), round trip, {ragged} packets and tiles "
           f"equal; kernel_ms={ms:.4f} ({ms_from}) call_ms={call_ms:.4f} "
-          f"plain_ms={plain_ms:.3f} two-kernel chain kernel_ms="
-          f"{aes_ms + dpi_ms:.4f} (aes decrypt {aes_ms:.4f} + dpi "
-          f"{dpi_ms:.4f}) call_ms={chain_call_ms:.4f} 2-packet tile "
-          f"kernel_ms={tile_ms:.4f} bound_ms={bound:.4f} ({by}) "
-          f"bound_bytes_ms={bound_bytes:.4f} bound_fp32_ms={bound_fp32:.4f}; "
-          f"kCopies={DEFAULT_AES_COPIES}")
-    for c, v in by_copies.items():
-        print(f"[kernels] fused_decrypt_dpi kCopies={c}: kernel_ms "
-              f"{v['ms']:.4f} (turns {v['ms_turns']}), 2-packet tile "
-              f"{v['tile_ms']:.4f} (turns {v['tile_ms_turns']}); batch "
-              f"launch {v['batch']}, tile launch {v['tile']}")
+          f"plain_ms={plain_ms:.3f}; in turns in one trace: kernel_ms="
+          f"{turn_ms:.4f}, two-kernel chain kernel_ms={aes_ms + dpi_ms:.4f} "
+          f"(aes decrypt {aes_ms:.4f} + dpi {dpi_ms:.4f}); chain call_ms="
+          f"{chain_call_ms:.4f} 2-packet tile kernel_ms={tile_ms:.4f} "
+          f"({tile_from}) bound_ms={bound:.4f} ({by}) "
+          f"bound_bytes_ms={bound_bytes:.4f} bound_fp32_ms={bound_fp32:.4f} "
+          f"bound_design_ms={design:.4f} ({design_by}, with the AES "
+          f"lookups); kCopies={_aes_copies()}")
     return dict(max_abs_err=worst, ms=ms, ms_from=ms_from, call_ms=call_ms,
-                plain_ms=plain_ms, tile_ms=tile_ms, chain_ms=aes_ms + dpi_ms,
+                plain_ms=plain_ms, tile_ms=tile_ms, tile_ms_from=tile_from,
+                ms_in_turns=turn_ms, chain_ms=aes_ms + dpi_ms,
                 chain_call_ms=chain_call_ms, bound_ms=bound, bound_by=by,
                 bound_bytes_ms=bound_bytes, bound_fp32_ms=bound_fp32,
-                library_ms=None, copies=DEFAULT_AES_COPIES,
-                by_copies=by_copies)
-
-
-def _fused_copies(pay, rk, tparams, plain, scores) -> dict:
-    """The fused kernel with each number of AES table copies: the same
-    bits as the default launch, at the batch and at the 2-packet tile;
-    timed in turns (each count, then each in reverse order), the mean of
-    its two turns' medians; and its launch's shared memory and blocks an
-    SM."""
-    import torch
-    from repro_torch.kernels.fused_chain import (AES_COPIES,
-                                                 fused_decrypt_dpi_cuda)
-    from repro_torch.kernels.fused_chain import info as fused_info
-    for c in AES_COPIES:
-        b_plain, b_scores = fused_decrypt_dpi_cuda(pay, rk, tparams,
-                                                   aes_copies=c)
-        t_plain, t_scores = fused_decrypt_dpi_cuda(pay[:2], rk, tparams,
-                                                   aes_copies=c)
-        torch.cuda.synchronize()
-        assert torch.equal(b_plain, plain) and torch.equal(b_scores, scores)\
-            and torch.equal(t_plain, plain[:2]) and \
-            torch.equal(t_scores, scores[:2]), f"fused: {c} copies differ"
-    out = {c: dict(ms_turns=[], tile_ms_turns=[]) for c in AES_COPIES}
-    for c in (*AES_COPIES, *reversed(AES_COPIES)):
-        out[c]["ms_turns"].append(_kernel_ms(
-            lambda: fused_decrypt_dpi_cuda(pay, rk, tparams, aes_copies=c),
-            "fused_chain_kernel", 10)[0])
-        out[c]["tile_ms_turns"].append(_kernel_ms(
-            lambda: fused_decrypt_dpi_cuda(pay[:2], rk, tparams,
-                                           aes_copies=c),
-            "fused_chain_kernel", 20)[0])
-    for c, v in out.items():
-        v["ms"] = statistics.mean(v["ms_turns"])
-        v["tile_ms"] = statistics.mean(v["tile_ms_turns"])
-        v["batch"] = fused_info(pay.device, c, paired=False)
-        v["tile"] = fused_info(pay.device, c, paired=True)
-    return out
+                bound_design_ms=design,
+                bound_design_by=f"{design_by}: MLP on the tensor cores, "
+                "AES lookups in shared memory, the larger",
+                library_ms=None, copies=_aes_copies())
 
 
 def _dense_ulps(got, want) -> int:
@@ -568,11 +564,12 @@ def _kernel_preproc(dev, gen) -> dict:
     # in turns in one trace
     one = torch.zeros(1, device=dev)
     tile_fn = lambda: ops.preproc(tile, N_DENSE, MOD, rec_w=REC_W)  # noqa: E731
-    turns = _trace([("preproc_kernel", tile_fn),
-                    ("elementwise_kernel", lambda: one.add_(1.0))], 20)
+    turns = _traced_medians([("preproc_kernel", tile_fn),
+                             ("elementwise_kernel", lambda: one.add_(1.0))],
+                            20)
     if turns is not None:
-        tile_ms = statistics.median(turns["preproc_kernel"])
-        add_ms = statistics.median(turns["elementwise_kernel"])
+        tile_ms = turns["preproc_kernel"]
+        add_ms = turns["elementwise_kernel"]
     else:
         tile_ms, add_ms = _kernel_ms(tile_fn, "preproc_kernel", 20)[0], None
     bound, by = _bound_ms(2 * raw.numel() * 4, 0)
@@ -666,25 +663,68 @@ def _traffic():
                                           rng) for q in range(N_QPS)]
 
 
-class _BeatsPerLaunch:
+class _SizesPerLaunch:
     """Records the beats of every DPI call that launches the dpi_mlp
-    kernel while it is entered: ``ops.dpi_scores``, which DpiService
-    calls, is wrapped; the launch counter stays the kernel wrapper's."""
+    kernel, and the blocks and direction of every AES call that launches
+    aes_ecb, while it is entered: ``ops.dpi_scores`` and ``ops.aes_ecb``,
+    which DpiService and AesService call, are wrapped; the launch
+    counters stay the kernel wrappers'."""
 
     def __enter__(self):
         from repro_torch.kernels import ops
-        self.beats, self._orig = [], ops.dpi_scores
+        self.beats, self.aes = [], []
+        self._dpi, self._aes = ops.dpi_scores, ops.aes_ecb
 
-        def recording(payload, params, *, impl=None):
+        def dpi(payload, params, *, impl=None):
             if payload.is_cuda and impl is None and payload.numel():
                 self.beats.append(payload.numel() // 64)
-            return self._orig(payload, params, impl=impl)
-        ops.dpi_scores = recording
+            return self._dpi(payload, params, impl=impl)
+
+        def aes(blocks, round_keys, *, decrypt=False, impl=None):
+            if blocks.is_cuda and impl is None and blocks.numel():
+                self.aes.append((blocks.shape[0], decrypt))
+            return self._aes(blocks, round_keys, decrypt=decrypt, impl=impl)
+        ops.dpi_scores, ops.aes_ecb = dpi, aes
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
-        ops.dpi_scores = self._orig
+        ops.dpi_scores, ops.aes_ecb = self._dpi, self._aes
+
+
+def time_launch_sizes(dev, aes_launches, fused_pkts=FUSED_PKTS) -> dict:
+    """Device ms of aes_ecb at each (blocks, decrypt) of ``aes_launches``
+    (the main path's) and of the fused kernel at ``fused_pkts`` packets of
+    4 KiB, on random bytes: the median launch of a torch.profiler trace
+    (a string marked "(events)" where no trace held the kernel).  Uses
+    whichever ``repro_torch`` is on the path."""
+    import torch
+    from repro_torch.data import load_dpi_params_seed0
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.dpi_mlp import dpi_params_from_numpy
+    from repro_torch.kernels.fused_chain import fused_decrypt_dpi
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rk = torch.as_tensor(ops.expand_key(KEY)).to(dev)
+
+    def timed(fn, kernel):
+        ms, how = _kernel_ms(fn, kernel, 20)
+        return ms if how == "profiler" else f"{ms} ({how})"
+    aes = {}
+    for n, decrypt in sorted(set(aes_launches)):
+        blocks = torch.randint(0, 256, (n, 16), generator=gen, device=dev,
+                               dtype=torch.uint8)
+        aes[f"{'decrypt' if decrypt else 'encrypt'} {n}"] = timed(
+            lambda: ops.aes_ecb(blocks, rk, decrypt=decrypt),
+            "aes_ecb_kernel")
+    tparams = dpi_params_from_numpy(load_dpi_params_seed0(), dev)
+    fused = {}
+    for n in fused_pkts:
+        pay = torch.randint(0, 256, (n, MTU), generator=gen, device=dev,
+                            dtype=torch.uint8)
+        fused[f"{n} x {MTU} ({n * MTU // 1024} tiles)"] = timed(
+            lambda: fused_decrypt_dpi(pay, rk, tparams),
+            "fused_chain_kernel")
+    return {"aes_ecb": aes, "fused_decrypt_dpi": fused}
 
 
 def run_main_path(dev, params, data, impl):
@@ -1272,10 +1312,11 @@ def main() -> int:
     data = _traffic()
     # ---- each path with the kernels, counters from 0 around each --------
     ops.reset_launches()
-    with _BeatsPerLaunch() as dpi_beats:
+    with _SizesPerLaunch() as sizes:
         main_k = run_main_path(dev, params, data, impl=None)
     on_main = ops.launches()
-    assert len(dpi_beats.beats) == on_main["dpi_mlp"]
+    assert len(sizes.beats) == on_main["dpi_mlp"]
+    assert len(sizes.aes) == on_main["aes_ecb"]
     ops.reset_launches()
     chain_k = run_chain(dev, params, main_k["ciphertext"], impl=None)
     on_chain = ops.launches()
@@ -1304,10 +1345,17 @@ def main() -> int:
     print(f"[chain] crc | aes-dec | dpi on {chain_k[0].shape[0]} packets: "
           f"payload and flags bit-exact between kernels and plain versions")
     print(f"[main] kernel launches on the main path: {on_main}; dpi_mlp "
-          f"beats per launch: median {statistics.median(dpi_beats.beats)}, "
-          f"all {dpi_beats.beats}")
+          f"beats per launch: median {statistics.median(sizes.beats)}, "
+          f"all {sizes.beats}; aes_ecb (blocks, decrypt) per launch: "
+          f"{sizes.aes}")
     kern["dpi_mlp"]["main_beats_per_launch"] = statistics.median(
-        dpi_beats.beats)
+        sizes.beats)
+    by_size = time_launch_sizes(dev, sizes.aes)
+    for name, times in by_size.items():
+        kern[name]["ms_by_launch_size"] = times
+        print(f"[main] {name} kernel_ms by launch size: " + ", ".join(
+            f"{k}: {v:.4f}" if isinstance(v, float) else f"{k}: {v}"
+            for k, v in times.items()))
     print(f"[chain] kernel launches on the ICRC chain: {on_chain}")
     for name in ("aes_ecb", "dpi_mlp"):
         assert on_main[name] > 0, f"kernel {name} was not launched on the " \

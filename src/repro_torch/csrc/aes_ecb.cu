@@ -11,12 +11,16 @@
 // 32 banks of shared memory so that no lookup conflicts, whatever the
 // data.
 //
-// Bound on the H100: the shared-memory lookups (aes_round.cuh), about
-// twice the time of the bytes (32 a block, each read once and written
-// once).  So the grid is persistent, two blocks of 16 warps an SM (as
-// many as fit, from the occupancy the runtime reports), and each block
-// stages the 64 KB of table copies once for all the blocks it walks over;
-// each lane keeps two blocks in flight, so that two round chains overlap.
+// Bound on the H100: the bytes (32 a block, each read once and written
+// once).  This design's floor is higher, its shared-memory lookups
+// (aes_round.cuh), about twice the bytes' time.  So the grid is
+// persistent, two blocks of 16 warps an SM at most (as many as fit, from
+// the occupancy the runtime reports), and each block stages the 64 KB of
+// table copies once for all the blocks it walks over; each lane keeps two
+// blocks in flight, so that two round chains overlap.  The work goes out
+// in runs of 32 blocks, one a warp, dealt across the blocks of the grid
+// before a block's next warp gets one, so that a launch of a few thousand
+// blocks still spreads over every SM.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -25,11 +29,10 @@
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kC = aes::kCopies;
 // dynamic shared memory: the schedule (44 words), then the table copies
 constexpr int kTab = aes::kRkWords;
 static_assert(kTab % 4 == 0, "the copies must be 16-byte aligned");
-constexpr int kSmemBytes = (kTab + aes::kTableWords<kC>) * 4;   // 65,712
+constexpr int kSmemBytes = (kTab + aes::kTableWords) * 4;   // 65,712
 
 template <bool kDecrypt>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -38,20 +41,29 @@ aes_ecb_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
                const uint32_t* __restrict__ image, long long n) {
   extern __shared__ __align__(16) uint32_t sm[];
   aes::stage_round_keys<kDecrypt>(sm, round_keys, threadIdx.x, blockDim.x);
-  aes::stage_tables<kC, kThreads / 32>(sm + kTab, image, threadIdx.x,
-                                      kThreads);
+  aes::stage_tables<kThreads / 32>(sm + kTab, image, threadIdx.x, kThreads);
   __syncthreads();
-  const aes::Tables<kC> tb(sm + kTab, threadIdx.x & 31);
+  const int lane = threadIdx.x & 31;
+  const aes::Tables tb(sm + kTab, lane);
 
-  // blocks b and b + stride together, then on by 2 x stride
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x; b < n;
-       b += 2 * stride) {
-    const bool two = b + stride < n;
-    uint4 v[2] = {in[b], two ? in[b + stride] : make_uint4(0u, 0u, 0u, 0u)};
-    aes::crypt<kDecrypt, kC, 2>(v, tb, sm);
-    out[b] = v[0];
-    if (two) out[b + stride] = v[1];
+  // runs of 32 blocks, run u to warp u / grid of block u % grid: runs u
+  // and u + stride together, then on by 2 x stride; a warp whose second
+  // run is past the end decrypts its one run alone
+  const long long stride = (long long)gridDim.x * (kThreads / 32);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (long long u = (long long)(threadIdx.x >> 5) * gridDim.x + blockIdx.x;
+       32 * u < n; u += 2 * stride) {
+    const long long b0 = 32 * u + lane, b1 = 32 * (u + stride) + lane;
+    if (32 * (u + stride) < n) {
+      uint4 v[2] = {b0 < n ? in[b0] : zero, b1 < n ? in[b1] : zero};
+      aes::crypt<kDecrypt, 2>(v, tb, sm);
+      if (b0 < n) out[b0] = v[0];
+      if (b1 < n) out[b1] = v[1];
+    } else {
+      uint4 v[1] = {b0 < n ? in[b0] : zero};
+      aes::crypt<kDecrypt, 1>(v, tb, sm);
+      if (b0 < n) out[b0] = v[0];
+    }
   }
 }
 
@@ -87,8 +99,13 @@ int aes_ecb_launch(const void* in, void* out, const void* round_keys,
     if (err != cudaSuccess) return (int)err;
     res = blocks * sms;
   }
-  long long blocks = (n + 2 * kThreads - 1) / (2 * kThreads);
-  if (blocks > res) blocks = res;
+  // a block a run of 32 up to one an SM, so that an SM stages the tables
+  // once; one block an SM until each of its warps has two runs in flight;
+  // past that, the resident blocks
+  const long long runs = (n + 31) / 32;
+  const long long blocks = runs <= sms ? runs
+                           : runs <= 2LL * sms * (kThreads / 32) ? sms
+                                                                  : res;
   const uint4* src = (const uint4*)in;
   const uint32_t* rk = (const uint32_t*)round_keys;
   const uint32_t* tab = (const uint32_t*)image;
@@ -101,15 +118,6 @@ int aes_ecb_launch(const void* in, void* out, const void* round_keys,
                             (cudaStream_t)stream>>>(src, (uint4*)out, rk,
                                                     tab, n);
   return (int)cudaGetLastError();
-}
-
-// What a launch is made of on the current device: info[0] the copies of
-// the tables, [1] dynamic shared memory a block in bytes, [2] resident
-// blocks an SM (of the decrypt kernel when decrypt, else the encrypt).
-int aes_ecb_info(int decrypt, int* info) {
-  info[0] = kC;
-  info[1] = kSmemBytes;
-  return (int)per_sm(decrypt, &info[2]);
 }
 
 const char* balboa_error_string(int err) {

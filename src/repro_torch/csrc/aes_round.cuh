@@ -23,22 +23,22 @@
 // Lookups are data-dependent gathers from shared memory.  One table read
 // by 32 lanes with random bytes lands up to ~3.5 deep in one of the 32
 // banks, and the lookups then cost ~3.5x their wavefronts.  So the tables
-// are replicated across the banks, in rows of 2C words, one row an entry
-// e: C copies of T[e], then C copies of S[e] (the byte in the low 8
-// bits).  Lane l reads copy l % C.  At C = 32 a row is 256 bytes, every
-// lane reads its own bank, whatever the data, and one byte permute forms
-// a lookup's whole offset, (byte << 8) | (lane << 2); the last round reads
-// S at a fixed 128 bytes further.  At C = 16 at most two lanes share a
-// bank, in half the memory.  The host builds the image of one direction
-// once per device (kImageWords words: T, then S; kernels/aes_ecb.py:
-// table_image), and a block writes the copies from it into shared memory
-// (stage_tables): 2 KB read, 64 KB (C = 32) written, 16 bytes a store.
+// are replicated across the banks, in rows of 256 bytes, one row an entry
+// e: 32 copies of T[e], then 32 copies of S[e] (the byte in the low 8
+// bits).  Lane l reads copy l, so every lane reads its own bank, whatever
+// the data, and one byte permute forms a lookup's whole offset,
+// (byte << 8) | (lane << 2); the last round reads S at a fixed 128 bytes
+// further.  The host builds the image of one direction once per device
+// (kImageWords words: T, then S; kernels/aes_ecb.py:table_image), and a
+// block writes the copies from it into shared memory (stage_tables): 2 KB
+// read, 64 KB written, 16 bytes a store.
 //
-// Bound on the H100: shared-memory lookups.  160 lookups a block, one
-// 32-lane wavefront an SM a cycle, against 32 bytes of device memory a
-// block: twice the bytes' time.  A lookup costs two instructions (a
-// permute and the load), plus a rotation on three rows of four and the
-// XOR, so the issue rate stays near the lookups' rate.
+// Cost on the H100: 160 lookups a block, one 32-lane wavefront an SM a
+// cycle, against 32 bytes of device memory a block: twice the bytes'
+// time.  That is this design's floor, not the function's (a bitsliced
+// AES makes no lookups).  A lookup costs two instructions (a permute and
+// the load), plus a rotation on three rows of four and the XOR, so the
+// issue rate stays near the lookups' rate.
 #pragma once
 
 #include <cstdint>
@@ -46,14 +46,11 @@
 
 namespace aes {
 
-constexpr int kCopies = 32;                      // the default replication
+constexpr int kCopies = 32;                      // one a bank
 constexpr int kImageWords = 2 * 256;             // T, then S
 constexpr int kRkWords = 44;                     // 11 round keys x 4 words
-
-// 32-bit words of shared memory the C copies of the tables take (C 16
-// or 32)
-template <int C>
-constexpr int kTableWords = 256 * 2 * C;
+// 32-bit words of shared memory the copies of the tables take (64 KB)
+constexpr int kTableWords = 256 * 2 * kCopies;
 
 __device__ __forceinline__ uint32_t xt4(uint32_t x) {
   // GF(2^8) xtime on the four bytes of x independently
@@ -73,11 +70,6 @@ __device__ __forceinline__ uint32_t inv_mix(uint32_t a) {
   return xt4(a ^ a1) ^ a1 ^ rotl(a, 16) ^ rotl(a, 8);
 }
 
-// byte r of w, zero-extended
-__device__ __forceinline__ uint32_t byte_of(uint32_t w, int r) {
-  return __byte_perm(w, 0u, 0x4440u | r);
-}
-
 // The 44 words of the key schedule (round_keys: the (11, 16) uint8 bytes,
 // 4-byte aligned) into s_rk; decrypting, words 4-39 through InvMixColumns.
 template <bool kDecrypt>
@@ -90,20 +82,19 @@ __device__ __forceinline__ void stage_round_keys(
   }
 }
 
-// The C copies of the image (kImageWords words in device memory) into
-// s_tab (kTableWords<C> words, 16-byte aligned), by a block of at least
+// The copies of the image (kImageWords words in device memory) into
+// s_tab (kTableWords words, 16-byte aligned), by a block of at least
 // kMinWarps warps.  Each warp loads 32 entries of the image a time, one a
 // lane, all of its chunks at once, and hands them to its lanes by
-// shuffles: a warp's 16-byte store writes 128 / C rows' copies of one
-// part (T or S).
-template <int C, int kMinWarps>
+// shuffles: a warp's 16-byte store writes 4 rows' copies of one part (T
+// or S).
+template <int kMinWarps>
 __device__ __forceinline__ void stage_tables(uint32_t* s_tab,
                                              const uint32_t* __restrict__ image,
                                              int tid, int threads) {
-  static_assert(C == 16 || C == 32, "C is 16 or 32");
   constexpr int kChunks = kImageWords / 32;      // 16
   constexpr int kMine = (kChunks + kMinWarps - 1) / kMinWarps;
-  constexpr int kLanesARow = C / 4;              // 16-byte stores a part
+  constexpr int kLanesARow = kCopies / 4;        // 16-byte stores a part
   constexpr int kRowsAStore = 32 / kLanesARow;
   const int lane = tid & 31, warp = tid >> 5, warps = threads >> 5;
   uint32_t v[kMine];
@@ -122,31 +113,29 @@ __device__ __forceinline__ void stage_tables(uint32_t* s_tab,
     for (int k = 0; k < 32; k += kRowsAStore) {
       const int src = k + lane / kLanesARow;     // the lane holding it
       const uint32_t x = __shfl_sync(0xffffffffu, v[i], src);
-      dst[((e0 + src) * 2 * C + part * C) / 4 + lane % kLanesARow] =
-          make_uint4(x, x, x, x);
+      dst[((e0 + src) * 2 * kCopies + part * kCopies) / 4 +
+          lane % kLanesARow] = make_uint4(x, x, x, x);
     }
   }
 }
 
 // A lane's view of the staged tables: the byte offset of its copies.
-template <int C>
 struct Tables {
   const char* base;                              // the tables, in shared
-  uint32_t lane4;                                // 4 x (lane % C)
+  uint32_t lane4;                                // 4 x lane
   __device__ __forceinline__ Tables(const uint32_t* s_tab, int lane)
-      : base(reinterpret_cast<const char*>(s_tab)), lane4((lane % C) * 4) {}
-  // the byte offset of this lane's copy of row (byte r of w)
+      : base(reinterpret_cast<const char*>(s_tab)), lane4(lane * 4) {}
+  // the byte offset of this lane's copy of row (byte r of w): byte 0
+  // lane4, byte 1 byte r of w, then 0
   __device__ __forceinline__ uint32_t at(uint32_t w, int r) const {
-    if constexpr (C == 32)   // byte 0: lane4, byte 1: byte r of w, then 0
-      return __byte_perm(w, lane4, 0x5504u | (r << 4));
-    else
-      return (byte_of(w, r) << 7) | lane4;       // rows of 128 bytes
+    return __byte_perm(w, lane4, 0x5504u | (r << 4));
   }
   __device__ __forceinline__ uint32_t T(uint32_t w, int r) const {
     return *reinterpret_cast<const uint32_t*>(base + at(w, r));
   }
   __device__ __forceinline__ uint32_t S(uint32_t w, int r) const {
-    return *reinterpret_cast<const uint32_t*>(base + at(w, r) + 4 * C);
+    return *reinterpret_cast<const uint32_t*>(base + at(w, r) +
+                                              4 * kCopies);
   }
 };
 
@@ -158,8 +147,8 @@ __device__ __forceinline__ int src(int c, int r) {
 
 // N blocks, one round at a time for all of them, so that their lookups
 // are in flight together.  s_rk: the staged schedule, 16-byte aligned.
-template <bool kDecrypt, int C, int N>
-__device__ __forceinline__ void crypt(uint4 (&v)[N], const Tables<C>& tb,
+template <bool kDecrypt, int N>
+__device__ __forceinline__ void crypt(uint4 (&v)[N], const Tables& tb,
                                       const uint32_t* s_rk) {
   const uint4* rk = reinterpret_cast<const uint4*>(s_rk);
   uint32_t w[N][4], o[N][4];

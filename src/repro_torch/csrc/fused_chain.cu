@@ -10,35 +10,37 @@
 // 16-beat tiles, whatever the MTU (64 to 8192 B and beyond), so a
 // packet's beats spread over warps and blocks.  A block stages the MLP's
 // weights (dpi_mma.cuh's image, built by the host) by one bulk copy, and
-// while it comes in, the AES decrypt schedule and C copies of the inverse
+// while it comes in, the AES decrypt schedule and 32 copies of the inverse
 // T-table and InvS-box (aes_round.cuh, from the image the host builds);
 // then per tile:
 //   1. AES: the tile's 64 16-byte blocks (its ciphertext double-buffered
 //      by cp.async), decrypted by aes_round.cuh's rounds, the same device
-//      code as aes_ecb.cu: table lookups free of bank conflicts (C = 32)
-//      or at most 2-way (C = 16, half the shared memory), the launcher's
-//      choice.  The plaintext
-//      is stored to device memory once and kept in shared memory for the
-//      MLP: the bytes never make a second trip.
+//      code as aes_ecb.cu: table lookups free of bank conflicts.  The
+//      plaintext is stored to device memory once and kept in shared
+//      memory for the MLP: the bytes never make a second trip.
 //   2. The MLP of dpi_mma.cuh on the tensor cores: the same device code
 //      as dpi_mlp.cu, so a beat scores the same bits in both kernels.
 //   3. The max per packet over the tile's rows, then one atomic max per
 //      packet and tile into scores.  Max is exact, so the result does not
 //      depend on which warp gets there first.
-// A large launch gives each warp whole tiles, 16 warps an SM (one block
-// of 16 at C = 32, two of 8 at C = 16: a copy of the tables serves a
-// block).  A small one,
-// such as the 2-packet tile of the secure ingest (8 tiles), gives each
-// tile a pair of warps in a block of its own: each decrypts 32
-// of the blocks and computes half of layer 2, and rank 1 hands its half
-// of layer 3 to rank 0 through shared memory.
+// A block is 16 warps, one an SM (the 64 KB of table copies serve the
+// block; ~120 registers a thread allow no more warps).  A large launch
+// gives each warp whole tiles.  A launch whose tiles the grid's warps
+// could take two at a time, such as the 2-packet tile of the secure
+// ingest (8 tiles), gives each tile a pair of warps instead: each decrypts
+// 32 of the blocks and computes half of layer 2, and rank 1 hands its half
+// of layer 3 to rank 0 through shared memory.  Tiles are dealt across the
+// blocks of the grid before a block's next warp (pair) gets one, and the
+// grid is a block a tile up to one an SM, so a launch of a few hundred
+// tiles spreads over every SM.
 //
-// Bound on the H100: operations.  Per beat the MLP's 16,384 int8 ops
-// (1,979 TOP/s) + 3 x 16,384 bf16 FLOP (989 TFLOP/s) + 128 fp32 FLOP,
-// and AES's 4 x 160 table lookups (one 32-lane shared-memory wavefront an
-// SM a cycle), against 64 B read + 64 B written per beat (+4 B per
-// packet): 0.031 ms of MLP and 0.040 ms of lookups against 0.020 ms of
-// bytes at 8192 x 4 KiB.
+// Bound on the H100: operations, the MLP's on the tensor cores.  Per beat
+// 16,384 int8 ops (1,979 TOP/s) + 3 x 16,384 bf16 FLOP (989 TFLOP/s), and
+// 128 fp32 FLOP on the CUDA cores, against 64 B read + 64 B written per
+// beat (+4 B per packet): 0.030 ms of MLP against 0.020 ms of bytes at
+// 8192 x 4 KiB.  This design's AES adds 4 x 160 table lookups a beat (one
+// 32-lane shared-memory wavefront an SM a cycle), 0.040 ms, on a pipe of
+// their own: the design's floor is the larger, 0.040 ms.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -50,28 +52,15 @@ namespace {
 
 // dynamic shared memory layout, in 32-bit words after the staged weights
 constexpr int kRk = dpi::kWeightWords;           // the decrypt schedule, 44
-constexpr int kTab = kRk + aes::kRkWords;        // C copies of the tables
+constexpr int kTab = kRk + aes::kRkWords;        // the tables' copies
 static_assert(kTab % 4 == 0, "the copies must be 16-byte aligned");
-template <int C>                                 // then per warp: a plaintext
-constexpr int kPt = kTab + aes::kTableWords<C>;
+constexpr int kPt = kTab + aes::kTableWords;     // then per warp: a plaintext
 constexpr int kCtBytes = 2 * 32 * 16;            // and 2 x its lanes' blocks
 constexpr int kWarpBytes = dpi::kTileBytes + 2 * kCtBytes;
-template <int C>
-constexpr int smem_bytes(int warps) {
-  return kPt<C> * 4 + warps * kWarpBytes;
-}
-// A large launch's blocks: 16 warps an SM (as many as ~120 registers a
-// thread allow), sharing one copy of the tables a block: at C = 32 (64 KB
-// of tables) one block of 16 warps, at C = 16 two of 8.
-template <int C>
-constexpr int kWarps = C == 32 ? 16 : 8;
-template <int C>
-constexpr int kBlocksPerSm = 16 / kWarps<C>;
-static_assert(kBlocksPerSm<32> * (smem_bytes<32>(kWarps<32>) + 1024) <=
-                      233472 &&
-                  kBlocksPerSm<16> * (smem_bytes<16>(kWarps<16>) + 1024) <=
-                      233472,
-              "the blocks of an SM fit in its 228 KB of shared memory");
+constexpr int kWarps = 16;                       // a block, one an SM
+constexpr int kSmemBytes = kPt * 4 + kWarps * kWarpBytes;   // 144,592
+static_assert(kSmemBytes + 1024 <= 233472,
+              "a block fits in an SM's 228 KB of shared memory");
 
 // scores[pkt] = max(scores[pkt], v), exact, so the order of the atomics
 // from different warps does not change the bits.  The launch fills scores
@@ -128,8 +117,7 @@ __device__ __forceinline__ void pair_sync(int pair) {
   asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
 }
 
-template <int C>
-__global__ void __launch_bounds__(kWarps<C> * 32, kBlocksPerSm<C>)
+__global__ void __launch_bounds__(kWarps * 32, 1)
 fused_chain_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
                    float* __restrict__ scores,
                    const uint32_t* __restrict__ round_keys,
@@ -139,21 +127,20 @@ fused_chain_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
   extern __shared__ __align__(16) uint32_t sm[];
   const uint32_t* s_rk = sm + kRk;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int warps = blockDim.x >> 5;
   // paired: two warps a tile (rank 0 and 1), each decrypting half of it
   // and computing half of layer 2; else one warp a tile, rank 0
   const int per_tile = paired ? 2 : 1, rank = paired ? warp & 1 : 0;
-  uint8_t* pts = reinterpret_cast<uint8_t*>(sm + kPt<C>);
+  uint8_t* pts = reinterpret_cast<uint8_t*>(sm + kPt);
   uint8_t* pt = pts + (warp - rank) * dpi::kTileBytes;
   // a pair's second plaintext slot carries rank 1's half of layer 3
   float2* share = reinterpret_cast<float2*>(pt + dpi::kTileBytes);
-  uint4* ct = reinterpret_cast<uint4*>(pts + warps * dpi::kTileBytes +
+  uint4* ct = reinterpret_cast<uint4*>(pts + kWarps * dpi::kTileBytes +
                                        warp * 2 * kCtBytes);
 
   const int beats = mtu / 64;                    // per packet
   const long long n_beats = n_pkts * beats;
   const long long n_tiles = (n_beats + dpi::kRows - 1) / dpi::kRows;
-  const long long stride = (long long)gridDim.x * warps / per_tile;
+  const long long stride = (long long)gridDim.x * (kWarps / per_tile);
   // a lane's 16-byte blocks of tile t: lane + 32 (h + rank), h < n_mine,
   // into stage st of its ciphertext buffer (zero past the end); the next
   // tile's come in while this one is decrypted and scored
@@ -166,7 +153,8 @@ fused_chain_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
                       valid);
     }
   };
-  long long t = ((long long)blockIdx.x * warps + warp) / per_tile;
+  // the warp's (pair's) first tile: its slot in the block x grid + block
+  long long t = (long long)(warp / per_tile) * gridDim.x + blockIdx.x;
   if (t < n_tiles) load(t, 0);                   // in flight while staging
   dpi::cp_async_commit();
   dpi::Copies c(sm);
@@ -176,11 +164,11 @@ fused_chain_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
   }
   // the AES tables and schedule while the weights come in
   aes::stage_round_keys<true>(sm + kRk, round_keys, tid, blockDim.x);
-  aes::stage_tables<C, 2>(sm + kTab, aes_image, tid, blockDim.x);
+  aes::stage_tables<kWarps>(sm + kTab, aes_image, tid, kWarps * 32);
   __syncthreads();                               // and the mbarrier is set up
   c.wait();
   const dpi::Weights w = dpi::weights_at(sm);
-  const aes::Tables<C> tb(sm + kTab, lane);
+  const aes::Tables tb(sm + kTab, lane);
 
   for (int st = 0; t < n_tiles; t += stride, st ^= 1) {
     const long long beat0 = t * dpi::kRows;
@@ -193,10 +181,10 @@ fused_chain_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
     if (n_mine == 2) {
       p[0] = ct[st * 64 + lane];
       p[1] = ct[st * 64 + 32 + lane];
-      aes::crypt<true, C, 2>(p, tb, s_rk);
+      aes::crypt<true, 2>(p, tb, s_rk);
     } else {
       uint4 q[1] = {ct[st * 64 + lane]};
-      aes::crypt<true, C, 1>(q, tb, s_rk);
+      aes::crypt<true, 1>(q, tb, s_rk);
       p[0] = q[0];
     }
 #pragma unroll
@@ -231,47 +219,6 @@ fused_chain_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
   }
 }
 
-// A launch's shape on the current device, paired or not: shape[0] warps a
-// block, [1] dynamic shared memory a block in bytes, [2] resident blocks
-// an SM.
-template <int C>
-cudaError_t shape_of(int paired, int* shape) {
-  shape[0] = paired ? 2 : kWarps<C>;
-  shape[1] = smem_bytes<C>(shape[0]);
-  return aes::blocks_per_sm(fused_chain_kernel<C>, shape[0] * 32, shape[1],
-                            smem_bytes<C>(kWarps<C>), &shape[2]);
-}
-
-template <int C>
-cudaError_t launch(const void* in, void* out, void* scores,
-                   const void* round_keys, const void* aes_image,
-                   const void* image, long long n_pkts, int mtu,
-                   long long n_tiles, int dev, int sms, int paired,
-                   cudaStream_t stream) {
-  // per device, the shape when paired and not (resident blocks 0: not yet)
-  static int shapes[aes::kMaxDevices][2][3] = {};
-  int* shape = shapes[dev][paired];
-  cudaError_t err;
-  if (shape[2] == 0) {
-    err = shape_of<C>(paired, shape);
-    if (err != cudaSuccess) return err;
-  }
-  // the identity of atomic_max_score
-  err = cudaMemsetAsync(scores, 0xff, n_pkts * sizeof(float), stream);
-  if (err != cudaSuccess) return err;
-  // one block per `warps` warp tiles (a pair a tile when paired),
-  // persistent beyond the resident blocks
-  const int warps = shape[0];
-  long long blocks = (n_tiles * (paired ? 2 : 1) + warps - 1) / warps;
-  const long long resident = (long long)shape[2] * sms;
-  if (blocks > resident) blocks = resident;
-  fused_chain_kernel<C><<<(unsigned)blocks, warps * 32, shape[1], stream>>>(
-      (const uint4*)in, (uint4*)out, (float*)scores,
-      (const uint32_t*)round_keys, (const uint32_t*)aes_image,
-      (const uint8_t*)image, n_pkts, mtu, paired);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -280,42 +227,43 @@ extern "C" {
 // round_keys: the (11, 16) uint8 schedule, read as 44 words on the card
 // at every launch; aes_image: the decrypt direction's aes::kImageWords
 // table words (kernels/aes_ecb.py:table_image); image: the weight image
-// (dpi::kImageBytes, see dpi_mma.cuh).  Every array 16-byte aligned.
-// copies: the AES tables' copies in shared memory, 16 or 32.  The SM count
-// and the resident blocks are looked up once per device.
+// (dpi::kImageBytes, see dpi_mma.cuh).  Every array 16-byte aligned.  The
+// SM count and the resident blocks are looked up once per device.
 int fused_chain_launch(const void* in, void* out, void* scores,
                        const void* round_keys, const void* aes_image,
                        const void* image, long long n_pkts, int mtu,
-                       int copies, void* stream) {
+                       void* stream) {
+  static int per_sm[aes::kMaxDevices] = {};      // 0: not looked up yet
   if (n_pkts <= 0) return 0;
   if (mtu <= 0 || mtu % 64) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = aes::current_device(&dev, &sms);
   if (err != cudaSuccess) return (int)err;
-  // A launch too small to give every SM's tensor cores a tile of their own
-  // (a 2-packet tile is 8 tiles) pairs the warps: two a tile, one pair a
-  // block, so that each warp decrypts and scores half as much and the
-  // blocks spread over as many SMs.
+  if (per_sm[dev] == 0) {
+    err = aes::blocks_per_sm(fused_chain_kernel, kWarps * 32, kSmemBytes,
+                             kSmemBytes, &per_sm[dev]);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  // the identity of atomic_max_score
+  err = cudaMemsetAsync(scores, 0xff, n_pkts * sizeof(float), s);
+  if (err != cudaSuccess) return (int)err;
+  // Pair the warps while the grid's warps can take every tile two at a
+  // time, so that each warp decrypts and scores half as much.  A block a
+  // tile up to one an SM; past the slots of one block an SM, the
+  // resident blocks.
   const long long n_tiles =
       (n_pkts * (mtu / 64) + dpi::kRows - 1) / dpi::kRows;
-  const int paired = 2 * n_tiles <= (long long)dpi::kWarps * sms;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (copies == 32)
-    return (int)launch<32>(in, out, scores, round_keys, aes_image, image,
-                           n_pkts, mtu, n_tiles, dev, sms, paired, s);
-  if (copies == 16)
-    return (int)launch<16>(in, out, scores, round_keys, aes_image, image,
-                           n_pkts, mtu, n_tiles, dev, sms, paired, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// What a launch of `copies` (16 or 32) is made of on the current device,
-// paired or not: info[0] warps a block, [1] dynamic shared memory a block
-// in bytes, [2] resident blocks an SM.
-int fused_chain_info(int copies, int paired, int* info) {
-  if (copies == 32) return (int)shape_of<32>(paired, info);
-  if (copies == 16) return (int)shape_of<16>(paired, info);
-  return (int)cudaErrorInvalidValue;
+  const int paired = 2 * n_tiles <= (long long)kWarps * sms;
+  const long long slots = (long long)sms * (kWarps / (paired ? 2 : 1));
+  const long long blocks = n_tiles <= sms ? n_tiles
+                           : n_tiles <= slots ? sms
+                                              : (long long)per_sm[dev] * sms;
+  fused_chain_kernel<<<(unsigned)blocks, kWarps * 32, kSmemBytes, s>>>(
+      (const uint4*)in, (uint4*)out, (float*)scores,
+      (const uint32_t*)round_keys, (const uint32_t*)aes_image,
+      (const uint8_t*)image, n_pkts, mtu, paired);
+  return (int)cudaGetLastError();
 }
 
 const char* balboa_error_string(int err) {

@@ -28,8 +28,6 @@ def _lib() -> ctypes.CDLL:
     lib.aes_ecb_launch.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     lib.aes_ecb_launch.restype = ctypes.c_int
-    lib.aes_ecb_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    lib.aes_ecb_info.restype = ctypes.c_int
     return lib
 
 
@@ -73,17 +71,6 @@ def _round_keys_on(round_keys, device: torch.device) -> torch.Tensor:
     if rk.shape != (11, 16):
         raise ValueError(f"round keys must be (11, 16), got {tuple(rk.shape)}")
     return rk.clone() if rk.data_ptr() % 16 else rk
-
-
-def info(device: torch.device, decrypt: bool) -> dict:
-    """What a launch on ``device`` is made of: the tables' copies in
-    shared memory, the dynamic shared memory a block takes and the blocks
-    an SM holds."""
-    out = (ctypes.c_int * 3)()
-    lib = _lib()
-    with torch.cuda.device(device):
-        _build.check(lib, lib.aes_ecb_info(int(decrypt), out), "aes_ecb")
-    return dict(copies=out[0], smem_bytes=out[1], blocks_per_sm=out[2])
 
 
 def aes_ecb_cuda(blocks: torch.Tensor, round_keys: torch.Tensor, *,

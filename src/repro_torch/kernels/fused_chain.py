@@ -33,11 +33,6 @@ from repro_torch.kernels.aes_ecb import _round_keys_on, _table_image_on
 from repro_torch.kernels.dpi_mlp import _checked, _image_of
 
 BLOCK_N = 16              # packets per tile, as the reference's grid step
-# copies of the AES tables in a block's shared memory: 32 keeps every
-# lookup free of bank conflicts, 16 allows 2-way ones in 32 KB less (the
-# slower at 8192 x 4 KiB, the same at the 2-packet tile; PERF.md)
-AES_COPIES = (16, 32)
-DEFAULT_AES_COPIES = 32
 
 fused_decrypt_dpi_ref = R.fused_decrypt_dpi_ref
 
@@ -46,34 +41,16 @@ fused_decrypt_dpi_ref = R.fused_decrypt_dpi_ref
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_chain")
     lib.fused_chain_launch.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     lib.fused_chain_launch.restype = ctypes.c_int
-    lib.fused_chain_info.argtypes = [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p]
-    lib.fused_chain_info.restype = ctypes.c_int
     return lib
 
 
-def info(device: torch.device, copies: int, paired: bool) -> dict:
-    """What a launch on ``device`` with ``copies`` table copies is made of,
-    paired (a small launch) or not: the warps of a block, the dynamic
-    shared memory it takes and the blocks an SM holds."""
-    out = (ctypes.c_int * 3)()
-    lib = _lib()
-    with torch.cuda.device(device):
-        _build.check(lib, lib.fused_chain_info(copies, int(paired), out),
-                     "fused_chain")
-    return dict(copies=copies, warps=out[0], smem_bytes=out[1],
-                blocks_per_sm=out[2])
-
-
-def fused_decrypt_dpi_cuda(payload: torch.Tensor, round_keys, params: Dict,
-                           *, aes_copies: int = DEFAULT_AES_COPIES
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+def fused_decrypt_dpi_cuda(payload: torch.Tensor, round_keys,
+                           params: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """payload (N, MTU) uint8 ciphertext on the card -> (plaintext (N,
     MTU) uint8, (N,) float32 max beat score).  Pass the round keys as a
-    tensor on the card to keep them there between calls.  ``aes_copies``
-    (one of ``AES_COPIES``) changes the speed, never the result."""
+    tensor on the card to keep them there between calls."""
     if not payload.is_cuda:
         raise ValueError("fused_decrypt_dpi_cuda needs a CUDA tensor")
     if payload.dtype != torch.uint8 or payload.dim() != 2 \
@@ -83,9 +60,6 @@ def fused_decrypt_dpi_cuda(payload: torch.Tensor, round_keys, params: Dict,
                          f"{payload.dtype}")
     if not payload.is_contiguous() or payload.data_ptr() % 16:
         raise ValueError("payload must be contiguous and 16-byte aligned")
-    if aes_copies not in AES_COPIES:
-        raise ValueError(f"aes_copies must be one of {AES_COPIES}, got "
-                         f"{aes_copies}")
     dev = payload.device
     rk = _round_keys_on(round_keys, dev)
     p = _checked(params, dev)
@@ -100,7 +74,7 @@ def fused_decrypt_dpi_cuda(payload: torch.Tensor, round_keys, params: Dict,
         err = lib.fused_chain_launch(
             payload.data_ptr(), plain.data_ptr(), scores.data_ptr(),
             rk.data_ptr(), _table_image_on(dev, True).data_ptr(),
-            _image_of(p).data_ptr(), n, mtu, aes_copies, stream)
+            _image_of(p).data_ptr(), n, mtu, stream)
         fused_decrypt_dpi_cuda.launches += 1
     _build.check(lib, err, "fused_chain")
     return plain, scores

@@ -7,14 +7,14 @@ whose rotations by one, two and three bytes stand for the tables of rows
 two byte permutes; decryption as FIPS-197's equivalent inverse cipher,
 with round keys 1-9 passed through InvMixColumns as a block's prologue
 derives them; and the tables replicated across the 32 banks of shared
-memory in rows of 2C words (C copies of T[e], then C of S[e]), lane l
-reading copy ``l % C`` at the byte offset one permute forms.  The CUDA
-kernels cannot run here, so this file emulates the scheme in numpy (the
-staged words as each warp of a block writes them, every permute with its
+memory in rows of 64 words (32 copies of T[e], then 32 of S[e]), lane l
+reading copy l at the byte offset one permute forms.  The CUDA kernels
+cannot run here, so this file emulates the scheme in numpy (the staged
+words as each warp of a block writes them, every permute with its
 selector, each lookup through the lane's offset) and holds it bit for bit
 against the reference's Pallas kernel (interpret mode), the reference's
 oracle and the port's plain version, and checks that no lookup of a warp
-has a bank conflict at C = 32 (at most 2-way at C = 16) whatever the data.
+has a bank conflict whatever the data.
 tests/test_torch_cuda.py holds the kernels themselves against the plain
 version on the card.
 """
@@ -31,11 +31,9 @@ from repro_torch.kernels.ref import expand_key
 
 torch.set_num_threads(1)
 
-COPIES = (16, 32)
+COPIES = 32                      # aes::kCopies, one a bank
 U32 = np.uint32
-# threads of the blocks that stage the tables: a paired fused block, a
-# C = 16 fused block, a C = 32 fused block or an aes_ecb block
-THREADS = (64, 256, 512)
+WARPS = 16                       # the warps of a block of either kernel
 
 
 def _byte_perm(x, y, s: int) -> np.ndarray:
@@ -52,17 +50,18 @@ def _byte_perm(x, y, s: int) -> np.ndarray:
     return out
 
 
-def _stage(image: np.ndarray, copies: int, threads: int) -> np.ndarray:
+def _stage(image: np.ndarray) -> np.ndarray:
     """The shared-memory words ``stage_tables`` writes with a block of
-    ``threads``: warp w loads chunks w, w + warps, ... of 32 image words,
+    WARPS warps: warp w loads chunks w, w + WARPS, ... of 32 image words,
     one a lane, and each 16-byte store writes the word its lane takes by
     shuffle from lane ``src``.  Every word is written exactly once."""
+    copies = COPIES
     smem = np.zeros(256 * 2 * copies, U32)
     written = np.zeros(smem.size, np.int64)
-    lanes_a_row, warps = copies // 4, threads // 32
+    lanes_a_row = copies // 4
     rows_a_store = 32 // lanes_a_row
-    for warp in range(warps):
-        for chunk in range(warp, 16, warps):
+    for warp in range(WARPS):
+        for chunk in range(warp, 16, WARPS):
             v = image[chunk * 32:chunk * 32 + 32]
             part, e0 = int(chunk >= 8), (chunk % 8) * 32
             for k in range(0, 32, rows_a_store):
@@ -78,10 +77,6 @@ def _stage(image: np.ndarray, copies: int, threads: int) -> np.ndarray:
 
 def _rotl(x: np.ndarray, k: int) -> np.ndarray:
     return (x << U32(k)) | (x >> U32(32 - k))
-
-
-def _byte(w: np.ndarray, r: int) -> np.ndarray:
-    return _byte_perm(w, 0, 0x4440 | r)
 
 
 def _xt4(x: np.ndarray) -> np.ndarray:
@@ -110,15 +105,13 @@ class _Lookups:
     """``aes::Tables``: reads the staged words as the lanes do, and records
     the words each warp reads at once, to count bank conflicts."""
 
-    def __init__(self, smem: np.ndarray, copies: int, n: int):
-        self.smem, self.copies = smem, copies
-        self.lane4 = ((np.arange(n) % 32) % copies * 4).astype(U32)
+    def __init__(self, smem: np.ndarray, n: int):
+        self.smem = smem
+        self.lane4 = (np.arange(n) % 32 * 4).astype(U32)
         self.worst = 0
 
     def at(self, w: np.ndarray, r: int) -> np.ndarray:
-        if self.copies == 32:
-            return _byte_perm(w, self.lane4, 0x5504 | (r << 4))
-        return (_byte(w, r) << U32(7)) | self.lane4
+        return _byte_perm(w, self.lane4, 0x5504 | (r << 4))
 
     def _read(self, offset: np.ndarray) -> np.ndarray:
         assert (offset % 4 == 0).all()
@@ -133,16 +126,15 @@ class _Lookups:
         return self._read(self.at(w, r))
 
     def S(self, w: np.ndarray, r: int) -> np.ndarray:
-        return self._read(self.at(w, r) + U32(4 * self.copies))
+        return self._read(self.at(w, r) + U32(4 * COPIES))
 
 
-def _scheme(blocks: np.ndarray, rk: np.ndarray, decrypt: bool,
-            copies: int, threads: int = 512):
+def _scheme(blocks: np.ndarray, rk: np.ndarray, decrypt: bool):
     """``aes::crypt`` on (N, 16) uint8 blocks, one block a lane (block i
     on lane i % 32, as both kernels lay them out).  Returns the blocks and
     the worst bank conflict of any lookup."""
     n = blocks.shape[0]
-    tb = _Lookups(_stage(table_image(decrypt), copies, threads), copies, n)
+    tb = _Lookups(_stage(table_image(decrypt)), n)
     k = _schedule(rk, decrypt).reshape(11, 4)
     w = np.ascontiguousarray(blocks).view("<u4").astype(U32) \
         ^ k[10 if decrypt else 0]
@@ -165,15 +157,18 @@ def _scheme(blocks: np.ndarray, rk: np.ndarray, decrypt: bool,
     return w.astype("<u4").view(np.uint8).reshape(n, 16), tb.worst
 
 
-@pytest.mark.parametrize("copies", COPIES)
-def test_scheme_fips197_vector(copies):
+@pytest.mark.parametrize("lane", [0, 31])
+def test_scheme_fips197_vector(lane):
+    """The FIPS-197 vector on the first and the last lane of a warp (each
+    reads its own copies), the other lanes random."""
     key = np.arange(16, dtype=np.uint8)
-    pt = np.frombuffer(bytes.fromhex("00112233445566778899aabbccddeeff"),
-                       np.uint8)[None]
+    pt = np.random.default_rng(lane).integers(0, 256, (32, 16), np.uint8)
+    pt[lane] = np.frombuffer(
+        bytes.fromhex("00112233445566778899aabbccddeeff"), np.uint8)
     rk = expand_key(key)
-    ct, _ = _scheme(pt, rk, False, copies)
-    assert ct[0].tobytes().hex() == "69c4e0d86a7b0430d8cdb78070b4c55a"
-    back, _ = _scheme(ct, rk, True, copies)
+    ct, _ = _scheme(pt, rk, False)
+    assert ct[lane].tobytes().hex() == "69c4e0d86a7b0430d8cdb78070b4c55a"
+    back, _ = _scheme(ct, rk, True)
     np.testing.assert_array_equal(back, pt)
 
 
@@ -181,8 +176,8 @@ def test_scheme_fips197_vector(copies):
 @pytest.mark.parametrize("n", [1, 31, 33, 257])
 def test_scheme_matches_reference_pallas_and_plain(n, seed):
     """Bit for bit against JAX's Pallas kernel (interpret mode), JAX's
-    oracle and the port's plain version, both directions, both copy
-    counts; no bank conflict at 32 copies, at most 2-way at 16."""
+    oracle and the port's plain version, both directions; no bank
+    conflict."""
     rng = np.random.default_rng(seed)
     blocks = rng.integers(0, 256, (n, 16), dtype=np.uint8)
     rk = expand_key(rng.integers(0, 256, 16, dtype=np.uint8))
@@ -195,20 +190,18 @@ def test_scheme_matches_reference_pallas_and_plain(n, seed):
         plain = (R.aes_decrypt_ref if decrypt else R.aes_encrypt_ref)(
             torch.from_numpy(blocks), rk).numpy()
         np.testing.assert_array_equal(pallas, oracle)
-        for copies in COPIES:
-            got, worst = _scheme(blocks, rk, decrypt, copies,
-                                 THREADS[seed % len(THREADS)])
-            np.testing.assert_array_equal(got, pallas)
-            np.testing.assert_array_equal(got, plain)
-            assert worst <= 32 // copies, (decrypt, copies, worst)
+        got, worst = _scheme(blocks, rk, decrypt)
+        np.testing.assert_array_equal(got, pallas)
+        np.testing.assert_array_equal(got, plain)
+        assert worst == 1, (decrypt, worst)
 
 
 @pytest.mark.parametrize("decrypt", [False, True])
 def test_table_image_is_what_the_kernels_read(decrypt):
     """512 words: the T-table (byte r of word x is m_r * S[x], the
     direction's MixColumns column), then the box, one entry a word in its
-    low byte.  Staged by blocks of any size, row e holds C copies of T[e]
-    then C of S[e]; the rotations of T are the tables of rows 1-3, the
+    low byte.  Staged by a block, row e holds 32 copies of T[e] then 32 of
+    S[e]; the rotations of T are the tables of rows 1-3, the
     circulant matrix's columns 1-3."""
     box = (R.INV_SBOX if decrypt else R.SBOX).astype(np.uint8)
     coef = (14, 9, 13, 11) if decrypt else (2, 1, 1, 3)
@@ -233,12 +226,10 @@ def test_table_image_is_what_the_kernels_read(decrypt):
             want |= np.array([gmul(int(box[x]), coef[(i - r) % 4])
                               for x in range(256)], U32) << U32(8 * i)
         np.testing.assert_array_equal(_rotl(image[:256], 8 * r), want)
-    for copies in COPIES:
-        for threads in THREADS:
-            rows = _stage(image, copies, threads).reshape(256, 2, copies)
-            for j in range(copies):
-                np.testing.assert_array_equal(rows[:, 0, j], image[:256])
-                np.testing.assert_array_equal(rows[:, 1, j], box)
+    rows = _stage(image).reshape(256, 2, COPIES)
+    for j in range(COPIES):
+        np.testing.assert_array_equal(rows[:, 0, j], image[:256])
+        np.testing.assert_array_equal(rows[:, 1, j], box)
 
 
 def test_prologue_round_keys_are_the_equivalent_inverse_cipher_schedule():

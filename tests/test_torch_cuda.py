@@ -8,7 +8,7 @@ imports no JAX, so it runs on a machine with the card and PyTorch only:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 AES (both directions, at block counts around the lane, warp, block and
-persistent-grid edges, and with its round keys rewritten in place), CRC32
+grid edges, and with its round keys rewritten in place), CRC32
 and the segmented reduce must be bit-exact (CRC32 also against zlib),
 preprocessing bit-exact on the sparse words and within 1 ulp on the dense
 ones; DPI scores within rtol = atol = 1e-5, the worst error
@@ -16,7 +16,8 @@ printed, and within 1e-5 of a float64 evaluation of the same MLP.  The
 fused decrypt+DPI chain: plaintext bit-exact, scores within 1e-5, and
 bit-equal to ``dpi_scores(plaintext).amax(1)`` (both kernels run the MLP
 of ``csrc/dpi_mma.cuh``, and a beat's score does not depend on the tile,
-warp or block that computes it), with either number of AES table copies.
+warp or block that computes it), at launches that pair their warps and
+launches that do not.
 """
 import zlib
 
@@ -27,8 +28,7 @@ import torch
 from repro_torch.data import load_dpi_params_seed0
 from repro_torch.kernels import ops
 from repro_torch.kernels.dpi_mlp import dpi_params_from_numpy
-from repro_torch.kernels.fused_chain import (AES_COPIES, fused_decrypt_dpi,
-                                             fused_decrypt_dpi_cuda,
+from repro_torch.kernels.fused_chain import (fused_decrypt_dpi,
                                              fused_decrypt_dpi_tile)
 
 DPI_RTOL = DPI_ATOL = 1e-5
@@ -45,13 +45,18 @@ def cuda():
     return torch.device("cuda")
 
 
-# block counts around a lane (1), a warp (31-33), a block of 256 threads
-# (255-257) and the persistent grid: 1,100,000 blocks is more than the
-# resident blocks x 256 threads x 2 blocks a lane of any H100 launch
-# (132 SMs x at most 5 blocks of 41 KB x 512 = 337,920)
+# block counts around a lane (1), a warp's run of 32 (31-33), 8 runs
+# (255-257), a block of 512 threads (511-513) and twice that (1023-1025);
+# on an H100 (132 SMs, 2 blocks of 512 threads an SM): a block a run up
+# to one an SM (4223-4225 = 132 x 32 +- 1), a warp's second run in flight
+# (67,583-67,585 = 132 x 16 x 32 +- 1), the resident grid (135,167-135,169
+# = 2 x 132 x 16 x 32 +- 1), and past its two blocks a lane: 1,100,000 is
+# more than 132 x 2 x 512 x 2 = 270,336
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 31, 32, 33, 255, 256, 257, 4097,
-                               1_100_000])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 255, 256, 257, 511, 512, 513,
+                               1023, 1024, 1025, 4097, 4223, 4224, 4225,
+                               67_583, 67_584, 67_585, 135_167, 135_168,
+                               135_169, 1_100_000])
 def test_cuda_aes_matches_plain(cuda, n):
     rng = np.random.default_rng(n)
     blocks = _t(rng.integers(0, 256, (n, 16), dtype=np.uint8)).to(cuda)
@@ -359,18 +364,18 @@ def test_cuda_fused_chain_counts_kernel_launches_only(cuda):
     assert sum(ops.launches().values()) == 2
 
 
+# packets a launch: the 2-packet tile (paired warps), 131, the main path's
+# 8192; at MTU 4096 (4 tiles a packet) on an H100 (132 SMs x 16 warps):
+# 264 tiles (one pair a tile over 132 blocks), 268, 1056 (the last paired
+# launch, 8 pairs a block) and 1060 (the first unpaired one)
 @pytest.mark.cuda
-@pytest.mark.parametrize("aes_copies", AES_COPIES)
 @pytest.mark.parametrize("mtu", [64, 4096])
-@pytest.mark.parametrize("n", [2, 131, 8192])
-def test_cuda_fused_aes_copies_bit_exact(cuda, n, mtu, aes_copies):
-    """Either number of AES table copies: the plaintext is the plain
-    decrypt's, bit for bit, and the scores are dpi_mlp's max over it, at
-    the 2-packet tile (paired warps), 131 packets and the main path's
-    8192 packets."""
+@pytest.mark.parametrize("n", [2, 66, 67, 131, 264, 265, 8192])
+def test_cuda_fused_plaintext_and_scores_bit_exact(cuda, n, mtu):
+    """The plaintext is the plain decrypt's, bit for bit, and the scores
+    are dpi_mlp's max over it, at launch sizes around the grid's edges."""
     pay, rk, params = _fused_inputs(cuda, n, mtu, 5 * n + mtu)
-    plain, scores = fused_decrypt_dpi_cuda(pay, rk, params,
-                                           aes_copies=aes_copies)
+    plain, scores = fused_decrypt_dpi(pay, rk, params)
     want = ops.aes_ecb(pay.reshape(-1, 16), rk, decrypt=True,
                        impl="ref").reshape(n, mtu)
     torch.cuda.synchronize()
