@@ -12,7 +12,8 @@ the DLRM.
   0. device   the card's name and power limit (nvidia-smi)
   1. build    nvcc, one process per kernel source, all at once; each
               kernel function's registers, shared memory and spills
-              from ptxas's report
+              from ptxas's report; the fold's and preprocessing's SASS
+              (cuobjdump): instructions, innermost loop, subroutines
   2. kernels  AES-128-ECB, CRC32, the DPI MLP, the DLRM preprocessing,
               the segmented reduce and the fused decrypt+DPI pass at
               main-path sizes against their plain PyTorch versions on
@@ -30,8 +31,9 @@ the DLRM.
               plain versions: every byte must land and the two runs must
               agree on every tick and counter; prints the beats of each
               DPI kernel launch and the blocks of each AES launch, and
-              times AES at each of those sizes and the fused kernel at
-              launches of a few hundred tiles
+              times AES and DPI at each of those sizes, the fused kernel
+              at launches of a few hundred tiles, and the fold and the
+              preprocessing at the shapes phases 6-8 launch them at
   4. chain    the receive chain with an ICRC tap on one 8192-packet batch
               of that traffic, kernels against plain versions, bit-exact
   5. incast   the 8:1 ack-clocked incast on the card reproduces the row
@@ -64,12 +66,21 @@ counters set to 0 just before it and read just after it: the main path
 services), ingest (6b, kernel arm, its warm-up tile included: preproc),
 ingest_onpath (6c: preproc), allreduce_ring and allreduce_offload (7b,
 kernel arms: reduce_fold), secure_ingest (8, kernel arm, its warm-up
-tile included: fused decrypt+DPI, preproc).  The line before the last is a JSON object
-with every kernel's path, launches on that path (and on each path
-apart), error, time, plain time, bound and library time; the last line
-is the run's verdict.  Any failure raises, so the script exits non-zero
+tile included: fused decrypt+DPI, preproc).  Each path prints the shapes
+of its fold and preprocessing launches.  The line before the last is a
+JSON object with every kernel's path, launches on that path (and on each
+path apart), error, time, plain time, bound and library time; the last
+line is the run's verdict.  Any failure raises, so the script exits non-zero
 and prints no verdict; it also exits non-zero, printing nothing, without
 a CUDA device or without the port's sources beside it.
+
+    python3 chip_smoke.py --launch-sizes [SRC]
+
+times the kernels of the ``repro_torch`` under SRC (default ``src``) at
+the paths' launch sizes and prints them, with the card and the SASS
+summary, as one JSON line: run on a parent tree unpacked under
+``build/`` and on this one in turns (parent, change, change, parent) in
+one call, it compares the two on one card.
 """
 import json
 import re
@@ -277,8 +288,83 @@ def _ptxas(log: str) -> list:
     return out
 
 
-def phase_build() -> dict:
-    """Builds every kernel; returns source name -> its ptxas report."""
+def _demangle(names: list) -> list:
+    """C++ names through c++filt where the machine has it."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, check=True,
+                             timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return names
+    return out if len(out) == len(names) else names
+
+
+def sass_summary(so: Path, kernel: str) -> dict:
+    """Per kernel function of the library whose name holds ``kernel``, from
+    its SASS (``cuobjdump -sass``): the instructions; the instructions of
+    its innermost loop, from the address a backward branch jumps to, up to
+    and with that branch (the shortest such span); and each subroutine it
+    calls (such as a software division) with its instructions up to its
+    RET."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    funcs, body = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            body = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", line)
+        if m and body is not None:
+            body.append((int(m.group(1), 16), m.group(2)))
+    names = [n for n in funcs if kernel in n]
+    out = {}
+    for name, pretty in zip(names, _demangle(names)):
+        ins = funcs[name]
+        at = {addr: i for i, (addr, _) in enumerate(ins)}
+        loops, subs = [], {}
+        for i, (_, op) in enumerate(ins):
+            m = re.search(r"\b(BRA|CALL)\S*\s+`?\(?(0x[0-9a-f]+)", op)
+            if not m or int(m.group(2), 16) not in at:
+                continue
+            j = at[int(m.group(2), 16)]
+            if m.group(1) == "BRA" and j < i:
+                loops.append(i - j + 1)
+            elif m.group(1) == "CALL":
+                ret = next((k for k in range(j, len(ins))
+                            if ins[k][1].split()[0].startswith("RET")), None)
+                subs[m.group(2)] = None if ret is None else ret - j + 1
+        out[pretty] = dict(instructions=len(ins),
+                           innermost_loop=min(loops) if loops else None,
+                           calls=subs)
+    return out
+
+
+def _sass_of_paths(paths: dict) -> dict:
+    """``sass_summary`` of the fold and preprocessing kernels that the
+    paths launch (every preproc_kernel; reduce_fold_kernel at K = 2, 3
+    and 4), source name -> function -> summary; empty where the machine
+    has no cuobjdump."""
+    out = {}
+    for name, kernel in (("reduce", "reduce_fold_kernel"),
+                         ("preproc", "preproc_kernel")):
+        try:
+            funcs = sass_summary(paths[name], kernel)
+        except (OSError, subprocess.SubprocessError) as e:
+            print(f"[build] {name}: no SASS summary ({e})", file=sys.stderr)
+            funcs = {}
+        out[name] = {
+            f: v for f, v in funcs.items()
+            if not re.search(r"Add[FI]32, \d+,", f)
+            or re.search(r"Add[FI]32, [234],", f)}
+    return out
+
+
+def phase_build() -> tuple:
+    """Builds every kernel; returns source name -> its ptxas report, and
+    ``_sass_of_paths``."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     paths = _build.build_all()
@@ -293,7 +379,13 @@ def phase_build() -> dict:
                   f"registers, {f['smem_bytes']} B static smem, "
                   f"{f['stack_bytes']} B stack, spill stores "
                   f"{f['spill_stores']} B, spill loads {f['spill_loads']} B")
-    return reports
+    sass = _sass_of_paths(paths)
+    for name, funcs in sass.items():
+        for f, v in funcs.items():
+            print(f"[build] {name} SASS: {f}: {v['instructions']} "
+                  f"instructions, innermost loop {v['innermost_loop']}, "
+                  f"calls {v['calls']}")
+    return reports, sass
 
 
 def phase_kernels(dev, params) -> dict:
@@ -664,40 +756,100 @@ def _traffic():
 
 
 class _SizesPerLaunch:
-    """Records the beats of every DPI call that launches the dpi_mlp
-    kernel, and the blocks and direction of every AES call that launches
-    aes_ecb, while it is entered: ``ops.dpi_scores`` and ``ops.aes_ecb``,
-    which DpiService and AesService call, are wrapped; the launch
+    """Records, while it is entered, the size of every call that launches
+    a kernel: the beats of each DPI call, the blocks and direction of
+    each AES call, the (K, L) rows of each fold with their row stride and
+    whether every row starts on a 16-byte boundary, and the (rows, words)
+    of each preprocessing call with its row stride.  ``ops.dpi_scores``,
+    ``ops.aes_ecb``, ``ops.reduce_fold`` and ``ops.preproc``, which the
+    services, collectives and tile decoders reach, are wrapped; the launch
     counters stay the kernel wrappers'."""
+    NAMES = ("dpi_scores", "aes_ecb", "reduce_fold", "preproc")
 
     def __enter__(self):
         from repro_torch.kernels import ops
-        self.beats, self.aes = [], []
-        self._dpi, self._aes = ops.dpi_scores, ops.aes_ecb
+        self.beats, self.aes, self.folds, self.preprocs = [], [], [], []
+        self._orig = {n: getattr(ops, n) for n in self.NAMES}
+        dpi_, aes_, fold_, pre_ = (self._orig[n] for n in self.NAMES)
 
         def dpi(payload, params, *, impl=None):
             if payload.is_cuda and impl is None and payload.numel():
                 self.beats.append(payload.numel() // 64)
-            return self._dpi(payload, params, impl=impl)
+            return dpi_(payload, params, impl=impl)
 
         def aes(blocks, round_keys, *, decrypt=False, impl=None):
             if blocks.is_cuda and impl is None and blocks.numel():
                 self.aes.append((blocks.shape[0], decrypt))
-            return self._aes(blocks, round_keys, decrypt=decrypt, impl=impl)
-        ops.dpi_scores, ops.aes_ecb = dpi, aes
+            return aes_(blocks, round_keys, decrypt=decrypt, impl=impl)
+
+        def fold(x, *, impl=None):
+            if x.is_cuda and impl is None and x.numel():
+                aligned = x.data_ptr() % 16 == 0 and (
+                    x.shape[0] == 1 or x.stride(0) * x.element_size() % 16
+                    == 0)
+                self.folds.append((*x.shape, x.stride(0), aligned))
+            return fold_(x, impl=impl)
+
+        def pre(recs, n_dense, modulus, *, rec_w=None, impl=None):
+            if recs.is_cuda and impl is None and recs.numel():
+                self.preprocs.append((*recs.shape, recs.stride(0)))
+            return pre_(recs, n_dense, modulus, rec_w=rec_w, impl=impl)
+        for n, f in zip(self.NAMES, (dpi, aes, fold, pre)):
+            setattr(ops, n, f)
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
-        ops.dpi_scores, ops.aes_ecb = self._dpi, self._aes
+        for n, f in self._orig.items():
+            setattr(ops, n, f)
+
+    def shapes(self) -> dict:
+        """kernel -> {shape: launches} of the folds and preprocessing
+        calls recorded."""
+        def count(rows, fmt):
+            out = {}
+            for r in rows:
+                out[fmt(*r)] = out.get(fmt(*r), 0) + 1
+            return out
+        return {"reduce_fold": count(self.folds, lambda k, n, s, a: (
+                    f"({k}, {n}) row stride {s}"
+                    + ("" if a else ", a row off 16 B"))),
+                "preproc": count(self.preprocs, lambda r, w, s: (
+                    f"({r}, {w}) row stride {s}"))}
 
 
-def time_launch_sizes(dev, aes_launches, fused_pkts=FUSED_PKTS) -> dict:
-    """Device ms of aes_ecb at each (blocks, decrypt) of ``aes_launches``
-    (the main path's) and of the fused kernel at ``fused_pkts`` packets of
-    4 KiB, on random bytes: the median launch of a torch.profiler trace
-    (a string marked "(events)" where no trace held the kernel).  Uses
-    whichever ``repro_torch`` is on the path."""
+# The launch sizes timed against the parent's kernels (``--launch-sizes``),
+# as the paths record them (phases 3, 6, 7, 8 print each path's): the
+# main path's DPI launches in beats and its AES launches (one encrypt of
+# the 32 MiB batch, then decrypts of 4 x the DPI beats); the allreduce's
+# folds (ring: (2, 124,881) f32 read in place from the (2, 499,524)-byte
+# payload, row 1 4 bytes past a 16-byte boundary; offload: (3, 1,024) a
+# 4 KiB packet, (3, 977) a chunk's last packet, the owner's (2, 124,881))
+# and phase 2's (4, 8,388,608); the preprocessing tile (2 packet rows of
+# 1,014 words, 1,024 apart), the on-path packet (1 row of 1,014) and
+# phase 2's batch of 212,992 records
+MAIN_DPI_BEATS = (513_344, 136_896, 18_112, 29_632, 5_760, 704, 128)
+MAIN_AES_LAUNCHES = ((N_PKTS * MTU // 16, False),) + tuple(
+    (4 * b, True) for b in MAIN_DPI_BEATS)
+FOLD_SHAPES = ((2, 124_881), (3, 1024), (3, 977), (4, 8 * 1024 * 1024))
+PREPROC_SHAPES = ((2, 1014, 1024), (1, 1014, 1024),
+                  (N_PKTS * RPP, REC_W, REC_W))
+
+
+def time_launch_sizes(dev, aes_launches=MAIN_AES_LAUNCHES,
+                      dpi_beats=MAIN_DPI_BEATS, fused_pkts=FUSED_PKTS,
+                      folds=FOLD_SHAPES, preprocs=PREPROC_SHAPES) -> dict:
+    """Device ms of each kernel at launch sizes of the paths, on seeded
+    random inputs: aes_ecb at each (blocks, decrypt) of ``aes_launches``,
+    dpi_mlp at ``dpi_beats``, the fused kernel at ``fused_pkts`` packets
+    of 4 KiB, reduce_fold at each (K, L) of ``folds`` (float32, the rows
+    back to back in one buffer as a payload lies, so row 1 of an odd L
+    starts off a 16-byte boundary; the last shape in int32 too) and
+    preproc at each (rows, words, row stride) of ``preprocs``; the tile
+    (the first) in turns with a one-element add in one trace.  The median
+    launch of a torch.profiler trace (a string marked "(events)" where no
+    trace held the kernel).  Uses whichever ``repro_torch`` is on the
+    path."""
     import torch
     from repro_torch.data import load_dpi_params_seed0
     from repro_torch.kernels import ops
@@ -709,22 +861,56 @@ def time_launch_sizes(dev, aes_launches, fused_pkts=FUSED_PKTS) -> dict:
     def timed(fn, kernel):
         ms, how = _kernel_ms(fn, kernel, 20)
         return ms if how == "profiler" else f"{ms} ({how})"
+
+    def rand_bytes(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device=dev,
+                             dtype=torch.uint8)
     aes = {}
     for n, decrypt in sorted(set(aes_launches)):
-        blocks = torch.randint(0, 256, (n, 16), generator=gen, device=dev,
-                               dtype=torch.uint8)
+        blocks = rand_bytes(n, 16)
         aes[f"{'decrypt' if decrypt else 'encrypt'} {n}"] = timed(
             lambda: ops.aes_ecb(blocks, rk, decrypt=decrypt),
             "aes_ecb_kernel")
     tparams = dpi_params_from_numpy(load_dpi_params_seed0(), dev)
+    dpi = {}
+    for beats in dpi_beats:
+        pay = rand_bytes(beats, 64)
+        dpi[f"{beats} beats"] = timed(lambda: ops.dpi_scores(pay, tparams),
+                                      "dpi_mlp_kernel")
     fused = {}
     for n in fused_pkts:
-        pay = torch.randint(0, 256, (n, MTU), generator=gen, device=dev,
-                            dtype=torch.uint8)
+        pay = rand_bytes(n, MTU)
         fused[f"{n} x {MTU} ({n * MTU // 1024} tiles)"] = timed(
             lambda: fused_decrypt_dpi(pay, rk, tparams),
             "fused_chain_kernel")
-    return {"aes_ecb": aes, "fused_decrypt_dpi": fused}
+    folds_ms = {}
+    for i, (k, lanes) in enumerate(folds):
+        words = rand_bytes(k * lanes * 4).view(torch.int32).view(k, lanes)
+        dtypes = (torch.float32, torch.int32) if i == len(folds) - 1 else \
+            (torch.float32,)
+        for dt in dtypes:
+            x = words.view(dt)
+            folds_ms[f"({k}, {lanes}) {str(dt)[6:]}"] = timed(
+                lambda: ops.reduce_fold(x), "reduce_fold_kernel")
+    pre = {}
+    for i, (rows, cols, stride) in enumerate(preprocs):
+        recs = rand_bytes(rows * stride * 4).view(torch.int32).view(
+            rows, stride)[:, :cols]
+        fn = lambda: ops.preproc(recs, N_DENSE, MOD, rec_w=REC_W)  # noqa: E731
+        key = f"({rows}, {cols}) row stride {stride}"
+        if i == 0:
+            one = torch.zeros(1, device=dev)
+            turns = _traced_medians([("preproc_kernel", fn),
+                                     ("elementwise_kernel",
+                                      lambda: one.add_(1.0))], 20)
+            if turns is not None:
+                pre[key] = turns["preproc_kernel"]
+                pre["one-element add, in turns with the tile"] = \
+                    turns["elementwise_kernel"]
+                continue
+        pre[key] = timed(fn, "preproc_kernel")
+    return {"aes_ecb": aes, "dpi_mlp": dpi, "fused_decrypt_dpi": fused,
+            "reduce_fold": folds_ms, "preproc": pre}
 
 
 def run_main_path(dev, params, data, impl):
@@ -1023,11 +1209,12 @@ def phase_fig11(dev) -> list:
     return got
 
 
-def phase_ingest(dev) -> dict:
+def phase_ingest(dev, shapes: dict) -> dict:
     """Phase 6: the fig10 rows, then the full-size streaming ingest into
     the full-config DLRM with the kernels and with the plain versions,
     then the on-path variant.  Returns the launch counts of the two
-    ingest paths."""
+    ingest paths, and puts their launches' shapes
+    (``_SizesPerLaunch.shapes``) in ``shapes``."""
     import torch
     from repro_torch.configs.dlrm import config
     from repro_torch.kernels import ops
@@ -1037,11 +1224,15 @@ def phase_ingest(dev) -> dict:
     model = DLRM(cfg, seed=0, device=dev).eval()
     n_params = sum(p.numel() for p in model.parameters())
     ops.reset_launches()
-    kern = run_ingest(dev, model, None, N_SHARDS)
+    with _SizesPerLaunch() as sizes:
+        kern = run_ingest(dev, model, None, N_SHARDS)
     on_ingest = ops.launches()
+    shapes["ingest"] = sizes.shapes()
     ops.reset_launches()
-    onpath = run_ingest_onpath(dev)
+    with _SizesPerLaunch() as sizes:
+        onpath = run_ingest_onpath(dev)
     on_onpath = ops.launches()
+    shapes["ingest_onpath"] = sizes.shapes()
     ops.reset_launches()
     plain = run_ingest(dev, model, "ref", N_SHARDS)
     assert not any(ops.launches().values()), "the plain arm launched a kernel"
@@ -1084,24 +1275,29 @@ def phase_ingest(dev) -> dict:
           f"{onpath['wall_s']:.2f}, landed batch bit-identical to the "
           f"tile-decoder arm")
     print(f"[ingest] kernel launches on ingest: {on_ingest}; on "
-          f"ingest_onpath: {on_onpath}")
+          f"ingest_onpath: {on_onpath}; preproc launches by shape: ingest "
+          f"{shapes['ingest']['preproc']}, ingest_onpath "
+          f"{shapes['ingest_onpath']['preproc']}")
     assert on_ingest["preproc"] > 0, "preproc not launched on ingest"
     assert on_onpath["preproc"] > 0, "preproc not launched on ingest_onpath"
     return {"ingest": on_ingest, "ingest_onpath": on_onpath}
 
 
-def phase_allreduce(dev) -> dict:
+def phase_allreduce(dev, shapes: dict) -> dict:
     """Phase 7: the fig11 rows, then the full-size allreduce (ring and
     offload) with the kernels and with the plain versions.  Returns the
-    launch counts of the two allreduce paths."""
+    launch counts of the two allreduce paths, and puts their launches'
+    shapes in ``shapes``."""
     from repro_torch.kernels import ops
     phase_fig11(dev)
     xs = _allreduce_tensors(ALLREDUCE_ELEMS)
     counts, runs = {}, {}
     for mode in ("ring", "offload"):
         ops.reset_launches()
-        runs[mode] = run_allreduce(dev, xs, offload=mode == "offload")
+        with _SizesPerLaunch() as sizes:
+            runs[mode] = run_allreduce(dev, xs, offload=mode == "offload")
         counts[f"allreduce_{mode}"] = ops.launches()
+        shapes[f"allreduce_{mode}"] = sizes.shapes()
     ops.reset_launches()
     plain = {mode: run_allreduce(dev, xs, offload=mode == "offload",
                                  impl="ref") for mode in ("ring", "offload")}
@@ -1118,7 +1314,9 @@ def phase_allreduce(dev) -> dict:
               + (f" switch_absorbed={r['switch_absorbed']}"
                  if mode == "offload" else "")
               + f"; wall_s kernels={k['wall_s']:.2f} plain={p['wall_s']:.2f}"
-              f"; launches {counts[f'allreduce_{mode}']}")
+              f"; launches {counts[f'allreduce_{mode}']}; reduce_fold "
+              f"launches by shape "
+              f"{shapes[f'allreduce_{mode}']['reduce_fold']}")
         assert counts[f"allreduce_{mode}"]["reduce_fold"] > 0, \
             f"reduce_fold not launched on allreduce_{mode}"
     return counts
@@ -1217,11 +1415,12 @@ def run_secure_ingest(dev, model, tparams, shards, impl) -> dict:
     return dict(shards=out, wall_s=wall, stream_s=stream_s, train_s=train_s)
 
 
-def phase_secure_ingest(dev, params) -> dict:
+def phase_secure_ingest(dev, params, shapes: dict) -> dict:
     """Phase 8: the full-size ingest with the shards encrypted at rest,
     fused decrypt+DPI per tile, training the full-config DLRM, with the
     kernels and with the plain versions (each arm from the same seeded
-    weights).  Returns the launch counts of the secure_ingest path."""
+    weights).  Returns the launch counts of the secure_ingest path, and
+    puts its launches' shapes in ``shapes``."""
     import torch
     from repro_torch.configs.dlrm import config
     from repro_torch.kernels import ops
@@ -1234,10 +1433,12 @@ def phase_secure_ingest(dev, params) -> dict:
     for impl in (None, "ref"):
         model = DLRM(cfg, seed=0, device=dev)
         ops.reset_launches()
-        arms[impl] = run_secure_ingest(dev, model, tparams, shards, impl)
+        with _SizesPerLaunch() as sizes:
+            arms[impl] = run_secure_ingest(dev, model, tparams, shards, impl)
         counts = ops.launches()
         if impl is None:
             on_secure = counts
+            shapes["secure_ingest"] = sizes.shapes()
         else:
             assert not any(counts.values()), "the plain arm launched a kernel"
         del model
@@ -1280,13 +1481,41 @@ def phase_secure_ingest(dev, params) -> dict:
     for name, a in (("kernels", kern), ("plain", plain)):
         print(f"[secure] wall_s {name}: stream {a['stream_s']:.2f} train "
               f"{a['train_s']:.2f} total {a['wall_s']:.2f}")
-    print(f"[secure] kernel launches on secure_ingest: {on_secure}")
+    print(f"[secure] kernel launches on secure_ingest: {on_secure}; preproc "
+          f"launches by shape {shapes['secure_ingest']['preproc']}")
     for name in ("fused_decrypt_dpi", "preproc"):
         assert on_secure[name] > 0, f"{name} not launched on secure_ingest"
     return {"secure_ingest": on_secure}
 
 
+def launch_sizes_main(src: Path) -> int:
+    """``python3 chip_smoke.py --launch-sizes [SRC]``: build the kernels of
+    the ``repro_torch`` under SRC (default this checkout's ``src``) and
+    print, as one JSON line, the card, the SASS summary of its fold and
+    preprocessing kernels and ``time_launch_sizes`` at the paths' launch
+    sizes.  Two trees are compared on one card by running this in turns,
+    parent, change, change, parent, in one call, the parent unpacked (git
+    archive) under the ignored ``build/``."""
+    import torch
+    if not (src / "repro_torch").is_dir() or not torch.cuda.is_available():
+        print(f"chip_smoke.py: no CUDA device or no repro_torch under {src}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(src))
+    import repro_torch
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = phase_device()
+    sass = _sass_of_paths(_build.build_all())
+    times = time_launch_sizes(torch.device("cuda"))
+    print(json.dumps({"src": str(src), "repro_torch": repro_torch.__file__,
+                      "device": smi, "sass": sass, "ms": times}))
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--launch-sizes"]:
+        return launch_sizes_main(Path(sys.argv[2]) if sys.argv[2:] else SRC)
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke.py: the port's sources (src/repro_torch) are not "
               "beside this script", file=sys.stderr)
@@ -1305,7 +1534,7 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     smi = phase_device()
-    ptxas = phase_build()
+    ptxas, sass = phase_build()
     params = load_dpi_params_seed0()
     kern = phase_kernels(dev, params)
 
@@ -1315,6 +1544,7 @@ def main() -> int:
     with _SizesPerLaunch() as sizes:
         main_k = run_main_path(dev, params, data, impl=None)
     on_main = ops.launches()
+    shapes = {"main": sizes.shapes()}
     assert len(sizes.beats) == on_main["dpi_mlp"]
     assert len(sizes.aes) == on_main["aes_ecb"]
     ops.reset_launches()
@@ -1350,7 +1580,7 @@ def main() -> int:
           f"{sizes.aes}")
     kern["dpi_mlp"]["main_beats_per_launch"] = statistics.median(
         sizes.beats)
-    by_size = time_launch_sizes(dev, sizes.aes)
+    by_size = time_launch_sizes(dev, sizes.aes, sizes.beats)
     for name, times in by_size.items():
         kern[name]["ms_by_launch_size"] = times
         print(f"[main] {name} kernel_ms by launch size: " + ", ".join(
@@ -1366,9 +1596,9 @@ def main() -> int:
 
     phase_incast(dev)
     counts = {"main": on_main, "icrc_chain": on_chain}
-    counts.update(phase_ingest(dev))
-    counts.update(phase_allreduce(dev))
-    counts.update(phase_secure_ingest(dev, params))
+    counts.update(phase_ingest(dev, shapes))
+    counts.update(phase_allreduce(dev, shapes))
+    counts.update(phase_secure_ingest(dev, params, shapes))
 
     # name -> (source, TPU kernel it replaces, the path it is counted on)
     sources = {"aes_ecb": ("src/repro_torch/csrc/aes_ecb.cu",
@@ -1390,7 +1620,12 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "path": path, "launches": counts[path][name],
          "launches_by_path": {p: c[name] for p, c in counts.items()},
-         **kern[name], "ptxas": ptxas[Path(src).stem]}
+         **({"shapes_by_path": {p: sh[name] for p, sh in shapes.items()
+                                if sh[name]}}
+            if name in ("reduce_fold", "preproc") else {}),
+         **kern[name], "ptxas": ptxas[Path(src).stem],
+         **({"sass": sass[Path(src).stem]} if Path(src).stem in sass
+            else {})}
         for name, (src, rep, path) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,7 @@
 #include <cuda_runtime.h>
 
 #include "aes_round.cuh"
+#include "grid.cuh"
 
 namespace {
 
@@ -69,10 +70,10 @@ aes_ecb_kernel(const uint4* __restrict__ in, uint4* __restrict__ out,
 
 // Resident blocks an SM of the encrypt or decrypt kernel.
 cudaError_t per_sm(int decrypt, int* blocks) {
-  return decrypt ? aes::blocks_per_sm(aes_ecb_kernel<true>, kThreads,
-                                      kSmemBytes, kSmemBytes, blocks)
-                 : aes::blocks_per_sm(aes_ecb_kernel<false>, kThreads,
-                                      kSmemBytes, kSmemBytes, blocks);
+  return decrypt ? grid::blocks_per_sm(aes_ecb_kernel<true>, kThreads,
+                                       kSmemBytes, kSmemBytes, blocks)
+                 : grid::blocks_per_sm(aes_ecb_kernel<false>, kThreads,
+                                       kSmemBytes, kSmemBytes, blocks);
 }
 
 }  // namespace
@@ -86,10 +87,10 @@ extern "C" {
 int aes_ecb_launch(const void* in, void* out, const void* round_keys,
                    const void* image, long long n, int decrypt,
                    void* stream) {
-  static int resident[aes::kMaxDevices][2] = {};   // 0: not looked up yet
+  static int resident[grid::kMaxDevices][2] = {};  // 0: not looked up yet
   if (n <= 0) return 0;
   int dev = 0, sms = 0;
-  cudaError_t err = aes::current_device(&dev, &sms);
+  cudaError_t err = grid::current_device(&dev, &sms);
   if (err != cudaSuccess) return (int)err;
   decrypt = decrypt ? 1 : 0;
   int& res = resident[dev][decrypt];

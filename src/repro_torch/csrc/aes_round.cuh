@@ -196,39 +196,4 @@ __device__ __forceinline__ void crypt(uint4 (&v)[N], const Tables& tb,
   }
 }
 
-// ---- host ------------------------------------------------------------------
-
-constexpr int kMaxDevices = 64;
-
-// The current device and its SM count (looked up once per device).
-inline cudaError_t current_device(int* dev, int* sms) {
-  static int sms_of[kMaxDevices] = {0};          // 0: not looked up yet
-  cudaError_t err = cudaGetDevice(dev);
-  if (err != cudaSuccess) return err;
-  if (*dev < 0 || *dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (sms_of[*dev] == 0) {
-    err = cudaDeviceGetAttribute(&sms_of[*dev],
-                                 cudaDevAttrMultiProcessorCount, *dev);
-    if (err != cudaSuccess) return err;
-  }
-  *sms = sms_of[*dev];
-  return cudaSuccess;
-}
-
-// The blocks of `kernel` that fit on one SM of the current device at
-// `threads` threads and `smem` bytes of dynamic shared memory, after
-// allowing the kernel `max_smem` bytes (above 48 KB only so).  0 blocks is
-// an error: such a launch could never run.
-template <typename Kernel>
-inline cudaError_t blocks_per_sm(Kernel kernel, int threads, int smem,
-                                 int max_smem, int* blocks) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads,
-                                                      smem);
-  if (err == cudaSuccess && *blocks <= 0) err = cudaErrorInvalidConfiguration;
-  return err;
-}
-
 }  // namespace aes

@@ -21,6 +21,7 @@
 #include <cuda_runtime.h>
 
 #include "dpi_mma.cuh"
+#include "grid.cuh"
 
 namespace {
 
@@ -90,21 +91,12 @@ extern "C" {
 // SM count is looked up once per device, not on every launch.
 int dpi_mlp_launch(const void* payload, const void* image, void* out,
                    long long n_beats, void* stream) {
-  constexpr int kMaxDevices = 64;
-  static int sms_of[kMaxDevices] = {0};          // 0: not looked up yet
   if (n_beats <= 0) return 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int dev = 0, sms = 0;
+  cudaError_t err = grid::current_device(&dev, &sms);
   if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (sms_of[dev] == 0) {
-    int sms = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    sms_of[dev] = sms;
-  }
   const long long blocks = dpi::grid_blocks(
-      (n_beats + dpi::kRows - 1) / dpi::kRows, dpi::kWarps, sms_of[dev]);
+      (n_beats + dpi::kRows - 1) / dpi::kRows, dpi::kWarps, sms);
   dpi_mlp_kernel<<<(unsigned)blocks, dpi::kWarps * 32, kSmem,
                    (cudaStream_t)stream>>>((const uint8_t*)payload,
                                            (const uint8_t*)image, (float*)out,

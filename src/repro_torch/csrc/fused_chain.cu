@@ -47,6 +47,7 @@
 
 #include "aes_round.cuh"
 #include "dpi_mma.cuh"
+#include "grid.cuh"
 
 namespace {
 
@@ -233,15 +234,15 @@ int fused_chain_launch(const void* in, void* out, void* scores,
                        const void* round_keys, const void* aes_image,
                        const void* image, long long n_pkts, int mtu,
                        void* stream) {
-  static int per_sm[aes::kMaxDevices] = {};      // 0: not looked up yet
+  static int per_sm[grid::kMaxDevices] = {};     // 0: not looked up yet
   if (n_pkts <= 0) return 0;
   if (mtu <= 0 || mtu % 64) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
-  cudaError_t err = aes::current_device(&dev, &sms);
+  cudaError_t err = grid::current_device(&dev, &sms);
   if (err != cudaSuccess) return (int)err;
   if (per_sm[dev] == 0) {
-    err = aes::blocks_per_sm(fused_chain_kernel, kWarps * 32, kSmemBytes,
-                             kSmemBytes, &per_sm[dev]);
+    err = grid::blocks_per_sm(fused_chain_kernel, kWarps * 32, kSmemBytes,
+                              kSmemBytes, &per_sm[dev]);
     if (err != cudaSuccess) return (int)err;
   }
   const cudaStream_t s = (cudaStream_t)stream;

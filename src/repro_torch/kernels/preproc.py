@@ -7,7 +7,10 @@ record words:
   Modulus   — restrict sparse feature range for the embedding tables
 
 ``preproc_cuda`` launches the hand-written Hopper kernel in
-``csrc/preproc.cu`` (one thread per word, no padding).  ``preproc_ref``
+``csrc/preproc.cu`` (16-, 8- or 4-byte accesses as the rows allow, one
+word a thread in a small launch; a thread's columns fixed by its place
+in a block of whole records; the floor-mod by a multiply-high with
+``floor_mod_magic``'s numbers; no padding).  ``preproc_ref``
 is the plain PyTorch version from ``ref.py``.  Both take the record
 matrix ``(M, rec_w)`` or, with ``rec_w`` given, a matrix whose rows each
 hold a whole number of records (a fragment tile's packets, read in
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,9 +39,23 @@ def _lib() -> ctypes.CDLL:
     lib.preproc_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.preproc_launch.restype = ctypes.c_int
     return lib
+
+
+def floor_mod_magic(modulus: int) -> Tuple[int, int, int]:
+    """Granlund and Montgomery's divisor by the invariant ``a = |modulus|``
+    (their Figure 4.1): ``(magic, sh1, sh2)`` with, for every 32-bit
+    unsigned n, ``n // a == (t + ((n - t) >> sh1)) >> sh2`` where ``t =
+    (magic * n) >> 32``.  The kernel takes |x| mod a from it and puts the
+    floor-mod's sign back itself."""
+    a = abs(modulus)
+    if not 1 <= a <= 2**31:
+        raise ValueError(f"modulus {modulus} is not a non-zero int32")
+    shift = (a - 1).bit_length()                    # ceil(log2(a))
+    magic = ((1 << 32) * ((1 << shift) - a)) // a + 1
+    return magic, min(shift, 1), max(shift - 1, 0)
 
 
 def _check(recs: torch.Tensor, n_dense: int, modulus: int,
@@ -65,6 +82,9 @@ def preproc_cuda(recs: torch.Tensor, n_dense: int, modulus: int, *,
     if not recs.is_cuda:
         raise ValueError("preproc_cuda needs a CUDA tensor")
     rec_w = _check(recs, n_dense, modulus, rec_w)
+    if recs.numel() >= 2**31:
+        raise ValueError(f"{recs.numel()} words: the kernel indexes fewer "
+                         "than 2^31")
     rows, cols = recs.shape
     unit_cols = cols <= 1 or recs.stride(1) == 1
     rows_apart = rows <= 1 or recs.stride(0) >= cols
@@ -78,7 +98,8 @@ def preproc_cuda(recs: torch.Tensor, n_dense: int, modulus: int, *,
             stream = torch.cuda.current_stream(recs.device).cuda_stream
             err = lib.preproc_launch(recs.data_ptr(), out.data_ptr(), rows,
                                      cols, recs.stride(0), rec_w, n_dense,
-                                     modulus, stream)
+                                     modulus, *floor_mod_magic(modulus),
+                                     stream)
             preproc_cuda.launches += 1
         _build.check(lib, err, "preproc")
     return out

@@ -10,7 +10,8 @@ guarantee (ring schedule == switch offload == oracle) holds exactly
 because every path folds contributions in the same canonical order.
 
 ``reduce_fold_cuda`` launches the hand-written Hopper kernel in
-``csrc/reduce.cu`` (one thread per lane, rows folded in order);
+``csrc/reduce.cu`` (a thread folds runs of 4 lanes, every row's loads in
+flight before its first add, rows folded in order);
 ``reduce_fold_ref`` is the plain PyTorch version from ``ref.py``.
 ``ops.chunk_reduce`` takes the wire bytes, ``(K, nbytes)`` uint8, views
 them as the collective dtype without a copy (``payload_words``), folds,
@@ -51,6 +52,8 @@ def reduce_fold_cuda(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x must be (K>=1, L) float32 or int32, got "
                          f"{tuple(x.shape)} {x.dtype}")
     k, lanes = x.shape
+    if lanes >= 2**31:
+        raise ValueError(f"{lanes} lanes: the kernel indexes fewer than 2^31")
     if lanes > 1 and x.stride(1) != 1 or k > 1 and x.stride(0) < lanes:
         x = x.contiguous()
     out = torch.empty(lanes, dtype=x.dtype, device=x.device)

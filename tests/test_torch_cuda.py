@@ -246,6 +246,120 @@ def test_cuda_reduce_fold_matches_plain(cuda, k, lanes):
                        ops.chunk_reduce(payload, impl="ref"))
 
 
+def _fold_rows(rng, cuda, k, lanes, stride, skew):
+    """(k, lanes) float32 and int32 views of one flat buffer on the card,
+    rows ``stride`` words apart, the first ``skew`` words in: float32 with
+    NaN, +-inf, -0.0 and 3e38 planted, int32 over the full range (sums
+    wrap)."""
+    n = skew + (k - 1) * stride + lanes
+    xf = rng.standard_normal(n).astype(np.float32)
+    xf[rng.integers(0, n, min(n, 16))] = rng.choice(
+        np.array([np.nan, np.inf, -np.inf, -0.0, 3e38], np.float32),
+        min(n, 16))
+    xi = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    return [_t(a).to(cuda).as_strided((k, lanes), (stride, 1), skew)
+            for a in (xf, xi)]
+
+
+# K up to 9 (8 rows in flight, then a batch of 1), odd lanes, row strides
+# that are and are not multiples of 4 words, and a base 4 or 8 bytes past
+# a 16-byte boundary: the ring's (2, 124,881) read in place from its
+# (2, 499,524)-byte payload, the offload's packets of 1,024 and 977 words
+@pytest.mark.cuda
+@pytest.mark.parametrize("skew", [0, 1, 2])
+@pytest.mark.parametrize("k,lanes,stride", [
+    (2, 124_881, 124_881), (2, 124_881, 124_884), (3, 1024, 1024),
+    (4, 977, 977), (4, 977, 980), (1, 3, 3), (9, 1024, 1024),
+    (9, 977, 1001), (8, 4099, 4100), (7, 1, 2), (5, 130, 131)])
+def test_cuda_reduce_fold_at_misaligned_strides(cuda, k, lanes, stride, skew):
+    rng = np.random.default_rng(k * lanes + stride + skew)
+    for x in _fold_rows(rng, cuda, k, lanes, stride, skew):
+        got = ops.reduce_fold(x)
+        want = ops.reduce_fold(x, impl="ref")
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            (k, lanes, stride, skew, x.dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_chunk_reduce_reads_the_ring_payload_in_place(cuda):
+    """The ring's fold: (2, 499,524) uint8 payloads, row 1 4 bytes past a
+    16-byte boundary, folded in place as float32 and as int32."""
+    rng = np.random.default_rng(499_524)
+    pay = _t(rng.integers(0, 256, (2, 499_524), dtype=np.uint8)).to(cuda)
+    for dtype in ("float32", "int32"):
+        got = ops.chunk_reduce(pay, dtype=dtype)
+        want = ops.chunk_reduce(pay, dtype=dtype, impl="ref")
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), dtype
+
+
+PREPROC_MODULI = [1, -1, 2, -2, 3, -3, 7, -9, 1000, 100_000, -100_000,
+                  2**30, 2**31 - 1, -(2**31 - 1), -2**31 + 1, -2**31]
+
+
+def _check_preproc(got, want, n_dense):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.equal(got[:, n_dense:], want[:, n_dense:])
+    if n_dense:
+        ulps = int((got[:, :n_dense].long() - want[:, :n_dense].long())
+                   .abs().max())
+        assert ulps <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("modulus", PREPROC_MODULI)
+def test_cuda_preproc_every_modulus_edge(cuda, modulus):
+    """Full-range sparse words, INT32_MIN and INT32_MAX among them, by
+    every modulus edge: bit-exact (the kernel's multiply-high floor-mod
+    against torch.remainder); a batch and a strided tile."""
+    rng = np.random.default_rng(abs(modulus) % 1_000_003)
+    recs = _preproc_inputs(rng, 4099)
+    m = abs(modulus)
+    recs[1, 13:] = np.clip([-2**31, 2**31 - 1, -2**31 + 1, 2**31 - 2, 0, -1,
+                            1, m - 1, m, m + 1, -m - 1, -m, -m + 1, 2 * m,
+                            -2 * m, 2 * m - 1, 1 - 2 * m, -2**31 + m,
+                            2**31 - m, 3, 4, 5, 6, 7, 8, 9],
+                           -2**31, 2**31 - 1)
+    recs = _t(recs).to(cuda)
+    _check_preproc(ops.preproc(recs, 13, modulus),
+                   ops.preproc(recs, 13, modulus, impl="ref"), 13)
+    pkts = _t(rng.integers(-2**31, 2**31, (2, 1024), dtype=np.int64)
+              .astype(np.int32)).to(cuda)
+    tile = pkts[:, :26 * 39]
+    _check_preproc(ops.preproc(tile, 13, modulus, rec_w=39),
+                   ops.preproc(tile, 13, modulus, rec_w=39, impl="ref"), 13)
+
+
+# at most 65,536 words (one word a thread): the tile (2 packet rows of
+# 1,014 words, 1,024 apart), one packet, an odd record count a packet
+# (975 words); above it: 65 packets (8-byte accesses), 130 packets of 975
+# words (4-byte), batches whose base is 4, 8 or 12 bytes past a 16-byte
+# boundary, 70,000 rows (past blockIdx.y's 65,535); records of 1, 8 and
+# 600 words (wider than a block: columns found per vector)
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols,stride,skew,rec_w,n_dense", [
+    (2, 1014, 1024, 0, 39, 13), (1, 1014, 1024, 0, 39, 13),
+    (7, 1014, 1024, 0, 39, 13), (3, 975, 1024, 0, 39, 13),
+    (65, 1014, 1024, 0, 39, 13), (130, 975, 1024, 0, 39, 13),
+    (4099, 39, 39, 1, 39, 13), (4099, 39, 39, 2, 39, 13),
+    (4099, 39, 39, 3, 39, 13), (70_000, 2, 3, 0, 1, 1),
+    (97, 8, 8, 0, 8, 3), (300, 1, 1, 0, 1, 0), (3, 1200, 1201, 0, 600, 200),
+    (120, 1200, 1200, 0, 600, 200)])
+def test_cuda_preproc_vector_widths_and_strides(cuda, rows, cols, stride,
+                                                skew, rec_w, n_dense):
+    rng = np.random.default_rng(rows * cols + skew)
+    flat = rng.integers(-2**31, 2**31, skew + rows * stride + 4,
+                        dtype=np.int64)
+    flat[::3] = rng.integers(-100, 1_000_000, flat[::3].size)
+    words = _t(flat.astype(np.int32)).to(cuda).as_strided(
+        (rows, cols), (stride, 1), skew)
+    _check_preproc(ops.preproc(words, n_dense, 100_000, rec_w=rec_w),
+                   ops.preproc(words, n_dense, 100_000, rec_w=rec_w,
+                               impl="ref"), n_dense)
+
+
 @pytest.mark.cuda
 def test_cuda_launch_counters_of_preproc_and_reduce(cuda):
     recs = torch.zeros((4, 39), dtype=torch.int32, device=cuda)
