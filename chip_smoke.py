@@ -12,8 +12,9 @@ the DLRM.
   0. device   the card's name and power limit (nvidia-smi)
   1. build    nvcc, one process per kernel source, all at once; each
               kernel function's registers, shared memory and spills
-              from ptxas's report; the fold's and preprocessing's SASS
-              (cuobjdump): instructions, innermost loop, subroutines
+              from ptxas's report; the fold's, preprocessing's and CRC's
+              SASS (cuobjdump): instructions, innermost loop,
+              subroutines, local-memory instructions
   2. kernels  AES-128-ECB, CRC32, the DPI MLP, the DLRM preprocessing,
               the segmented reduce and the fused decrypt+DPI pass at
               main-path sizes against their plain PyTorch versions on
@@ -21,9 +22,13 @@ the DLRM.
               its device time from a torch.profiler trace (median
               launch; CUDA events around back-to-back calls if the
               trace holds no device time), ``call_ms`` the wrapper's
-              whole call by CUDA events.  Also: the segmented reduce and
-              torch.sum in turns; the preprocessing tile beside a
-              one-element PyTorch add (the launch floor)
+              whole call by CUDA events.  CRC32 is checked against zlib
+              on every packet and timed L2 cold (``ms``: a rotation of
+              payload copies larger than the L2) and warm (back to back
+              on one 32 MiB batch, which the 50 MB L2 can hold).  Also:
+              the segmented reduce and torch.sum in turns; the
+              preprocessing tile beside a one-element PyTorch add (the
+              launch floor)
   3. main     256 QPs x 128 KiB (one 8192-packet, 32 MiB receive batch)
               RDMA-written across a lossy link by two RdmaNodes; the
               sender encrypts, the receiver decrypts on-path and runs DPI
@@ -31,11 +36,13 @@ the DLRM.
               plain versions: every byte must land and the two runs must
               agree on every tick and counter; prints the beats of each
               DPI kernel launch and the blocks of each AES launch, and
-              times AES and DPI at each of those sizes, the fused kernel
-              at launches of a few hundred tiles, and the fold and the
+              times AES and DPI at each of those sizes, CRC32 at its RX
+              batches and the chain's batch, the fused kernel at
+              launches of a few hundred tiles, and the fold and the
               preprocessing at the shapes phases 6-8 launch them at
   4. chain    the receive chain with an ICRC tap on one 8192-packet batch
-              of that traffic, kernels against plain versions, bit-exact
+              of that traffic, kernels against plain versions, bit-exact;
+              the tap's (CrcService) whole call timed by CUDA events
   5. incast   the 8:1 ack-clocked incast on the card reproduces the row
               of BENCH_fig6_multipath.json exactly
   6. ingest   (a) the BENCH_fig10_dlrm.json smoke rows (sync, streamed
@@ -82,7 +89,9 @@ summary, as one JSON line: run on a parent tree unpacked under
 ``build/`` and on this one in turns (parent, change, change, parent) in
 one call, it compares the two on one card.
 """
+import itertools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -123,8 +132,9 @@ LOSS_RTOL, LOSS_ATOL = 1e-5, 1e-6
 DPI_THRESHOLD = 1.0             # DpiService's flag threshold
 ALLREDUCE_ELEMS = 154_944 + 344_577     # full DLRM's dense-MLP parameters
 
-# H100 SXM data-sheet peaks (dense)
+# H100 SXM data-sheet peaks (dense), and its L2 cache
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50e6
 FP32_FLOPS = 67e12
 INT8_OPS = 1979e12
 BF16_FLOPS = 989e12
@@ -217,6 +227,16 @@ def _kernel_ms(fn, kernel: str, reps: int):
     return _median_ms(fn, 5, burst=10), "events"
 
 
+def _rotation(fn_of, x):
+    """A call of ``fn_of`` on the next of a rotation of copies of ``x``
+    that together hold more than twice the L2 cache, so that each call
+    reads its input from device memory ("cold"), not from the L2."""
+    n = max(2, math.ceil(2 * L2_BYTES / (x.numel() * x.element_size())))
+    bufs = [x] + [x.clone() for _ in range(n - 1)]
+    turn = itertools.count()
+    return lambda: fn_of(bufs[next(turn) % n])
+
+
 def _bound_ms(n_bytes: float, flops: float = 0.0, *, int8_ops: float = 0.0,
               bf16_flops: float = 0.0, lookups: float = 0.0):
     """The largest of the bytes' time at the memory rate and the time of
@@ -303,9 +323,10 @@ def sass_summary(so: Path, kernel: str) -> dict:
     """Per kernel function of the library whose name holds ``kernel``, from
     its SASS (``cuobjdump -sass``): the instructions; the instructions of
     its innermost loop, from the address a backward branch jumps to, up to
-    and with that branch (the shortest such span); and each subroutine it
+    and with that branch (the shortest such span); each subroutine it
     calls (such as a software division) with its instructions up to its
-    RET."""
+    RET; and its local-memory instructions (LDL, STL: spills or arrays
+    indexed at run time)."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(so)], capture_output=True,
@@ -336,20 +357,23 @@ def sass_summary(so: Path, kernel: str) -> dict:
                 ret = next((k for k in range(j, len(ins))
                             if ins[k][1].split()[0].startswith("RET")), None)
                 subs[m.group(2)] = None if ret is None else ret - j + 1
+        local = sum(1 for _, op in ins
+                    if re.search(r"(^|\s)(LDL|STL)(\.|\s|$)", op))
         out[pretty] = dict(instructions=len(ins),
                            innermost_loop=min(loops) if loops else None,
-                           calls=subs)
+                           calls=subs, local_memory=local)
     return out
 
 
 def _sass_of_paths(paths: dict) -> dict:
-    """``sass_summary`` of the fold and preprocessing kernels that the
-    paths launch (every preproc_kernel; reduce_fold_kernel at K = 2, 3
-    and 4), source name -> function -> summary; empty where the machine
-    has no cuobjdump."""
+    """``sass_summary`` of the fold, preprocessing and CRC kernels that
+    the paths launch (every preproc_kernel and crc32_kernel;
+    reduce_fold_kernel at K = 2, 3 and 4), source name -> function ->
+    summary; empty where the machine has no cuobjdump."""
     out = {}
     for name, kernel in (("reduce", "reduce_fold_kernel"),
-                         ("preproc", "preproc_kernel")):
+                         ("preproc", "preproc_kernel"),
+                         ("crc32", "crc32_kernel")):
         try:
             funcs = sass_summary(paths[name], kernel)
         except (OSError, subprocess.SubprocessError) as e:
@@ -384,7 +408,8 @@ def phase_build() -> tuple:
         for f, v in funcs.items():
             print(f"[build] {name} SASS: {f}: {v['instructions']} "
                   f"instructions, innermost loop {v['innermost_loop']}, "
-                  f"calls {v['calls']}")
+                  f"calls {v['calls']}, local-memory instructions "
+                  f"{v['local_memory']}")
     return reports, sass
 
 
@@ -392,6 +417,8 @@ def phase_kernels(dev, params) -> dict:
     """Each kernel against its plain version at main-path sizes."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels.crc32 import team as crc_team
+    from repro_torch.kernels.crc32 import warp_lookups
     from repro_torch.kernels.dpi_mlp import dpi_params_from_numpy
     gen = torch.Generator(device=dev).manual_seed(0)
     # the round keys live on the card, as AesService keeps them
@@ -450,24 +477,45 @@ def phase_kernels(dev, params) -> dict:
     crc_ref = ops.crc32(pay, plen, impl="ref")
     torch.cuda.synchronize()
     assert torch.equal(crc, crc_ref), "CRC32 differs from plain"
-    pay_h, plen_h, crc_h = pay[:64].cpu().numpy(), plen[:64].cpu().numpy(), \
-        crc[:64].cpu().numpy()
-    for i in range(64):
+    pay_h, plen_h, crc_h = pay.cpu().numpy(), plen.cpu().numpy(), \
+        crc.cpu().numpy()
+    for i in range(N_PKTS):
         assert crc_h[i] == zlib.crc32(pay_h[i, :plen_h[i]].tobytes()), \
             f"CRC32 differs from zlib at packet {i}"
-    ms, ms_from = _kernel_ms(lambda: ops.crc32(pay, plen), "crc32_kernel",
-                             20)
+    # warm: back to back over one 32 MiB batch, which the 50 MB L2 can
+    # hold; cold (``ms``, held against the bound): over a rotation of
+    # copies, each launch reading its rows from device memory
+    warm, warm_from = _kernel_ms(lambda: ops.crc32(pay, plen),
+                                 "crc32_kernel", 20)
+    ms, ms_from = _kernel_ms(_rotation(lambda p: ops.crc32(p, plen), pay),
+                             "crc32_kernel", 21)
     call_ms = _median_ms(lambda: ops.crc32(pay, plen), 5, burst=10)
     plain_ms = _median_ms(lambda: ops.crc32(pay, plen, impl="ref"), 3)
-    n_bytes = int(plen.clamp(0, MTU).sum()) + 4 * N_PKTS + 4 * N_PKTS
+    under = plen.clamp(0, MTU).long()
+    n_bytes = int(under.sum()) + 4 * N_PKTS + 4 * N_PKTS
     bound, by = _bound_ms(n_bytes, 0)
+    # the design's lookups: each warp lookup instruction is 32 lanes'
+    # lookups, one wavefront (kernels/crc32.py:warp_lookups)
+    lanes, chunk = crc_team(MTU, 16)
+    lookups = 32 * warp_lookups(plen_h, MTU, 16)
+    design, design_by = _bound_ms(n_bytes, lookups=lookups)
+    by_lookups = lookups / SMEM_LOOKUPS_PER_S * 1e3
     out["crc32"] = dict(max_abs_err=int((crc - crc_ref).abs().max()), ms=ms,
-                        ms_from=ms_from, call_ms=call_ms, plain_ms=plain_ms,
-                        bound_ms=bound, bound_by=by, library_ms=None)
+                        ms_from=f"{ms_from}, L2 cold", ms_warm=warm,
+                        ms_warm_from=warm_from, call_ms=call_ms,
+                        plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                        bound_bytes_ms=bound, bound_design_ms=design,
+                        bound_design_by=f"{design_by}: shared-memory "
+                        "lookups", bound_lookups_ms=by_lookups,
+                        lookups=lookups, team=lanes,
+                        chunk_bytes=chunk, library_ms=None)
     print(f"[kernels] crc32 {N_PKTS}x{MTU} ragged ({n_bytes} B): bit-exact "
-          f"vs plain and zlib, kernel_ms={ms:.4f} ({ms_from}) "
+          f"vs plain and zlib on all {N_PKTS} packets, kernel_ms={ms:.4f} "
+          f"({ms_from}, L2 cold) kernel_ms_warm={warm:.4f} ({warm_from}) "
           f"call_ms={call_ms:.4f} plain_ms={plain_ms:.3f} "
-          f"bound_ms={bound:.4f} ({by})")
+          f"bound_ms={bound:.4f} ({by}) bound_design_ms={design:.4f} "
+          f"({design_by}; the {lookups} lookups alone {by_lookups:.4f}); "
+          f"team {lanes} lanes x {chunk} B")
 
     # --- DPI MLP: 524,288 beats with the trained fixture ------------------
     tparams = dpi_params_from_numpy(params, dev)
@@ -827,8 +875,11 @@ class _SizesPerLaunch:
 # 4 KiB packet, (3, 977) a chunk's last packet, the owner's (2, 124,881))
 # and phase 2's (4, 8,388,608); the preprocessing tile (2 packet rows of
 # 1,014 words, 1,024 apart), the on-path packet (1 row of 1,014) and
-# phase 2's batch of 212,992 records
+# phase 2's batch of 212,992 records; CRC32 at the ICRC chain's batch of
+# 8192 full packets and at the main path's seven RX batches (its DPI
+# beats / 64)
 MAIN_DPI_BEATS = (513_344, 136_896, 18_112, 29_632, 5_760, 704, 128)
+CRC_PKTS = tuple(b // (MTU // 64) for b in MAIN_DPI_BEATS)
 MAIN_AES_LAUNCHES = ((N_PKTS * MTU // 16, False),) + tuple(
     (4 * b, True) for b in MAIN_DPI_BEATS)
 FOLD_SHAPES = ((2, 124_881), (3, 1024), (3, 977), (4, 8 * 1024 * 1024))
@@ -838,9 +889,14 @@ PREPROC_SHAPES = ((2, 1014, 1024), (1, 1014, 1024),
 
 def time_launch_sizes(dev, aes_launches=MAIN_AES_LAUNCHES,
                       dpi_beats=MAIN_DPI_BEATS, fused_pkts=FUSED_PKTS,
-                      folds=FOLD_SHAPES, preprocs=PREPROC_SHAPES) -> dict:
+                      folds=FOLD_SHAPES, preprocs=PREPROC_SHAPES,
+                      crc_pkts=CRC_PKTS) -> dict:
     """Device ms of each kernel at launch sizes of the paths, on seeded
-    random inputs: aes_ecb at each (blocks, decrypt) of ``aes_launches``,
+    random inputs: crc32 on the ICRC chain's 8192 full 4 KiB packets, L2
+    cold (``_rotation``) and warm (back to back), and warm on the first
+    ``crc_pkts`` of them, with the ICRC tap's whole call (``CrcService``,
+    CUDA events) on all of them; aes_ecb at each (blocks, decrypt) of
+    ``aes_launches``,
     dpi_mlp at ``dpi_beats``, the fused kernel at ``fused_pkts`` packets
     of 4 KiB, reduce_fold at each (K, L) of ``folds`` (float32, the rows
     back to back in one buffer as a payload lies, so row 1 of an odd L
@@ -865,6 +921,18 @@ def time_launch_sizes(dev, aes_launches=MAIN_AES_LAUNCHES,
     def rand_bytes(*shape):
         return torch.randint(0, 256, shape, generator=gen, device=dev,
                              dtype=torch.uint8)
+    crc = {}
+    pay = rand_bytes(N_PKTS, MTU)
+    full = torch.full((N_PKTS,), MTU, dtype=torch.int32, device=dev)
+    chain = f"{N_PKTS} x {MTU} full (ICRC chain)"
+    crc[f"{chain}, L2 cold"] = timed(
+        _rotation(lambda p: ops.crc32(p, full), pay), "crc32_kernel")
+    crc[f"{chain}, warm"] = timed(lambda: ops.crc32(pay, full),
+                                  "crc32_kernel")
+    for n in crc_pkts:
+        crc[f"{n} x {MTU} full, warm"] = timed(
+            lambda: ops.crc32(pay[:n], full[:n]), "crc32_kernel")
+    crc[f"CrcService call on {chain} (events)"] = _crc_service_ms(pay)
     aes = {}
     for n, decrypt in sorted(set(aes_launches)):
         blocks = rand_bytes(n, 16)
@@ -909,8 +977,9 @@ def time_launch_sizes(dev, aes_launches=MAIN_AES_LAUNCHES,
                     turns["elementwise_kernel"]
                 continue
         pre[key] = timed(fn, "preproc_kernel")
-    return {"aes_ecb": aes, "dpi_mlp": dpi, "fused_decrypt_dpi": fused,
-            "reduce_fold": folds_ms, "preproc": pre}
+    return {"aes_ecb": aes, "crc32": crc, "dpi_mlp": dpi,
+            "fused_decrypt_dpi": fused, "reduce_fold": folds_ms,
+            "preproc": pre}
 
 
 def run_main_path(dev, params, data, impl):
@@ -973,6 +1042,17 @@ def run_chain(dev, params, ct, impl):
     out, flags = chain.process(pay, plen)
     torch.cuda.synchronize()
     return out, flags
+
+
+def _crc_service_ms(pay) -> float:
+    """The whole call of the ICRC tap (``CrcService``) on the full packets
+    ``pay`` ((N, MTU) uint8 on the card), by CUDA events."""
+    import torch
+    from repro_torch.core.services import CrcService
+    plen = torch.full((pay.shape[0],), MTU, dtype=torch.int32,
+                      device=pay.device)
+    tap = CrcService(device=pay.device)
+    return _median_ms(lambda: tap(pay, plen), 5, burst=10)
 
 
 def phase_incast(dev) -> dict:
@@ -1574,6 +1654,11 @@ def main() -> int:
     assert bool((chain_k[1] & 2).any()), "chain: DPI flagged nothing"
     print(f"[chain] crc | aes-dec | dpi on {chain_k[0].shape[0]} packets: "
           f"payload and flags bit-exact between kernels and plain versions")
+    kern["crc32"]["service_call_ms"] = _crc_service_ms(
+        torch.from_numpy(main_k["ciphertext"].reshape(-1, MTU)).to(dev))
+    print(f"[chain] CrcService call_ms="
+          f"{kern['crc32']['service_call_ms']:.4f} (the ICRC tap's whole "
+          f"call on the chain's batch, CUDA events)")
     print(f"[main] kernel launches on the main path: {on_main}; dpi_mlp "
           f"beats per launch: median {statistics.median(sizes.beats)}, "
           f"all {sizes.beats}; aes_ecb (blocks, decrypt) per launch: "

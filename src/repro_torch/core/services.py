@@ -26,14 +26,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.dpi_mlp import dpi_params_from_numpy
-
-
-def as_int32(v: torch.Tensor) -> torch.Tensor:
-    """Wrap integer lanes to int32 two's complement, as ``jnp``'s
-    uint32 -> int32 conversion and int32 shifts do (torch's narrowing
-    conversions and shifts past the sign bit are not relied on)."""
-    v = v.to(torch.int64) & 0xFFFFFFFF
-    return (v - ((v >> 31) << 32)).to(torch.int32)
+from repro_torch.kernels.ref import as_int32
 
 
 class OnPathService:
@@ -163,7 +156,7 @@ class CrcService(ParallelPathService):
 
     def __call__(self, payload: torch.Tensor, plen: torch.Tensor
                  ) -> torch.Tensor:
-        return as_int32(ops.crc32(payload, plen, impl=self.impl))
+        return ops.crc32_int32(payload, plen, impl=self.impl)
 
 
 class ServiceChain:

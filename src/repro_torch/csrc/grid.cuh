@@ -41,17 +41,18 @@ inline cudaError_t blocks_per_sm(Kernel kernel, int threads, int smem,
   return err;
 }
 
-// The grid of a streaming kernel (no dynamic shared memory) whose work is
-// `want` blocks: at most the blocks the device holds at once, in as many
-// passes as that takes, the work spread evenly over them (4 passes of
-// 2,048 blocks rather than 3.9 of 2,112, whose last pass would find 12 %
-// of the blocks idle).
+// The grid of a streaming kernel whose work is `want` blocks of `smem`
+// bytes of dynamic shared memory each: at most the blocks the device holds
+// at once, in as many passes as that takes, the work spread evenly over
+// them (4 passes of 2,048 blocks rather than 3.9 of 2,112, whose last pass
+// would find 12 % of the blocks idle).
 template <typename Kernel>
 inline cudaError_t capped_blocks(Kernel kernel, int threads, long long want,
-                                 long long* blocks) {
+                                 long long* blocks, int smem = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = current_device(&dev, &sms);
-  if (err == cudaSuccess) err = blocks_per_sm(kernel, threads, 0, 0, &per_sm);
+  if (err == cudaSuccess)
+    err = blocks_per_sm(kernel, threads, smem, smem, &per_sm);
   if (err != cudaSuccess) return err;
   const long long resident = (long long)sms * per_sm;
   const long long passes = (want + resident - 1) / resident;

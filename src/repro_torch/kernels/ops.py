@@ -26,7 +26,7 @@ from repro_torch.kernels.ref import expand_key  # noqa: F401  (re-export)
 IMPLS = (None, "ref")
 
 # the kernel wrappers whose ``launches`` counters a run reads
-KERNELS = {"aes_ecb": _aes.aes_ecb_cuda, "crc32": _crc.crc32_cuda,
+KERNELS = {"aes_ecb": _aes.aes_ecb_cuda, "crc32": _crc.crc32_int32_cuda,
            "dpi_mlp": _dpi.dpi_scores_cuda, "preproc": _pre.preproc_cuda,
            "reduce_fold": _red.reduce_fold_cuda,
            "fused_decrypt_dpi": _fused.fused_decrypt_dpi_cuda}
@@ -52,6 +52,16 @@ def crc32(payload: torch.Tensor, plen: torch.Tensor, *,
     if _use_kernel(payload, impl):
         return _crc.crc32_cuda(payload, plen)
     return _crc.crc32_ref(payload, plen)
+
+
+def crc32_int32(payload: torch.Tensor, plen: torch.Tensor, *,
+                impl: Optional[str] = None) -> torch.Tensor:
+    """(N, MTU) uint8, (N,) lengths -> (N,) int32: the CRC32's bits
+    wrapped to int32, as the ICRC tap reports them (the kernel's own
+    output, with no widening on the card)."""
+    if _use_kernel(payload, impl):
+        return _crc.crc32_int32_cuda(payload, plen)
+    return _crc.crc32_int32_ref(payload, plen)
 
 
 def dpi_scores(payload: torch.Tensor, params: Dict, *,

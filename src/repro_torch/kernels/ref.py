@@ -165,6 +165,14 @@ def aes_decrypt_ref(blocks: torch.Tensor, round_keys) -> torch.Tensor:
 # CRC32 (reflected 0xEDB88320 — Ethernet/RoCE ICRC polynomial)
 # ===========================================================================
 
+def as_int32(v: torch.Tensor) -> torch.Tensor:
+    """Wrap integer lanes to int32 two's complement, as ``jnp``'s
+    uint32 -> int32 conversion and int32 shifts do (torch's narrowing
+    conversions and shifts past the sign bit are not relied on)."""
+    v = v.to(torch.int64) & 0xFFFFFFFF
+    return (v - ((v >> 31) << 32)).to(torch.int32)
+
+
 def _crc_table() -> np.ndarray:
     t = np.zeros(256, np.uint32)
     for i in range(256):

@@ -8,8 +8,9 @@ imports no JAX, so it runs on a machine with the card and PyTorch only:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 AES (both directions, at block counts around the lane, warp, block and
-grid edges, and with its round keys rewritten in place), CRC32
-and the segmented reduce must be bit-exact (CRC32 also against zlib),
+grid edges, and with its round keys rewritten in place), CRC32 (at its
+plen edges, team sizes and load sizes; the ICRC tap's flags too) and the
+segmented reduce must be bit-exact (CRC32 also against zlib),
 preprocessing bit-exact on the sparse words and within 1 ulp on the dense
 ones; DPI scores within rtol = atol = 1e-5, the worst error
 printed, and within 1e-5 of a float64 evaluation of the same MLP.  The
@@ -86,16 +87,62 @@ def test_cuda_aes_reads_round_keys_rewritten_in_place(cuda):
             assert torch.equal(got, want), (key, decrypt)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,mtu", [(1, 64), (130, 256), (33, 4096)])
-def test_cuda_crc32_matches_plain(cuda, n, mtu):
-    rng = np.random.default_rng(mtu)
+def _crc_inputs(cuda, n, mtu, offset, seed):
+    """n random rows (the first of them at the plen edges -1, 0, 1, 15,
+    16, 17, 127-129, MTU - 1, MTU, MTU + 1) in a card buffer whose base is
+    ``offset`` bytes past a 16-byte boundary."""
+    rng = np.random.default_rng(seed)
     pay = rng.integers(0, 256, (n, mtu), dtype=np.uint8)
     plen = rng.integers(-1, mtu + 2, n).astype(np.int32)
-    got = ops.crc32(_t(pay).to(cuda), _t(plen).to(cuda)).cpu().numpy()
-    want = [zlib.crc32(pay[i, :max(0, min(plen[i], mtu))].tobytes())
-            for i in range(n)]
-    np.testing.assert_array_equal(got, want)
+    edges = [-1, 0, 1, 15, 16, 17, 127, 128, 129, mtu - 1, mtu, mtu + 1]
+    plen[:min(n, len(edges))] = edges[:n]
+    buf = torch.empty(n * mtu + 16, dtype=torch.uint8, device=cuda)
+    at = (offset - buf.data_ptr()) % 16
+    rows = buf[at:at + n * mtu].view(n, mtu)
+    rows.copy_(_t(pay))
+    assert rows.data_ptr() % 16 == offset
+    return pay, plen, rows, _t(plen).to(cuda)
+
+
+# teams of 1 (MTU 8-64), 2 (136, 256) and 32 lanes (4096: one warp a
+# packet; 8192: two 128-byte segments a lane), batches around a warp's
+# worth of teams and past the resident grid (4225 warps), and bases 8 B
+# off a 16-byte boundary (8-byte loads)
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,mtu,offset", [
+    (1, 64, 0), (130, 256, 0), (33, 4096, 0), (12, 8, 0), (40, 24, 0),
+    (33, 136, 0), (15, 256, 0), (16, 256, 0), (17, 256, 0), (12, 8192, 0),
+    (4225, 4096, 0), (33, 64, 8), (17, 256, 8), (40, 24, 8), (64, 4096, 8)])
+def test_cuda_crc32_matches_plain(cuda, n, mtu, offset):
+    pay, plen, rows, plen_t = _crc_inputs(cuda, n, mtu, offset, mtu + n)
+    got = ops.crc32(rows, plen_t)
+    want = ops.crc32(rows, plen_t, impl="ref")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        [zlib.crc32(pay[i, :max(0, min(plen[i], mtu))].tobytes())
+         for i in range(n)])
+
+
+@pytest.mark.cuda
+def test_cuda_crc_service_flags_match_plain(cuda):
+    """The ICRC tap takes the kernel's int32 bits: the same values, and the
+    same chain flags, as with the plain version."""
+    from repro_torch.core.services import CrcService, ServiceChain
+    pay, plen, rows, plen_t = _crc_inputs(cuda, 300, 4096, 0, 17)
+    ops.reset_launches()
+    got = CrcService(device=cuda)(rows, plen_t)
+    assert ops.launches()["crc32"] == 1
+    want = CrcService(impl="ref", device=cuda)(rows, plen_t)
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want)
+    crcs = np.array([zlib.crc32(pay[i, :max(0, min(plen[i], 4096))]
+                                .tobytes()) for i in range(300)], np.uint32)
+    np.testing.assert_array_equal(got.cpu().numpy(), crcs.view(np.int32))
+    flags = [ServiceChain(parallel=[CrcService(impl=impl, device=cuda)] * 2)
+             .process(rows, plen_t)[1] for impl in (None, "ref")]
+    assert torch.equal(flags[0], flags[1])
 
 
 def _float64_scores(pay, params):
