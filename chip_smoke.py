@@ -7,7 +7,7 @@ Builds the port's hand-written Hopper kernels from ``src/repro_torch/
 csrc`` and drives four paths of the system: the service-enhanced RDMA
 datapath (paper Fig. 1), the §8 streaming ingest into a full-size DLRM,
 the allreduce fabric, and the §8 ingest of encrypted shards that trains
-the DLRM.
+the DLRM; then the telemetry plane and the fused epoch core.
 
   0. device   the card's name and power limit (nvidia-smi)
   1. build    nvcc, one process per kernel source, all at once; each
@@ -66,20 +66,38 @@ the DLRM.
               trainer), with the kernels and with the plain versions from
               the same seeded weights: equal reports, landed words and DPI
               flags, and the loss falls on every shard
+  9. fused    (a) BENCH_fig6_multipath.json's traced_incast (8:1 Clos,
+              spine failure) through the port's telemetry ``instrument``:
+              flat() equals the row (386 keys), 31 ticks, 745 trace
+              events, the Chrome trace byte-identical to the same run on
+              the CPU; (b) the committed fused rows in fused epochs, each
+              beside its tick arm: fig6's fused_epoch_equivalence (4:1,
+              32 KiB), fig10's streamed_fused r4, fig11's fused ring, every
+              epoch's output blob bit-identical to epoch_ref on a CPU copy
+              of its input; the host<->card transfers of a fused epoch
+              counted at the tensor API; (c) full width: 6b's ingest (at its
+              window, and at a window of 16, whose worlds fuse) and 7b's
+              ring in fused epochs, equal to their tick arms, the first 3
+              epochs of each held against epoch_ref; epochs, ticks per
+              epoch, refusals, the kernel's time per epoch and per tick
+              (CUDA events) and the walls
 
-Seven paths are driven through the kernels, each with the launch
+Thirteen paths are driven through the kernels, each with the launch
 counters set to 0 just before it and read just after it: the main path
 (phase 3, kernel arm: AES, DPI), the ICRC chain (phase 4: all three
 services), ingest (6b, kernel arm, its warm-up tile included: preproc),
 ingest_onpath (6c: preproc), allreduce_ring and allreduce_offload (7b,
 kernel arms: reduce_fold), secure_ingest (8, kernel arm, its warm-up
-tile included: fused decrypt+DPI, preproc).  Each path prints the shapes
-of its fold and preprocessing launches.  The line before the last is a
-JSON object with every kernel's path, launches on that path (and on each
-path apart), error, time, plain time, bound and library time; the last
-line is the run's verdict.  Any failure raises, so the script exits non-zero
-and prints no verdict; it also exits non-zero, printing nothing, without
-a CUDA device or without the port's sources beside it.
+tile included: fused decrypt+DPI, preproc), and in phase 9 fig6_fused,
+fig10_fused, fig11_fused, ingest_fused, ingest_fused_w16 and
+allreduce_ring_fused (fused_epoch, and the kernels each path runs). Each
+path prints the shapes of its fold and preprocessing launches. The line
+before the last is a JSON object with every kernel's path, launches on
+that path (and on each path apart), error, time, plain time, bound and
+library time; the last line is the run's verdict. Any failure raises, so
+the script exits non-zero and prints no verdict; it also exits non-zero,
+printing nothing, without a CUDA device or without the port's sources
+beside it.
 
     python3 chip_smoke.py --launch-sizes [SRC]
 
@@ -1155,16 +1173,20 @@ def phase_fig10(dev) -> dict:
     return got
 
 
-def _ingest_cfg():
+def _ingest_cfg(epoch_mode=None, fc_window=None):
     from repro_torch.core.ingest import IngestConfig
     return IngestConfig(batch_bytes=SHARD_PKTS * MTU, n_storage_nodes=4,
-                        qps_per_node=2, tile_pkts=2, link_bw_pkts_per_tick=1)
+                        qps_per_node=2, tile_pkts=2, link_bw_pkts_per_tick=1,
+                        epoch_mode=epoch_mode, fc_window=fc_window)
 
 
-def run_ingest(dev, model, impl, n_shards) -> dict:
+def run_ingest(dev, model, impl, n_shards, epoch_mode=None,
+               fc_window=None) -> dict:
     """Phase 6b, one arm: stream ``n_shards`` full-size shards, each tile
     preprocessed on the card as it lands, and score every landed batch
-    with the DLRM (loss and accuracy against the synthetic labels)."""
+    with the DLRM (loss and accuracy against the synthetic labels).
+    Phase 9c runs it again in fused epochs (``epoch_mode``), at 6b's
+    window and at ``fc_window``."""
     import torch
     from repro_torch.core.ingest import BalboaIngest, make_dlrm_tile_decoder
     from repro_torch.data import synthetic as syn
@@ -1173,7 +1195,8 @@ def run_ingest(dev, model, impl, n_shards) -> dict:
         raise AssertionError("host decode touched payload bytes")
 
     ing = BalboaIngest(
-        _ingest_cfg(), None, _dlrm_shard_fn(SHARD_PKTS), decode_fn=poisoned,
+        _ingest_cfg(epoch_mode, fc_window), None,
+        _dlrm_shard_fn(SHARD_PKTS), decode_fn=poisoned,
         tile_to_batch=make_dlrm_tile_decoder(N_DENSE, N_SPARSE, MOD,
                                              impl=impl), device=dev)
     shards = []
@@ -1234,14 +1257,16 @@ def _allreduce_tensors(n_elems: int, world: int = 4, seed: int = 13):
             for _ in range(world)]
 
 
-def run_allreduce(dev, xs, *, offload, impl=None, fabric_cfg=None) -> dict:
+def run_allreduce(dev, xs, *, offload, impl=None, fabric_cfg=None,
+                  epoch_mode=None) -> dict:
     """One allreduce over the verbs (make_ring_group defaults unless a
     fabric is given), its output held bit for bit against the oracle."""
     from repro_torch.core.collectives import allreduce_oracle, make_ring_group
     world, n_elems = len(xs), xs[0].size
     t0 = time.perf_counter()
     g = make_ring_group(world, n_elems * 4 + world * 4, fabric_cfg=fabric_cfg,
-                        offload=offload, impl=impl, device=dev)
+                        offload=offload, impl=impl, epoch_mode=epoch_mode,
+                        device=dev)
     out = g.allreduce(xs)
     wall = time.perf_counter() - t0
     want = allreduce_oracle(xs)
@@ -1289,12 +1314,13 @@ def phase_fig11(dev) -> list:
     return got
 
 
-def phase_ingest(dev, shapes: dict) -> dict:
+def phase_ingest(dev, shapes: dict, keep: dict) -> dict:
     """Phase 6: the fig10 rows, then the full-size streaming ingest into
     the full-config DLRM with the kernels and with the plain versions,
     then the on-path variant.  Returns the launch counts of the two
-    ingest paths, and puts their launches' shapes
-    (``_SizesPerLaunch.shapes``) in ``shapes``."""
+    ingest paths, puts their launches' shapes
+    (``_SizesPerLaunch.shapes``) in ``shapes``, and the model and the
+    kernel arm in ``keep`` (phase 9 holds its fused arm against it)."""
     import torch
     from repro_torch.configs.dlrm import config
     from repro_torch.kernels import ops
@@ -1360,14 +1386,15 @@ def phase_ingest(dev, shapes: dict) -> dict:
           f"{shapes['ingest_onpath']['preproc']}")
     assert on_ingest["preproc"] > 0, "preproc not launched on ingest"
     assert on_onpath["preproc"] > 0, "preproc not launched on ingest_onpath"
+    keep.update(model=model, ingest=kern)
     return {"ingest": on_ingest, "ingest_onpath": on_onpath}
 
 
-def phase_allreduce(dev, shapes: dict) -> dict:
+def phase_allreduce(dev, shapes: dict, keep: dict) -> dict:
     """Phase 7: the fig11 rows, then the full-size allreduce (ring and
     offload) with the kernels and with the plain versions.  Returns the
-    launch counts of the two allreduce paths, and puts their launches'
-    shapes in ``shapes``."""
+    launch counts of the two allreduce paths, puts their launches'
+    shapes in ``shapes`` and the ring's kernel arm in ``keep``."""
     from repro_torch.kernels import ops
     phase_fig11(dev)
     xs = _allreduce_tensors(ALLREDUCE_ELEMS)
@@ -1399,6 +1426,7 @@ def phase_allreduce(dev, shapes: dict) -> dict:
               f"{shapes[f'allreduce_{mode}']['reduce_fold']}")
         assert counts[f"allreduce_{mode}"]["reduce_fold"] > 0, \
             f"reduce_fold not launched on allreduce_{mode}"
+    keep["allreduce_ring"] = runs["ring"]
     return counts
 
 
@@ -1568,6 +1596,395 @@ def phase_secure_ingest(dev, params, shapes: dict) -> dict:
     return {"secure_ingest": on_secure}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the telemetry plane and the fused epoch core
+# ---------------------------------------------------------------------------
+
+class _HeldEpochs:
+    """While entered, every fused epoch the port runs on the card
+    (``kernels.fused_epoch.fused_epoch``, which ``core.fused`` calls once
+    an epoch) is timed by CUDA events around its launch and, for the
+    first ``limit`` epochs (all when None), held against ``epoch_ref`` on
+    a CPU copy of the same input blob: the output blobs must be
+    bit-identical.  The copies this check makes are its own, not the
+    port's."""
+
+    def __init__(self, limit=None):
+        self.limit = limit
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels import fused_epoch as fe
+        self.fe, self._orig = fe, fe.fused_epoch
+        self.epochs, self.ref_ms = [], []      # (ms, steps, words); CPU ms
+
+        def run(blob, skey):
+            hold = blob.is_cuda and (
+                self.limit is None or len(self.ref_ms) < self.limit)
+            host = blob.cpu() if hold else None
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._orig(blob, skey)
+            end.record()
+            end.synchronize()
+            lay = fe.cached_layout(skey)
+            got = out.cpu().numpy()
+            self.epochs.append((start.elapsed_time(end),
+                                lay.get(got, "steps"), blob.numel()))
+            if hold:
+                t0 = time.perf_counter()
+                fe.epoch_ref(host, skey)
+                self.ref_ms.append((time.perf_counter() - t0) * 1e3)
+                want = host.numpy()
+                bad = [n for n in lay.index
+                       if not np.array_equal(lay.get(got, n),
+                                             lay.get(want, n))]
+                assert not bad, f"fused_epoch kernel differs from " \
+                    f"epoch_ref in {bad} ({skey})"
+            return out
+        fe.fused_epoch = run
+        return self
+
+    def __exit__(self, *exc):
+        self.fe.fused_epoch = self._orig
+
+    def summary(self) -> dict:
+        ms = sum(e[0] for e in self.epochs)
+        ticks = sum(e[1] for e in self.epochs)
+        n = len(self.epochs)
+        return {"kernel_ms": ms, "ms_per_epoch": ms / n if n else None,
+                "ms_per_tick": ms / ticks if ticks else None,
+                "held": len(self.ref_ms),
+                "plain_ms_per_epoch_cpu": (statistics.mean(self.ref_ms)
+                                           if self.ref_ms else None),
+                "blob_words": max((e[2] for e in self.epochs), default=0)}
+
+
+def _fused_path(name: str, fn, limit=None):
+    """Run ``fn`` (one path in fused epochs) with the launch counters and
+    the fused mode's counts set to 0 just before it and read just
+    after; every launched epoch (or the first ``limit``) held against
+    the plain version.  Returns (fn's result, the path's record)."""
+    from repro_torch.core import fused
+    from repro_torch.kernels import ops
+    fused.STATS.reset()
+    ops.reset_launches()
+    with _HeldEpochs(limit) as held:
+        t0 = time.perf_counter()
+        res = fn()
+        wall = time.perf_counter() - t0
+    launches = ops.launches()
+    rec = dict(fused.STATS.snapshot(), launches=launches, wall_s=wall,
+               **held.summary())
+    assert launches["fused_epoch"] == rec["epochs"], (name, rec)
+    rec["ticks_per_epoch"] = rec["ticks"] / rec["epochs"] \
+        if rec["epochs"] else None
+    print(f"[fused] {name}: epochs={rec['epochs']} ticks={rec['ticks']} "
+          f"ticks/epoch={rec['ticks_per_epoch']} refusals="
+          f"{rec['refusals']} aborts={rec['aborts']}; fused_epoch launches "
+          f"{launches['fused_epoch']}, {rec['held']} held bit-equal to "
+          f"epoch_ref; kernel ms/epoch={rec['ms_per_epoch']} ms/tick="
+          f"{rec['ms_per_tick']} (CUDA events); wall_s={wall:.2f}")
+    return res, rec
+
+
+def phase_telemetry(dev) -> dict:
+    """Phase 9a: BENCH_fig6_multipath.json's ``traced_incast`` (8:1 Clos
+    incast, selective repeat and spray, spine 0 failing at tick 10)
+    through the port's ``instrument``, on the card and on the CPU."""
+    import torch
+    from repro_torch.core import telemetry as tm
+    from repro_torch.core.netsim import clos_incast_scenario
+    row = json.loads((ROOT / "BENCH_fig6_multipath.json").read_text())[
+        "traced_incast"]
+
+    def traced(d):
+        rec = tm.FlightRecorder(capacity=1 << 20)
+        t0 = time.perf_counter()
+        res = clos_incast_scenario(
+            row["fan_in"], message_bytes=row["message_bytes"],
+            rx_mode="selective_repeat", path_select="spray",
+            fail_spine_at=10, recorder=rec, device=d)
+        reg, _ = tm.instrument(fabric=res.fabric,
+                               nodes=[res.receiver] + res.senders,
+                               recorder=rec)
+        return reg.flat(), res.ticks, rec, time.perf_counter() - t0
+
+    flat, ticks, rec, wall = traced(dev)
+    cflat, cticks, crec, cwall = traced(torch.device("cpu"))
+    want = row["telemetry"]
+    bad = sorted(k for k in set(flat) | set(want)
+                 if flat.get(k) != want.get(k))
+    assert len(want) == 386 and not bad, f"telemetry differs at {bad[:20]}"
+    assert ticks == row["ticks"] == 31 and cticks == ticks
+    assert len(rec.events()) == row["trace_events"] == 745
+    assert rec.dropped_events == 0 and cflat == flat
+    trace = rec.chrome_trace_json()
+    assert trace == crec.chrome_trace_json(), "chrome trace differs from " \
+        "the CPU run's"
+    print(f"[telemetry] traced_incast 8:1 on {dev}: flat() == "
+          f"BENCH_fig6_multipath.json ({len(flat)} keys), ticks={ticks}, "
+          f"{len(rec.events())} trace events, chrome_trace_json "
+          f"({len(trace)} B) byte-identical to the CPU run; wall_s card="
+          f"{wall:.2f} cpu={cwall:.2f}")
+    return {"keys": len(flat), "ticks": ticks, "events": len(rec.events())}
+
+
+def _fig6_world(dev, n_senders=4, message_bytes=32768):
+    """The fig6 fused-equivalence incast, built as ``incast_scenario``
+    builds it but not yet run."""
+    from repro_torch.core.flow_control import DcqcnConfig
+    from repro_torch.core.netsim import FabricConfig, SwitchedFabric, _per_port
+    from repro_torch.core.rdma import RdmaNode
+    cfg = FabricConfig(port_bandwidth=4, port_delay=2, queue_capacity=24,
+                       seed=7)
+    fabric = SwitchedFabric(n_senders + 1, cfg)
+    line = float(_per_port(cfg.port_bandwidth, n_senders + 1)[0])
+    dcqcn = DcqcnConfig(line_rate=line, initial_rate=line / 4)
+    recv = RdmaNode(0, fabric, rx_credits=64, device=dev)
+    senders = [RdmaNode(i + 1, fabric, fc_window=16, dcqcn=dcqcn, device=dev)
+               for i in range(n_senders)]
+    rng = np.random.default_rng(13)
+    for s in senders:
+        qpn, _, _ = s.init_rdma(message_bytes, recv)
+        s.rdma_write(qpn, rng.integers(0, 256, message_bytes,
+                                       dtype=np.uint8))
+    return [recv] + senders
+
+
+class _Copies:
+    """Counts, while entered, the transfers between host and card that
+    Python code asks for: ``Tensor.to`` and ``Tensor.cpu`` across the
+    two, and the ``item``/``tolist`` reads of a CUDA tensor."""
+
+    def __enter__(self):
+        import torch
+        self.h2d = self.d2h = 0
+        T = torch.Tensor
+        self._orig = {n: getattr(T, n) for n in ("to", "cpu", "item",
+                                                  "tolist")}
+        to, cpu, item, tolist = (self._orig[n] for n in
+                                 ("to", "cpu", "item", "tolist"))
+
+        def to_(t, *a, **k):
+            out = to(t, *a, **k)
+            self.h2d += (not t.is_cuda) and out.is_cuda
+            self.d2h += t.is_cuda and not out.is_cuda
+            return out
+
+        def cpu_(t, *a, **k):
+            self.d2h += t.is_cuda
+            return cpu(t, *a, **k)
+
+        def item_(t):
+            self.d2h += t.is_cuda
+            return item(t)
+
+        def tolist_(t):
+            self.d2h += t.is_cuda
+            return tolist(t)
+        T.to, T.cpu, T.item, T.tolist = to_, cpu_, item_, tolist_
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        for n, f in self._orig.items():
+            setattr(torch.Tensor, n, f)
+
+
+def _copy_census(dev) -> dict:
+    """The host<->card transfers of ``run_network(epoch_mode="fused")``
+    on the fig6 world, counted at the tensor API: per epoch one stacked
+    RX-table gather per node and one blob copy down, one blob copy up and
+    one RX-row copy up per receiving node, nothing else."""
+    from repro_torch.core import fused
+    from repro_torch.core.rdma import run_network
+    from repro_torch.kernels import ops
+    nodes = _fig6_world(dev)
+    receivers = len({fl.rcv.node_id
+                     for fl in fused.try_pack(nodes, 10, 8).flows})
+    fused.STATS.reset()
+    ops.reset_launches()
+    with _Copies() as copies:
+        run_network(nodes, epoch_mode="fused")
+    e = fused.STATS.epochs
+    out = {"epochs": e, "nodes": len(nodes), "receivers": receivers,
+           "h2d": copies.h2d, "d2h": copies.d2h,
+           "launches": ops.launches()["fused_epoch"]}
+    print(f"[fused] copy census, fig6 world, {e} epoch(s): {copies.h2d} "
+          f"host-to-card transfers (1 blob + {receivers} receiving nodes' "
+          f"RX rows an epoch), {copies.d2h} card-to-host (1 blob + "
+          f"{len(nodes)} RX-table gathers an epoch), {out['launches']} "
+          f"fused_epoch launches")
+    assert e >= 1 and out["launches"] == e
+    assert copies.h2d == e * (1 + receivers), out
+    assert copies.d2h == e * (1 + len(nodes)), out
+    return out
+
+
+def phase_fused_rows(dev) -> dict:
+    """Phase 9b: the committed fused rows, each fused arm beside its tick
+    arm, every epoch held against epoch_ref.  Returns each path's record
+    (``_fused_path``)."""
+    from repro_torch.core.netsim import FabricConfig, incast_scenario
+    recs = {}
+    # fig6: benchmarks/fig6_multiqp.py:fused_epoch_equivalence (4:1,
+    # 32 KiB; BENCH_fig6_multipath.json holds no row for it)
+    arms, walls = {}, {}
+    for mode in ("tick", "fused"):
+        def run(mode=mode):
+            return incast_scenario(
+                4, message_bytes=32768, fabric_cfg=FabricConfig(
+                    port_bandwidth=4, port_delay=2, queue_capacity=24,
+                    seed=7), epoch_mode=mode, device=dev)
+        if mode == "fused":
+            res, recs["fig6_fused"] = _fused_path("fig6_fused", run)
+            walls[mode] = recs["fig6_fused"]["wall_s"]
+        else:
+            t0 = time.perf_counter()
+            res = run()
+            walls[mode] = time.perf_counter() - t0
+        hot = res.fabric.port_stats[0]
+        arms[mode] = {"ticks": res.ticks,
+                      "accepted": res.receiver.stats.accepted,
+                      "tail_dropped": hot.tail_dropped,
+                      "max_queue": hot.max_depth,
+                      "retransmissions": sum(s.stats.retransmissions
+                                             for s in res.senders)}
+        for i, d in enumerate(res.payloads):
+            assert (res.receiver._qp_buffer[i + 1][1][:len(d)] == d).all()
+    assert arms["tick"] == arms["fused"], arms
+    assert recs["fig6_fused"]["launches"]["fused_epoch"] > 0
+    print(f"[fused] fig6 fused_epoch_equivalence 4:1 32 KiB: fused == tick "
+          f"{arms['fused']}; wall_s tick={walls['tick']:.2f} fused="
+          f"{walls['fused']:.2f}")
+    # fig10: the streamed_fused r4 row (16 ticks, overlap 0.75, 16 tiles)
+    from repro_torch.core.ingest import (BalboaIngest, IngestConfig,
+                                         make_dlrm_tile_decoder)
+    rows = json.loads((ROOT / "BENCH_fig10_dlrm.json").read_text())["ingest"]
+    n_pkts = rows["n_pkts"]
+
+    def fig10():
+        ing = BalboaIngest(
+            IngestConfig(batch_bytes=n_pkts * MTU, n_storage_nodes=4,
+                         link_bw_pkts_per_tick=1, tile_pkts=2,
+                         epoch_mode="fused"),
+            None, _dlrm_shard_fn(n_pkts),
+            tile_to_batch=make_dlrm_tile_decoder(N_DENSE, N_SPARSE, MOD),
+            device=dev)
+        _, rep = ing.fetch_shard_streaming(0)
+        return {"ticks": rep.ticks, "nbytes": rep.nbytes,
+                "goodput": rep.goodput_bytes_per_tick,
+                "overlap": rep.overlap_efficiency, "tiles": rep.tiles,
+                "stripes": len(rep.stripes),
+                "host_bytes": ing.host_payload_bytes}
+    got, rec = _fused_path("fig10_fused", fig10)
+    recs["fig10_fused"] = rec
+    for key in ("streamed_fused", "streamed"):
+        want = {k: rows[key]["4"][k] for k in got}
+        assert got == want, (key, got, want)
+    print(f"[fused] fig10 streamed_fused r4 on {dev}: {got} == "
+          f"BENCH_fig10_dlrm.json's streamed_fused and streamed rows "
+          f"(the tick arm, phase 6a); the reference's gate refuses every "
+          f"world of this row ({rec['refusals']} refusals, "
+          f"{rec['epochs']} epochs)")
+    # fig11: the fused ring (66 ticks, busbw 1489.45)
+    want = next(r for r in json.loads((ROOT / "BENCH_fig11_allreduce.json")
+                                      .read_text())["allreduce"]
+                if r["mode"] == "ring")
+    xs = _allreduce_tensors(want["message_bytes"] // 4, want["world"])
+    base = FabricConfig(port_bandwidth=4, port_delay=2, queue_capacity=48,
+                        seed=7)
+    got, recs["fig11_fused"] = _fused_path(
+        "fig11_fused", lambda: run_allreduce(
+            dev, xs, offload=False, fabric_cfg=base, epoch_mode="fused"))
+    assert got["row"] == want, (got["row"], want)
+    assert recs["fig11_fused"]["launches"]["fused_epoch"] > 0
+    print(f"[fused] fig11 fused ring on {dev}: ticks={got['row']['ticks']} "
+          f"busbw={got['row']['busbw_B_per_tick']} == "
+          f"BENCH_fig11_allreduce.json's ring row (the tick arm, phase 7a), "
+          f"bit-identical to the oracle; wall_s={got['wall_s']:.2f}")
+    return recs
+
+
+def phase_fused(dev, keep: dict):
+    """Phase 9: the telemetry plane, the committed fused rows, and the
+    full-width ingest and ring in fused epochs beside their tick arms.
+    Returns the launch counts of the fused paths and the ``fused_epoch``
+    kernel's record for the kernel line."""
+    import torch
+    phase_telemetry(dev)
+    recs = phase_fused_rows(dev)
+    census = _copy_census(dev)
+    model = keep["model"]
+
+    def same_ingest(a, b, what):
+        for i, (x, y) in enumerate(zip(a["shards"], b["shards"])):
+            assert x["report"] == y["report"], f"{what} shard {i}: report"
+            assert torch.equal(x["sparse"], y["sparse"]), f"{what} {i}"
+            assert torch.equal(x["dense"].view(torch.int32),
+                               y["dense"].view(torch.int32)), f"{what} {i}"
+            torch.testing.assert_close(x["logits"], y["logits"],
+                                       rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+    # (c) 6b's ingest in fused epochs, against 6b's kernel arm
+    fused, recs["ingest_fused"] = _fused_path(
+        "ingest_fused (6b's window, 64)", lambda: run_ingest(
+            dev, model, None, N_SHARDS, epoch_mode="fused"), limit=3)
+    same_ingest(keep["ingest"], fused, "ingest_fused")
+    # the same at a window of 16 packets a QP, whose worlds fit the
+    # fused core's wire: tick arm, then fused arm
+    t0 = time.perf_counter()
+    tick16 = run_ingest(dev, model, None, N_SHARDS, fc_window=16)
+    tick16_wall = time.perf_counter() - t0
+    fused16, recs["ingest_fused_w16"] = _fused_path(
+        "ingest_fused_w16", lambda: run_ingest(
+            dev, model, None, N_SHARDS, epoch_mode="fused", fc_window=16),
+        limit=3)
+    same_ingest(tick16, fused16, "ingest_fused_w16")
+    assert recs["ingest_fused_w16"]["launches"]["fused_epoch"] > 0
+    rep = fused16["shards"][0]["report"]
+    print(f"[fused] full-width ingest, {N_SHARDS} shards: fused == tick "
+          f"(reports, landed words, logits) at window 64 (0 epochs: every "
+          f"world overflows the wire's 1024 slots or holds a READ) and at "
+          f"window 16 (shard 0 ticks={rep[0]} tiles={rep[1]}); wall_s "
+          f"tick64={keep['ingest']['wall_s']:.2f} fused64="
+          f"{fused['wall_s']:.2f} tick16={tick16_wall:.2f} fused16="
+          f"{fused16['wall_s']:.2f}")
+    # (c) 7b's ring in fused epochs, against 7b's kernel arm
+    xs = _allreduce_tensors(ALLREDUCE_ELEMS)
+    ring, recs["allreduce_ring_fused"] = _fused_path(
+        "allreduce_ring_fused", lambda: run_allreduce(
+            dev, xs, offload=False, epoch_mode="fused"), limit=3)
+    tick = keep["allreduce_ring"]
+    assert ring["row"] == tick["row"] and ring["reducer"] == tick["reducer"]
+    assert recs["allreduce_ring_fused"]["launches"]["fused_epoch"] > 0
+    print(f"[fused] full-width ring, 4 x {ALLREDUCE_ELEMS} f32: fused == "
+          f"tick (row, reducer, both bit-identical to the oracle), ticks="
+          f"{ring['row']['ticks']}; wall_s tick={tick['wall_s']:.2f} "
+          f"fused={ring['wall_s']:.2f}")
+    counts = {path: rec["launches"] for path, rec in recs.items()}
+    main = recs["allreduce_ring_fused"]
+    bound, by = _bound_ms(2 * 4 * main["blob_words"])
+    record = dict(
+        function="make_epoch_fn (a jitted lax.while_loop, not a Pallas "
+                 "kernel)",
+        max_abs_err=0, ms=main["ms_per_epoch"],
+        ms_per_tick=main["ms_per_tick"], ms_from="events",
+        plain_ms=main["plain_ms_per_epoch_cpu"], plain_device="cpu",
+        bound_ms=bound, bound_by=by, library_ms=None,
+        blob_bytes=4 * main["blob_words"], copy_census=census,
+        paths={p: {k: v for k, v in r.items() if k != "launches"}
+               for p, r in recs.items()})
+    print(f"[fused] fused_epoch on allreduce_ring_fused: ms/epoch="
+          f"{record['ms']} ms/tick={record['ms_per_tick']} plain_ms/epoch "
+          f"(epoch_ref, CPU)={record['plain_ms']} bound_ms={bound:.6f} "
+          f"({by}: the {record['blob_bytes']} B blob read and written "
+          f"once; the kernel is one thread's chain of dependent steps)")
+    return counts, record
+
+
+
 def launch_sizes_main(src: Path) -> int:
     """``python3 chip_smoke.py --launch-sizes [SRC]``: build the kernels of
     the ``repro_torch`` under SRC (default this checkout's ``src``) and
@@ -1681,9 +2098,12 @@ def main() -> int:
 
     phase_incast(dev)
     counts = {"main": on_main, "icrc_chain": on_chain}
-    counts.update(phase_ingest(dev, shapes))
-    counts.update(phase_allreduce(dev, shapes))
+    keep = {}
+    counts.update(phase_ingest(dev, shapes, keep))
+    counts.update(phase_allreduce(dev, shapes, keep))
     counts.update(phase_secure_ingest(dev, params, shapes))
+    fused_counts, kern["fused_epoch"] = phase_fused(dev, keep)
+    counts.update(fused_counts)
 
     # name -> (source, TPU kernel it replaces, the path it is counted on)
     sources = {"aes_ecb": ("src/repro_torch/csrc/aes_ecb.cu",
@@ -1699,7 +2119,11 @@ def main() -> int:
                                "allreduce_offload"),
                "fused_decrypt_dpi": ("src/repro_torch/csrc/fused_chain.cu",
                                      "src/repro/kernels/fused_chain.py:66",
-                                     "secure_ingest")}
+                                     "secure_ingest"),
+               # make_epoch_fn: a jitted lax.while_loop, not a Pallas kernel
+               "fused_epoch": ("src/repro_torch/csrc/fused_epoch.cu",
+                               "src/repro/core/fused.py:714",
+                               "allreduce_ring_fused")}
     print(f"[done] {smi}; total wall_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -9,12 +9,15 @@ rdma                     — the full endpoint (verbs of §4.6)
 sniffer                  — PCAP traffic capture (§4.7)
 ingest                   — §8 streaming ingest: storage -> RDMA -> device
 collectives              — ring / in-fabric-offloaded allreduce and friends
+telemetry                — metric registry + flight recorder
+fused                    — whole epochs as one launch of the epoch kernel
 
 ``packet``, ``qp``, ``chaos``, ``flow_control``, ``retransmit``,
-``netsim`` and ``sniffer`` are pure numpy/Python in the reference and
-are kept here as copies (the port imports nothing of ``repro``); the
-wire-format and scenario tests hold them equal.  ``pipeline``,
+``netsim``, ``sniffer`` and ``telemetry`` are pure numpy/Python in the
+reference and are kept here as copies (the port imports nothing of
+``repro``); the wire-format and scenario tests hold them equal.  ``pipeline``,
 ``services`` and ``rdma`` are rewritten on torch tensors; ``ingest`` and
 ``collectives`` keep the reference's host-side control logic around
-device tensors and the port's kernels.
+device tensors and the port's kernels; ``fused`` keeps the reference's
+packing and unpacking around the epoch kernel.
 """

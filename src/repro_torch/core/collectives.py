@@ -158,7 +158,9 @@ class CollectiveGroup:
         self.impl = impl
         self.offload = offload
         self.max_ticks = max_ticks
-        self.epoch_mode = epoch_mode
+        self.epoch_mode = epoch_mode    # None = env BALBOA_EPOCH_MODE;
+                                        # "fused" = whole-epoch kernel
+                                        # transfers (core.fused)
         self.stats = CollectiveStats()
         self.recorder = None
         self._op_seq = 0

@@ -30,13 +30,15 @@ failover oracle and as the baseline the streaming plane is measured
 against.
 
 This slice runs on one card: ``shardings`` (multi-device placement in
-the reference) and the fused epoch core (``epoch_mode="fused"``) are not
-ported yet and raise.
+the reference) is not ported yet and raises.  ``epoch_mode="fused"`` (or
+``BALBOA_EPOCH_MODE=fused``) advances the stream in watermark-bounded
+fused micro-epochs, as the reference does.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -74,9 +76,8 @@ class IngestConfig:
     path_select: Optional[str] = None  # | "ecmp" | "spray"
     fc_window: Optional[int] = None   # None = 64 (16 under SR: the
                                       # burst bound must fit the bitmap)
-    # None or "tick": per-tick stepping.  "fused" (the reference's
-    # jitted micro-epochs) is not ported yet and raises; no environment
-    # variable is read
+    # None = env BALBOA_EPOCH_MODE; "fused" = whole fused micro-epochs
+    # between watermark polls (core.fused), "tick" = per-tick oracle
     epoch_mode: Optional[str] = None
 
 
@@ -384,6 +385,39 @@ class BalboaIngest:
                 nbytes=min(cnt * mtu, nbytes - lo * mtu)))
         return stripes
 
+    def _advance(self, nodes, active, stall, on_tick, rel, deadline):
+        """One transport advance of the streaming loop: a single oracle
+        tick, or — in fused epoch mode — one fused micro-epoch
+        (``core.fused``: one launch of the epoch kernel) armed with a
+        completion watermark per active stripe, so the device loop exits
+        the moment any stripe crosses its next tile boundary and the
+        host polls exactly then instead of every tick.  The epoch budget
+        is clamped so the per-stripe stall detector and the shard
+        deadline still fire on time; any unfusable world (an in-flight
+        READ_REQUEST, a dead QP) falls back to per-tick stepping and
+        re-attempts fusion next call."""
+        cfg = self.cfg
+        mode = cfg.epoch_mode or os.environ.get("BALBOA_EPOCH_MODE")
+        if mode == "fused" and on_tick is None and active:
+            tile_bytes = cfg.tile_pkts * self.trainer.mtu
+            wms: Dict[Tuple[int, int], int] = {}
+            budget = deadline - rel() + 1
+            for qp_idx, stripe in active.items():
+                qp = self.qps[qp_idx]
+                lo = stripe.tiles_emitted * tile_bytes
+                hi = min(lo + tile_bytes, stripe.nbytes)
+                wms[(self.trainer.node_id, qp.qpn_l)] = max(
+                    hi - stripe.resume, 1)
+                budget = min(budget, stall + 1
+                             - (self.net.now - stripe.progress_tick))
+            if budget > 1:
+                from repro_torch.core import fused
+                res = fused.run_fused_epoch(nodes, max_ticks=budget,
+                                            idle_done=8, watermarks=wms)
+                if res is not None:
+                    return
+        step_network(nodes)
+
     def stream_shard(self, index: int,
                      consume_tile: Optional[Callable] = None,
                      on_tick: Optional[Callable[[int], None]] = None
@@ -452,7 +486,7 @@ class BalboaIngest:
                 if qp_idx is not None:
                     pending.remove(stripe)
                     issue(stripe, qp_idx)
-            step_network(nodes)
+            self._advance(nodes, active, stall, on_tick, rel, deadline)
             if on_tick is not None:
                 on_tick(rel())
             for qp_idx, stripe in list(active.items()):

@@ -32,6 +32,7 @@ Programming model mirrors the Coyote-thread verbs of §4.6:
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -823,19 +824,25 @@ def network_pending(nodes: List[RdmaNode]) -> bool:
     return False
 
 
-EPOCH_MODES = (None, "tick", "fused")
+EPOCH_MODES = ("tick", "fused")
+
+
+def resolve_epoch_mode(epoch_mode: Optional[str]) -> str:
+    """The reference's choice of epoch mode: an explicit ``epoch_mode``,
+    else the ``BALBOA_EPOCH_MODE`` environment variable, else
+    ``"tick"``.  An unknown mode raises ``ValueError``."""
+    mode = epoch_mode or os.environ.get("BALBOA_EPOCH_MODE") or "tick"
+    if mode not in EPOCH_MODES:
+        raise ValueError(f"unknown epoch_mode {mode!r}; "
+                         f"choose from {EPOCH_MODES}")
+    return mode
 
 
 def check_epoch_mode(epoch_mode: Optional[str]) -> None:
-    """Per-tick stepping (``None`` or ``"tick"``) is the only mode the
-    port has; the reference's fused epoch core (``"fused"``) is not
-    ported yet and raises.  No environment variable picks the mode."""
-    if epoch_mode == "fused":
-        raise NotImplementedError(
-            "epoch_mode='fused' (the fused epoch core) is not ported yet")
-    if epoch_mode not in EPOCH_MODES:
-        raise ValueError(f"unknown epoch_mode {epoch_mode!r}; "
-                         f"choose from {EPOCH_MODES}")
+    """Constructors' early check of an explicit ``epoch_mode`` (``None``
+    defers to ``BALBOA_EPOCH_MODE`` when the network runs)."""
+    if epoch_mode is not None:
+        resolve_epoch_mode(epoch_mode)
 
 
 def run_network(nodes: List[RdmaNode], max_ticks: int = 100_000,
@@ -845,11 +852,37 @@ def run_network(nodes: List[RdmaNode], max_ticks: int = 100_000,
     unacked payloads awaiting (re)transmission, no queued flow-control
     requests.  Returns ticks elapsed.
 
-    Only per-tick stepping (``epoch_mode=None`` or ``"tick"``) exists in
-    the port so far; the reference's fused epoch core
-    (``epoch_mode="fused"``) is not ported yet and raises.  The port
-    reads no environment variable to pick the mode."""
-    check_epoch_mode(epoch_mode)
+    ``epoch_mode="fused"`` (or env ``BALBOA_EPOCH_MODE=fused``) runs
+    whole epochs as one launch of the fused epoch kernel on the nodes'
+    device (``repro_torch.core.fused``) instead of round-tripping
+    device<->host every tick; any world the fused core does not model
+    falls back to per-tick stepping, one tick at a time, re-attempting
+    fusion after each (e.g. an in-flight READ_REQUEST unfuses only until
+    it is ACKed).  The fused path is bit-identical to per-tick stepping
+    — pinned by tests/test_torch_fused_core.py — except that
+    interleaving fallback ticks with fused epochs may re-run up to
+    ``idle_done`` quiescent (no-op) ticks, shifting only ``net.now`` and
+    the returned count, exactly as the reference does."""
+    if resolve_epoch_mode(epoch_mode) == "fused":
+        from repro_torch.core import fused as _fused
+        t, idle = 0, 0
+        while t < max_ticks:
+            res = _fused.run_fused_epoch(nodes, max_ticks=max_ticks - t,
+                                         idle_done=idle_done)
+            if res is None:                      # unfusable: oracle tick
+                step_network(nodes)
+                t += 1
+                if network_pending(nodes):
+                    idle = 0
+                else:
+                    idle += 1
+                    if idle >= idle_done:
+                        return t - 1
+                continue
+            t += res["steps"]
+            if res["idle_exit"]:
+                return t - 1
+        return max_ticks
     idle = 0
     for t in range(max_ticks):
         step_network(nodes)

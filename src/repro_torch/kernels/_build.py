@@ -24,7 +24,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
-SOURCES = ("aes_ecb", "crc32", "dpi_mlp", "preproc", "reduce", "fused_chain")
+SOURCES = ("aes_ecb", "crc32", "dpi_mlp", "preproc", "reduce", "fused_chain",
+           "fused_epoch")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -19,6 +19,7 @@ from repro_torch.kernels import aes_ecb as _aes
 from repro_torch.kernels import crc32 as _crc
 from repro_torch.kernels import dpi_mlp as _dpi
 from repro_torch.kernels import fused_chain as _fused
+from repro_torch.kernels import fused_epoch as _epoch
 from repro_torch.kernels import preproc as _pre
 from repro_torch.kernels import reduce as _red
 from repro_torch.kernels.ref import expand_key  # noqa: F401  (re-export)
@@ -29,7 +30,8 @@ IMPLS = (None, "ref")
 KERNELS = {"aes_ecb": _aes.aes_ecb_cuda, "crc32": _crc.crc32_int32_cuda,
            "dpi_mlp": _dpi.dpi_scores_cuda, "preproc": _pre.preproc_cuda,
            "reduce_fold": _red.reduce_fold_cuda,
-           "fused_decrypt_dpi": _fused.fused_decrypt_dpi_cuda}
+           "fused_decrypt_dpi": _fused.fused_decrypt_dpi_cuda,
+           "fused_epoch": _epoch.fused_epoch_cuda}
 
 
 def _use_kernel(x: torch.Tensor, impl: Optional[str]) -> bool:

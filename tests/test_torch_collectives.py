@@ -230,9 +230,13 @@ def test_offload_service_control_plane_and_the_card_rule(monkeypatch):
     with pytest.raises(ValueError):
         tcol.CollectiveGroup(g.nodes[:1], 1024)
     monkeypatch.setenv("BALBOA_EPOCH_MODE", "fused")
+    # None defers to the environment when the network runs, as in the
+    # reference; an explicit unknown mode is refused up front
     assert tcol.make_ring_group(2, 1 << 10, device="cpu").epoch_mode is None
-    with pytest.raises(NotImplementedError, match="fused"):
-        tcol.make_ring_group(2, 1 << 10, epoch_mode="fused", device="cpu")
+    assert tcol.make_ring_group(2, 1 << 10, epoch_mode="fused",
+                                device="cpu").epoch_mode == "fused"
+    with pytest.raises(ValueError, match="epoch_mode"):
+        tcol.make_ring_group(2, 1 << 10, epoch_mode="epoch", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tcol.make_ring_group(2, 1 << 10)

@@ -18,7 +18,11 @@ fused decrypt+DPI chain: plaintext bit-exact, scores within 1e-5, and
 bit-equal to ``dpi_scores(plaintext).amax(1)`` (both kernels run the MLP
 of ``csrc/dpi_mma.cuh``, and a beat's score does not depend on the tile,
 warp or block that computes it), at launches that pair their warps and
-launches that do not.
+launches that do not.  The fused epoch kernel: its output blob equals
+``epoch_ref``'s bit for bit (every shape key of the CPU suites, a
+watermark exit, a full wire's abort, ``max_ticks = 1``), and
+``run_network(epoch_mode="fused")`` on nodes on the card equals per-tick
+stepping on the CPU, whole world.
 """
 import zlib
 
@@ -26,7 +30,11 @@ import numpy as np
 import pytest
 import torch
 
+import _fused_worlds as W
+from repro_torch.core import fused as tfused
+from repro_torch.core import rdma as trdma
 from repro_torch.data import load_dpi_params_seed0
+from repro_torch.kernels import fused_epoch as fe
 from repro_torch.kernels import ops
 from repro_torch.kernels.dpi_mlp import dpi_params_from_numpy
 from repro_torch.kernels.fused_chain import (fused_decrypt_dpi,
@@ -232,7 +240,7 @@ def test_cuda_launch_counters_count_kernel_launches_only(cuda):
     ops.aes_ecb(pay.reshape(-1, 16), ops.expand_key(np.zeros(16, np.uint8)))
     assert ops.launches() == {"aes_ecb": 1, "crc32": 1, "dpi_mlp": 0,
                               "preproc": 0, "reduce_fold": 0,
-                              "fused_decrypt_dpi": 0}
+                              "fused_decrypt_dpi": 0, "fused_epoch": 0}
 
 
 def _preproc_inputs(rng, m, rec_w=39):
@@ -420,7 +428,7 @@ def test_cuda_launch_counters_of_preproc_and_reduce(cuda):
     ops.chunk_reduce(pay, impl="ref")
     assert ops.launches() == {"aes_ecb": 0, "crc32": 0, "dpi_mlp": 0,
                               "preproc": 2, "reduce_fold": 2,
-                              "fused_decrypt_dpi": 0}
+                              "fused_decrypt_dpi": 0, "fused_epoch": 0}
 
 
 def _fused_inputs(cuda, n, mtu, seed):
@@ -542,3 +550,135 @@ def test_cuda_fused_plaintext_and_scores_bit_exact(cuda, n, mtu):
     torch.cuda.synchronize()
     assert torch.equal(plain, want)
     assert torch.equal(scores, ops.dpi_scores(plain, params).amax(dim=1))
+
+
+# ---------------------------------------------------------------------------
+# the fused epoch kernel
+# ---------------------------------------------------------------------------
+
+PORT = "repro_torch.core"
+
+
+def _kernel_and_plain(cuda, world):
+    """One epoch of ``world``'s blob on the card and in the plain
+    version; both output blobs as numpy."""
+    blob = _t(world.vec0).to(cuda)
+    fe.fused_epoch(blob, world.skey)
+    torch.cuda.synchronize()
+    ref = _t(world.vec0)
+    fe.epoch_ref(ref, world.skey)
+    return blob.cpu().numpy(), ref.numpy()
+
+
+def _assert_same_blob(world, got, want):
+    lay = world.layout
+    bad = [n for n in lay.index
+           if not np.array_equal(lay.get(got, n), lay.get(want, n))]
+    assert not bad, f"fields differ: {bad}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_ticks", [100_000, 1])
+@pytest.mark.parametrize("suite", sorted(W.FIXED))
+def test_cuda_fused_epoch_matches_plain(cuda, suite, max_ticks):
+    world = tfused.try_pack(W.build(PORT, suite, **W.FIXED[suite]),
+                            max_ticks, 8)
+    got, want = _kernel_and_plain(cuda, world)
+    _assert_same_blob(world, got, want)
+    steps = world.layout.get(got, "steps")
+    assert steps == 1 if max_ticks == 1 else steps > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("suite", sorted(W.SUITES))
+def test_cuda_fused_epoch_property_worlds(cuda, suite):
+    """Random worlds of each property suite's shape (loss, ECN, spray,
+    both RX modes, packed mid-flight), kernel against plain."""
+    rng = np.random.default_rng(len(suite))
+    for _ in range(6):
+        kw = {"seed": int(rng.integers(1, 2 ** 31)),
+              "presteps": int(rng.integers(0, 24))}
+        if suite.startswith("star"):
+            kw["nbytes"] = int(rng.integers(200, 3200))
+            if suite == "star_ecn":
+                kw["kmax"] = int(rng.choice([6, 8, 12]))
+            else:
+                kw["loss"] = float(rng.choice([0.02, 0.08, 0.15]))
+        else:
+            kw.update(loss=float(rng.choice([0.02, 0.08])),
+                      reorder=float(rng.choice([0.1, 0.25, 0.3])),
+                      jitter=int(rng.integers(1, 4)))
+        world = tfused.try_pack(W.build(PORT, suite, **kw), 100_000, 8)
+        got, want = _kernel_and_plain(cuda, world)
+        _assert_same_blob(world, got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_epoch_watermark_exit(cuda):
+    nodes = W.build_star(PORT, 11, nbytes=3000, bw=2)
+    wms = {(0, next(iter(nodes[0]._peer))): 512}
+    world = tfused.try_pack(nodes, 100_000, 8, wms)
+    got, want = _kernel_and_plain(cuda, world)
+    _assert_same_blob(world, got, want)
+    assert world.layout.get(got, "wm_hit") == 1
+    assert world.layout.get(got, "steps") > 1
+
+
+@pytest.mark.cuda
+def test_cuda_fused_epoch_full_wire_aborts(cuda):
+    """A full wire: the kernel sets ``abort`` as the plain version does
+    (a blob whose every wire slot is taken), and on a world that
+    overflows its wire, on the card, ``run_fused_epoch`` returns None
+    and leaves the world as it was."""
+    world = tfused.try_pack(W.build(PORT, "p2p_gbn_spray",
+                                    **W.FIXED["p2p_gbn_spray"]), 100_000, 8)
+    c = world.layout.views(world.vec0)
+    c["w_arr"][c["w_valid"] == 0] = c["now"][0] + 10 ** 6
+    c["w_valid"][:] = 1
+    c["p_dl"][tuple(np.argwhere(c["p_held"] > 0)[0])] = 0
+    got, want = _kernel_and_plain(cuda, world)
+    _assert_same_blob(world, got, want)
+    assert world.layout.get(got, "abort") == 1
+    nodes = W.overflow_world(PORT, device=cuda)
+    before = W.snap(nodes)
+    ops.reset_launches()
+    assert tfused.run_fused_epoch(nodes) is None
+    assert ops.launches()["fused_epoch"] == 1
+    assert not W.diff(before, W.snap(nodes))
+
+
+@pytest.mark.cuda
+def test_cuda_run_network_fused_matches_tick(cuda):
+    """Nodes on the card, fused epochs; nodes on the CPU, per-tick
+    steps: the same ticks and the same world, and one kernel launch an
+    epoch."""
+    on_card = W.build_star(PORT, 17, loss=0.08, nbytes=2800, device=cuda)
+    on_cpu = W.build_star(PORT, 17, loss=0.08, nbytes=2800)
+    ops.reset_launches()
+    tfused.STATS.reset()
+    t = trdma.run_network(on_card, epoch_mode="fused")
+    assert t == trdma.run_network(on_cpu, epoch_mode="tick")
+    assert ops.launches()["fused_epoch"] == tfused.STATS.epochs >= 1
+    d = W.diff(W.snap(on_cpu), W.snap(on_card))
+    assert not d, "\n".join(d[:40])
+
+
+@pytest.mark.cuda
+def test_cuda_fused_epoch_wrapper_checks(cuda):
+    world = tfused.try_pack(W.build(PORT, "star_ecn", **W.FIXED["star_ecn"]),
+                            10, 8)
+    blob = _t(world.vec0).to(cuda)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="int32"):
+        fe.fused_epoch_cuda(blob.long(), world.skey)
+    with pytest.raises(ValueError, match="layout"):
+        fe.fused_epoch_cuda(blob[:-1].clone(), world.skey)
+    with pytest.raises(ValueError, match="CUDA"):
+        fe.fused_epoch_cuda(blob.cpu(), world.skey)
+    with pytest.raises(ValueError, match="contiguous"):
+        fe.fused_epoch_cuda(torch.stack([blob, blob], 1)[:, 0], world.skey)
+    with pytest.raises(ValueError, match="CPU blob"):
+        fe.epoch_ref(blob, world.skey)
+    assert ops.launches()["fused_epoch"] == 0
+    fe.fused_epoch(blob, world.skey)
+    assert ops.launches()["fused_epoch"] == 1

@@ -195,15 +195,31 @@ def test_entry_points_default_to_the_card():
 
 
 def test_fused_epochs_are_not_ported_yet(monkeypatch):
-    """Only per-tick stepping exists; the port ignores BALBOA_EPOCH_MODE."""
+    """Fused epochs are ported now: BALBOA_EPOCH_MODE=fused runs the
+    transfer in fused epochs (one each time a world packs) and delivers
+    the same bytes in the same ticks as per-tick stepping; an unknown
+    mode raises, as in the reference."""
+    from repro_torch.core import fused
+
+    def transfer():
+        net = tnet.Network(2, tnet.LinkConfig(latency_ticks=1))
+        a = trdma.RdmaNode(0, net, device="cpu")
+        b = trdma.RdmaNode(1, net, device="cpu")
+        qpn, _, _ = a.init_rdma(8192, b)
+        a.rdma_write(qpn, np.arange(8192, dtype=np.uint8))
+        return a, b
+
+    a, b = transfer()
+    ticks = trdma.run_network([a, b], epoch_mode="tick")
     monkeypatch.setenv("BALBOA_EPOCH_MODE", "fused")
-    net = tnet.Network(2, tnet.LinkConfig(latency_ticks=1))
-    a = trdma.RdmaNode(0, net, device="cpu")
-    b = trdma.RdmaNode(1, net, device="cpu")
-    qpn, _, _ = a.init_rdma(8192, b)
-    a.rdma_write(qpn, np.arange(8192, dtype=np.uint8))
-    assert trdma.run_network([a, b]) > 0
+    a, b = transfer()
+    fused.STATS.reset()
+    assert trdma.run_network([a, b]) == ticks > 0
+    assert fused.STATS.epochs >= 1
     np.testing.assert_array_equal(b._qp_buffer[1][1],
                                   np.arange(8192, dtype=np.uint8))
-    with pytest.raises(NotImplementedError):
-        trdma.run_network([a, b], epoch_mode="fused")
+    with pytest.raises(ValueError, match="epoch_mode"):
+        trdma.run_network([a, b], epoch_mode="epoch")
+    monkeypatch.setenv("BALBOA_EPOCH_MODE", "epoch")
+    with pytest.raises(ValueError, match="epoch_mode"):
+        trdma.run_network([a, b])
