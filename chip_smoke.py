@@ -12,9 +12,11 @@ the DLRM; then the telemetry plane and the fused epoch core.
   0. device   the card's name and power limit (nvidia-smi)
   1. build    nvcc, one process per kernel source, all at once; each
               kernel function's registers, shared memory and spills
-              from ptxas's report; the fold's, preprocessing's and CRC's
-              SASS (cuobjdump): instructions, innermost loop,
-              subroutines, local-memory instructions
+              from ptxas's report; the fold's, preprocessing's, CRC's
+              and fused epoch's SASS (cuobjdump): instructions,
+              innermost loop, subroutines, local-memory instructions,
+              shared/global/generic loads and stores, warp syncs,
+              ballots and convergence barriers
   2. kernels  AES-128-ECB, CRC32, the DPI MLP, the DLRM preprocessing,
               the segmented reduce and the fused decrypt+DPI pass at
               main-path sizes against their plain PyTorch versions on
@@ -66,7 +68,11 @@ the DLRM; then the telemetry plane and the fused epoch core.
               trainer), with the kernels and with the plain versions from
               the same seeded weights: equal reports, landed words and DPI
               flags, and the loss falls on every shard
-  9. fused    (a) BENCH_fig6_multipath.json's traced_incast (8:1 Clos,
+  9. fused    (0) the kernel's device time (CUDA events behind a sleep
+              on the card) on the first epoch of fig6, fig11, 6b at
+              window 16 and 7b, in each instantiation; the SM clock
+              before and after the phase;
+              (a) BENCH_fig6_multipath.json's traced_incast (8:1 Clos,
               spine failure) through the port's telemetry ``instrument``:
               flat() equals the row (386 keys), 31 ticks, 745 trace
               events, the Chrome trace byte-identical to the same run on
@@ -79,8 +85,10 @@ the DLRM; then the telemetry plane and the fused epoch core.
               window, and at a window of 16, whose worlds fuse) and 7b's
               ring in fused epochs, equal to their tick arms, the first 3
               epochs of each held against epoch_ref; epochs, ticks per
-              epoch, refusals, the kernel's time per epoch and per tick
-              (CUDA events) and the walls
+              epoch, refusals, the kernel instantiation each epoch ran
+              (the blob in shared memory or in device memory), its serial
+              events and latency bound, the kernel's call time per epoch
+              and per tick (CUDA events) and the walls
 
 Thirteen paths are driven through the kernels, each with the launch
 counters set to 0 just before it and read just after it: the main path
@@ -102,10 +110,11 @@ beside it.
     python3 chip_smoke.py --launch-sizes [SRC]
 
 times the kernels of the ``repro_torch`` under SRC (default ``src``) at
-the paths' launch sizes and prints them, with the card and the SASS
-summary, as one JSON line: run on a parent tree unpacked under
-``build/`` and on this one in turns (parent, change, change, parent) in
-one call, it compares the two on one card.
+the paths' launch sizes, and the fused epoch kernel on the phase-9
+worlds' first epochs, and prints them, with the card, its SM clock
+before and after and the SASS summary, as one JSON line: run on a parent
+tree unpacked under ``build/`` and on this one in turns (parent, change,
+change, parent) in one call, it compares the two on one card.
 """
 import itertools
 import json
@@ -305,6 +314,16 @@ def phase_device() -> str:
     return out
 
 
+def _sm_clock_mhz() -> int:
+    """The card's SM clock now (``nvidia-smi --query-gpu=clocks.sm``),
+    MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    return int(out)
+
+
 def _ptxas(log: str) -> list:
     """Per entry function of a ``ptxas -v`` report: its registers, static
     shared memory, stack frame and spills in bytes."""
@@ -377,21 +396,29 @@ def sass_summary(so: Path, kernel: str) -> dict:
                 subs[m.group(2)] = None if ret is None else ret - j + 1
         local = sum(1 for _, op in ins
                     if re.search(r"(^|\s)(LDL|STL)(\.|\s|$)", op))
+        ops = {}
+        for _, op in ins:
+            m = re.match(r"(?:@!?U?P\w+\s+)?(LDS|STS|LDG|STG|LD|ST|LDGSTS|"
+                         r"WARPSYNC|VOTE|BSSY|BSYNC)(\.|\s|$)", op)
+            if m:
+                ops[m.group(1)] = ops.get(m.group(1), 0) + 1
         out[pretty] = dict(instructions=len(ins),
                            innermost_loop=min(loops) if loops else None,
-                           calls=subs, local_memory=local)
+                           calls=subs, local_memory=local, ops=ops)
     return out
 
 
 def _sass_of_paths(paths: dict) -> dict:
-    """``sass_summary`` of the fold, preprocessing and CRC kernels that
-    the paths launch (every preproc_kernel and crc32_kernel;
-    reduce_fold_kernel at K = 2, 3 and 4), source name -> function ->
-    summary; empty where the machine has no cuobjdump."""
+    """``sass_summary`` of the fold, preprocessing, CRC and fused epoch
+    kernels that the paths launch (every preproc_kernel, crc32_kernel
+    and fused_epoch_kernel; reduce_fold_kernel at K = 2, 3 and 4),
+    source name -> function -> summary; empty where the machine has no
+    cuobjdump."""
     out = {}
     for name, kernel in (("reduce", "reduce_fold_kernel"),
                          ("preproc", "preproc_kernel"),
-                         ("crc32", "crc32_kernel")):
+                         ("crc32", "crc32_kernel"),
+                         ("fused_epoch", "fused_epoch_kernel")):
         try:
             funcs = sass_summary(paths[name], kernel)
         except (OSError, subprocess.SubprocessError) as e:
@@ -427,7 +454,7 @@ def phase_build() -> tuple:
             print(f"[build] {name} SASS: {f}: {v['instructions']} "
                   f"instructions, innermost loop {v['innermost_loop']}, "
                   f"calls {v['calls']}, local-memory instructions "
-                  f"{v['local_memory']}")
+                  f"{v['local_memory']}, memory and warp ops {v['ops']}")
     return reports, sass
 
 
@@ -998,6 +1025,134 @@ def time_launch_sizes(dev, aes_launches=MAIN_AES_LAUNCHES,
     return {"aes_ecb": aes, "crc32": crc, "dpi_mlp": dpi,
             "fused_decrypt_dpi": fused, "reduce_fold": folds_ms,
             "preproc": pre}
+
+
+class _FirstEpoch(Exception):
+    pass
+
+
+def _first_epoch_blobs(dev) -> dict:
+    """The input blob (a CPU copy) and shape key of the first fused
+    epoch of each phase-9 path whose worlds fuse: fig6's 4:1 x 32 KiB
+    incast, fig11's 4 x 16 KiB ring, 6b's ingest at a window of 16 and
+    7b's full-width ring.  Each path runs until it calls
+    ``kernels.fused_epoch.fused_epoch`` and is cut there."""
+    from repro_torch.core.ingest import BalboaIngest, make_dlrm_tile_decoder
+    from repro_torch.core.netsim import FabricConfig, incast_scenario
+    from repro_torch.kernels import fused_epoch as fe
+    ring = next(r for r in json.loads((ROOT / "BENCH_fig11_allreduce.json")
+                                      .read_text())["allreduce"]
+                if r["mode"] == "ring")
+    paths = {
+        "fig6 4:1 x 32 KiB": lambda: incast_scenario(
+            4, message_bytes=32768, fabric_cfg=FabricConfig(
+                port_bandwidth=4, port_delay=2, queue_capacity=24, seed=7),
+            epoch_mode="fused", device=dev),
+        "fig11 ring 4 x 16 KiB": lambda: run_allreduce(
+            dev, _allreduce_tensors(ring["message_bytes"] // 4,
+                                    ring["world"]), offload=False,
+            fabric_cfg=FabricConfig(port_bandwidth=4, port_delay=2,
+                                    queue_capacity=48, seed=7),
+            epoch_mode="fused"),
+        "ingest (6b), window 16": lambda: BalboaIngest(
+            _ingest_cfg("fused", 16), None, _dlrm_shard_fn(SHARD_PKTS),
+            tile_to_batch=make_dlrm_tile_decoder(N_DENSE, N_SPARSE, MOD),
+            device=dev).fetch_shard_streaming(0),
+        "allreduce ring (7b)": lambda: run_allreduce(
+            dev, _allreduce_tensors(ALLREDUCE_ELEMS), offload=False,
+            epoch_mode="fused")}
+    out, orig = {}, fe.fused_epoch
+
+    def grab(blob, skey):
+        out[name] = (blob.cpu().clone(), skey)
+        raise _FirstEpoch
+    fe.fused_epoch = grab
+    try:
+        for name, fn in paths.items():
+            try:
+                fn()
+            except _FirstEpoch:
+                pass
+            assert name in out, f"{name}: no fused epoch"
+    finally:
+        fe.fused_epoch = orig
+    return out
+
+
+def time_fused_epochs(dev, reps: int = 15) -> dict:
+    """``fused_epoch`` on each ``_first_epoch_blobs`` world: the wrapper's
+    launch and, where the tree has ``launch_epoch``, each instantiation
+    by hand, each launch on a fresh copy of the input blob: ``ms`` the
+    median of ``reps`` launches' device time, by CUDA events around the
+    launch recorded behind a 0.1 ms sleep on the card (so the wrapper's
+    host work is done before the start event runs), ``call_ms`` the
+    median of CUDA events around the whole call on an idle card (the
+    wrapper's host work included), per epoch and per tick; every output bit-equal to ``epoch_ref``'s (its
+    sha256 printed, to compare trees); the serial events, and the latency
+    bound at the SM clock read just after the world's launches.  Uses
+    whichever ``repro_torch`` is on the path."""
+    import hashlib
+    import torch
+    from repro_torch.kernels import fused_epoch as fe
+    variants = {"wrapper": fe.fused_epoch_cuda}
+    if hasattr(fe, "launch_epoch"):
+        for where in fe.RESIDENCIES:
+            variants[where] = (lambda b, k, w=where:
+                               fe.launch_epoch(b, k, w))
+    out = {}
+    for name, (blob0, skey) in _first_epoch_blobs(dev).items():
+        lay = fe.cached_layout(skey)
+        ref = blob0.clone()
+        t0 = time.perf_counter()
+        fe.epoch_ref(ref, skey)
+        ref_ms = (time.perf_counter() - t0) * 1e3
+        want = ref.numpy()
+        steps = lay.get(want, "steps")
+        events = _serial_events(lay, blob0.numpy(), want)
+        rec = {"blob_words": blob0.numel(), "steps": steps,
+               "serial_events": events,
+               "bound_ms": _bound_ms(2 * 4 * blob0.numel())[0],
+               "plain_ms_cpu": ref_ms,
+               "sha256": hashlib.sha256(want.tobytes()).hexdigest()[:16]}
+        if hasattr(fe, "residency"):
+            rec["picked"] = fe.residency(skey, fe.smem_limit(dev))
+        src = blob0.to(dev)
+        buf = torch.empty_like(src)
+        for vname, launch in variants.items():
+            if vname == "shared" and rec.get("picked") == "global":
+                continue
+
+            def timed(behind_sleep, launch=launch):
+                buf.copy_(src)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                if behind_sleep:
+                    torch.cuda._sleep(200_000)
+                start.record()
+                launch(buf, skey)
+                end.record()
+                end.synchronize()
+                assert np.array_equal(buf.cpu().numpy(), want), \
+                    f"{name} {vname}: differs from epoch_ref"
+                return start.elapsed_time(end)
+            timed(True)
+            ms = statistics.median(timed(True) for _ in range(reps))
+            call = statistics.median(timed(False) for _ in range(reps))
+            rec[vname] = {"ms": ms, "ms_per_tick": ms / steps,
+                          "call_ms": call}
+        rec["sm_clock_mhz"] = _sm_clock_mhz()
+        rec["bound_design_ms"] = _latency_bound_ms(events,
+                                                   rec["sm_clock_mhz"])
+        out[name] = rec
+        print(f"[launch-sizes] fused_epoch {name}: " + ", ".join(
+            f"{v} {rec[v]['ms']:.4f} ms ({rec[v]['ms_per_tick']:.5f} a "
+            f"tick; call {rec[v]['call_ms']:.4f})" for v in variants
+            if v in rec)
+            + f"; {steps} ticks, {events} serial events, latency bound "
+            f"{rec['bound_design_ms']:.5f} ms at {rec['sm_clock_mhz']} MHz, "
+            f"epoch_ref {ref_ms:.2f} ms (CPU)", file=sys.stderr)
+    return out
 
 
 def run_main_path(dev, params, data, impl):
@@ -1600,14 +1755,35 @@ def phase_secure_ingest(dev, params, shapes: dict) -> dict:
 # phase 9: the telemetry plane and the fused epoch core
 # ---------------------------------------------------------------------------
 
+def _serial_events(lay, before, after) -> int:
+    """The packets an epoch sent, delivered and retransmitted, summed
+    over the nodes (the deltas of the blob's ``n_tx``, ``n_rx`` and
+    ``n_retx``): the events that run one after another."""
+    return int(sum((lay.get(after, n).astype(np.int64)
+                    - lay.get(before, n)).sum()
+                   for n in ("n_tx", "n_rx", "n_retx")))
+
+
+# one shared-memory round trip, in SM cycles: the step of the fused epoch's
+# latency bound (``_latency_bound_ms``)
+SMEM_ROUND_TRIP_CYCLES = 30
+
+
+def _latency_bound_ms(events: int, clock_mhz: float) -> float:
+    """The fused epoch's latency design bound: its serial events, each
+    one shared-memory round trip at the SM clock."""
+    return events * SMEM_ROUND_TRIP_CYCLES / (clock_mhz * 1e3)
+
+
 class _HeldEpochs:
     """While entered, every fused epoch the port runs on the card
     (``kernels.fused_epoch.fused_epoch``, which ``core.fused`` calls once
-    an epoch) is timed by CUDA events around its launch and, for the
-    first ``limit`` epochs (all when None), held against ``epoch_ref`` on
-    a CPU copy of the same input blob: the output blobs must be
-    bit-identical.  The copies this check makes are its own, not the
-    port's."""
+    an epoch) is timed by CUDA events around its launch, its serial
+    events and the kernel instantiation it ran are recorded, and, for the
+    first ``limit`` epochs (all when None), it is held against
+    ``epoch_ref`` on a CPU copy of the same input blob: the output blobs
+    must be bit-identical.  The copies this check makes are its own, not
+    the port's."""
 
     def __init__(self, limit=None):
         self.limit = limit
@@ -1616,12 +1792,13 @@ class _HeldEpochs:
         import torch
         from repro_torch.kernels import fused_epoch as fe
         self.fe, self._orig = fe, fe.fused_epoch
-        self.epochs, self.ref_ms = [], []      # (ms, steps, words); CPU ms
+        # (ms, steps, words, serial events, instantiation); CPU ms
+        self.epochs, self.ref_ms = [], []
 
         def run(blob, skey):
             hold = blob.is_cuda and (
                 self.limit is None or len(self.ref_ms) < self.limit)
-            host = blob.cpu() if hold else None
+            host = blob.cpu().clone()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -1630,8 +1807,10 @@ class _HeldEpochs:
             end.synchronize()
             lay = fe.cached_layout(skey)
             got = out.cpu().numpy()
-            self.epochs.append((start.elapsed_time(end),
-                                lay.get(got, "steps"), blob.numel()))
+            self.epochs.append((
+                start.elapsed_time(end), lay.get(got, "steps"),
+                blob.numel(), _serial_events(lay, host.numpy(), got),
+                fe.fused_epoch_cuda.last_residency))
             if hold:
                 t0 = time.perf_counter()
                 fe.epoch_ref(host, skey)
@@ -1653,12 +1832,17 @@ class _HeldEpochs:
         ms = sum(e[0] for e in self.epochs)
         ticks = sum(e[1] for e in self.epochs)
         n = len(self.epochs)
+        residency = {}
+        for e in self.epochs:
+            residency[e[4]] = residency.get(e[4], 0) + 1
         return {"kernel_ms": ms, "ms_per_epoch": ms / n if n else None,
                 "ms_per_tick": ms / ticks if ticks else None,
                 "held": len(self.ref_ms),
                 "plain_ms_per_epoch_cpu": (statistics.mean(self.ref_ms)
                                            if self.ref_ms else None),
-                "blob_words": max((e[2] for e in self.epochs), default=0)}
+                "blob_words": max((e[2] for e in self.epochs), default=0),
+                "serial_events": sum(e[3] for e in self.epochs),
+                "residency": residency}
 
 
 def _fused_path(name: str, fn, limit=None):
@@ -1683,9 +1867,11 @@ def _fused_path(name: str, fn, limit=None):
     print(f"[fused] {name}: epochs={rec['epochs']} ticks={rec['ticks']} "
           f"ticks/epoch={rec['ticks_per_epoch']} refusals="
           f"{rec['refusals']} aborts={rec['aborts']}; fused_epoch launches "
-          f"{launches['fused_epoch']}, {rec['held']} held bit-equal to "
-          f"epoch_ref; kernel ms/epoch={rec['ms_per_epoch']} ms/tick="
-          f"{rec['ms_per_tick']} (CUDA events); wall_s={wall:.2f}")
+          f"{launches['fused_epoch']} (instantiation: {rec['residency']}), "
+          f"{rec['held']} held bit-equal to epoch_ref; kernel ms/epoch="
+          f"{rec['ms_per_epoch']} ms/tick={rec['ms_per_tick']} (CUDA "
+          f"events); serial events {rec['serial_events']}; wall_s="
+          f"{wall:.2f}")
     return res, rec
 
 
@@ -1914,6 +2100,9 @@ def phase_fused(dev, keep: dict):
     Returns the launch counts of the fused paths and the ``fused_epoch``
     kernel's record for the kernel line."""
     import torch
+    clock0 = _sm_clock_mhz()
+    print(f"[fused] SM clock before phase 9: {clock0} MHz")
+    first = time_fused_epochs(dev)
     phase_telemetry(dev)
     recs = phase_fused_rows(dev)
     census = _copy_census(dev)
@@ -1963,24 +2152,57 @@ def phase_fused(dev, keep: dict):
           f"tick (row, reducer, both bit-identical to the oracle), ticks="
           f"{ring['row']['ticks']}; wall_s tick={tick['wall_s']:.2f} "
           f"fused={ring['wall_s']:.2f}")
+    for name, r in first.items():
+        print(f"[fused] fused_epoch on {name}'s first epoch ({r['steps']} "
+              f"ticks, {4 * r['blob_words']} B blob, picked "
+              f"{r['picked']}): ms " + ", ".join(
+                  f"{v} {r[v]['ms']:.4f} ({r[v]['ms_per_tick']:.5f} a tick; "
+                  f"call {r[v]['call_ms']:.4f})"
+                  for v in ("wrapper", "shared", "global") if v in r)
+              + f"; latency bound {r['bound_design_ms']:.6f} ms at "
+              f"{r['sm_clock_mhz']} MHz; epoch_ref {r['plain_ms_cpu']:.2f} "
+              f"ms (CPU)")
+    clock1 = _sm_clock_mhz()
+    clock = max(clock0, clock1)
+    print(f"[fused] SM clock after phase 9: {clock1} MHz")
+    for path, rec in recs.items():
+        if rec["epochs"]:
+            rec["bound_design_ms_per_epoch"] = _latency_bound_ms(
+                rec["serial_events"], clock) / rec["epochs"]
+            print(f"[fused] {path}: latency design bound "
+                  f"{rec['bound_design_ms_per_epoch']:.6f} ms an epoch "
+                  f"({rec['serial_events']} serial events in "
+                  f"{rec['epochs']} epochs x {SMEM_ROUND_TRIP_CYCLES} "
+                  f"cycles at {clock} MHz) against "
+                  f"{rec['ms_per_epoch']:.6f} ms")
     counts = {path: rec["launches"] for path, rec in recs.items()}
     main = recs["allreduce_ring_fused"]
-    bound, by = _bound_ms(2 * 4 * main["blob_words"])
+    ring = first["allreduce ring (7b)"]
+    bound, by = _bound_ms(2 * 4 * ring["blob_words"])
     record = dict(
         function="make_epoch_fn (a jitted lax.while_loop, not a Pallas "
                  "kernel)",
-        max_abs_err=0, ms=main["ms_per_epoch"],
-        ms_per_tick=main["ms_per_tick"], ms_from="events",
-        plain_ms=main["plain_ms_per_epoch_cpu"], plain_device="cpu",
+        max_abs_err=0, ms=ring["wrapper"]["ms"],
+        ms_per_tick=ring["wrapper"]["ms_per_tick"],
+        ms_from=f"events behind a sleep, the ring's first epoch "
+                f"({ring['steps']} ticks)",
+        call_ms=ring["wrapper"]["call_ms"],
+        plain_ms=ring["plain_ms_cpu"], plain_device="cpu",
         bound_ms=bound, bound_by=by, library_ms=None,
+        bound_design_ms=ring["bound_design_ms"],
+        bound_design_by=f"latency: serial events x "
+                        f"{SMEM_ROUND_TRIP_CYCLES} cycles",
+        first_epochs=first, sm_clock_mhz=[clock0, clock1],
+        residency_by_path={p: r["residency"] for p, r in recs.items()},
         blob_bytes=4 * main["blob_words"], copy_census=census,
         paths={p: {k: v for k, v in r.items() if k != "launches"}
                for p, r in recs.items()})
-    print(f"[fused] fused_epoch on allreduce_ring_fused: ms/epoch="
-          f"{record['ms']} ms/tick={record['ms_per_tick']} plain_ms/epoch "
-          f"(epoch_ref, CPU)={record['plain_ms']} bound_ms={bound:.6f} "
-          f"({by}: the {record['blob_bytes']} B blob read and written "
-          f"once; the kernel is one thread's chain of dependent steps)")
+    print(f"[fused] fused_epoch on allreduce_ring_fused's first epoch: "
+          f"ms={record['ms']} ms/tick={record['ms_per_tick']} (device) "
+          f"plain_ms (epoch_ref, CPU)={record['plain_ms']} bound_ms="
+          f"{bound:.6f} ({by}: the {record['blob_bytes']} B blob read and "
+          f"written once) bound_design_ms={record['bound_design_ms']:.6f} "
+          f"(its serial events, a shared-memory round trip each)")
     return counts, record
 
 
@@ -1988,9 +2210,10 @@ def phase_fused(dev, keep: dict):
 def launch_sizes_main(src: Path) -> int:
     """``python3 chip_smoke.py --launch-sizes [SRC]``: build the kernels of
     the ``repro_torch`` under SRC (default this checkout's ``src``) and
-    print, as one JSON line, the card, the SASS summary of its fold and
-    preprocessing kernels and ``time_launch_sizes`` at the paths' launch
-    sizes.  Two trees are compared on one card by running this in turns,
+    print, as one JSON line, the card, its SM clock before and after,
+    the SASS summary of its fold, preprocessing, CRC and fused epoch
+    kernels, ``time_launch_sizes`` at the paths' launch sizes and
+    ``time_fused_epochs`` on the phase-9 worlds' first epochs.  Two trees are compared on one card by running this in turns,
     parent, change, change, parent, in one call, the parent unpacked (git
     archive) under the ignored ``build/``."""
     import torch
@@ -2004,9 +2227,16 @@ def launch_sizes_main(src: Path) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = phase_device()
     sass = _sass_of_paths(_build.build_all())
-    times = time_launch_sizes(torch.device("cuda"))
+    dev = torch.device("cuda")
+    clock0 = _sm_clock_mhz()
+    times = time_launch_sizes(dev)
+    times["fused_epoch"] = time_fused_epochs(dev)
+    clock1 = _sm_clock_mhz()
+    print(f"[launch-sizes] SM clock before {clock0} MHz, after {clock1} MHz",
+          file=sys.stderr)
     print(json.dumps({"src": str(src), "repro_torch": repro_torch.__file__,
-                      "device": smi, "sass": sass, "ms": times}))
+                      "device": smi, "sm_clock_mhz": [clock0, clock1],
+                      "sass": sass, "ms": times}))
     return 0
 
 

@@ -9,9 +9,12 @@ tick (``rdma.step_network``) in its exact event order until an abort,
 a watermark hit, ``idle_done`` quiescent ticks or ``max_ticks``.
 
 ``fused_epoch_cuda`` launches the hand-written Hopper kernel in
-``csrc/fused_epoch.cu``: one thread of one block runs the epoch as a
-sequential state machine over the blob in device memory (see the source
-note), updating it in place, as the reference donates its input.
+``csrc/fused_epoch.cu``: one warp runs the epoch, lane 0 making the
+oracle's ordered events and all 32 lanes each scan, over the blob copied
+into shared memory (see the source note), and writes it back in place,
+as the reference donates its input.  A blob whose words and scratch
+exceed the block's opt-in shared memory runs the same body on the blob
+in device memory: ``residency`` picks the instantiation by size alone.
 ``epoch_ref`` is the plain version: plain Python over the CPU blob, a
 line-for-line transcription of the reference's ``make_epoch_fn``
 (``repro/core/fused.py:714``) that loops over live entries only (the
@@ -20,7 +23,9 @@ in a mask) where the reference masks a fixed bound; int32 and uint32
 wraparound are emulated wherever the reference's arithmetic wraps.
 ``fused_epoch`` dispatches on the blob's device.
 
-``fused_epoch_cuda.launches`` counts the kernel launches of this process.
+``fused_epoch_cuda.launches`` counts the kernel launches of this process,
+and ``fused_epoch_cuda.last_residency`` names the instantiation the last
+one ran.
 """
 from __future__ import annotations
 
@@ -187,8 +192,11 @@ def cached_layout(skey: ShapeKey) -> _Layout:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_epoch")
     lib.fused_epoch_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                       ctypes.c_int, ctypes.c_void_p]
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p]
     lib.fused_epoch_launch.restype = ctypes.c_int
+    lib.fused_epoch_smem_optin.argtypes = []
+    lib.fused_epoch_smem_optin.restype = ctypes.c_int
     return lib
 
 
@@ -216,6 +224,38 @@ def params(skey: ShapeKey) -> np.ndarray:
     return np.asarray(head + offs + dl + ld, np.int32)
 
 
+RESIDENCIES = ("shared", "global")
+
+
+def smem_words(skey: ShapeKey, resident: bool) -> int:
+    """Words of dynamic shared memory an epoch's launch takes
+    (``csrc/fused_epoch.cu:smem_words``): the blob, rounded up to 16
+    bytes, when it is resident; then the scratch (3 rows of wire slots,
+    10 rows of the largest batch, a word a flow)."""
+    size = cached_layout(skey).size
+    blob = (size + 3) // 4 * 4 if resident else 0
+    return blob + 3 * skey.WCAP + 10 * batch_cap(skey) + skey.F
+
+
+def residency(skey: ShapeKey, limit_bytes: int) -> str:
+    """The kernel instantiation for a shape key, by size alone:
+    ``"shared"`` where the blob and the scratch fit the block's opt-in
+    shared memory (``limit_bytes``), else ``"global"``."""
+    return "shared" if 4 * smem_words(skey, True) <= limit_bytes \
+        else "global"
+
+
+@functools.lru_cache(maxsize=None)
+def smem_limit(device: torch.device) -> int:
+    """The dynamic shared memory a block of ``device`` may opt into, in
+    bytes (the card's ``cudaDevAttrMaxSharedMemoryPerBlockOptin``)."""
+    with torch.cuda.device(device):
+        limit = _lib().fused_epoch_smem_optin()
+    if limit < 0:
+        raise RuntimeError(f"no shared-memory limit for {device}")
+    return limit
+
+
 def _check(blob: torch.Tensor, skey: ShapeKey) -> None:
     if blob.dtype != torch.int32 or blob.dim() != 1 \
             or not blob.is_contiguous():
@@ -228,23 +268,49 @@ def _check(blob: torch.Tensor, skey: ShapeKey) -> None:
 
 
 def fused_epoch_cuda(blob: torch.Tensor, skey: ShapeKey) -> torch.Tensor:
-    """Run one epoch on the card, in place on ``blob`` (returned)."""
+    """Run one epoch on the card, in place on ``blob`` (returned), in the
+    instantiation ``residency`` picks for the shape key."""
     if not blob.is_cuda:
         raise ValueError("fused_epoch_cuda needs a CUDA tensor")
     _check(blob, skey)
+    return _launch(blob, skey, residency(skey, smem_limit(blob.device)))
+
+
+def launch_epoch(blob: torch.Tensor, skey: ShapeKey,
+                 where: str) -> torch.Tensor:
+    """One epoch on the card in the instantiation ``where`` names
+    (``"shared"``: the blob copied into shared memory; ``"global"``: the
+    blob where it lies), in place on ``blob`` (returned).  Raises for a
+    resident blob over the card's limit."""
+    if not blob.is_cuda:
+        raise ValueError("launch_epoch needs a CUDA tensor")
+    if where not in RESIDENCIES:
+        raise ValueError(f"unknown residency {where!r}; choose from "
+                         f"{RESIDENCIES}")
+    _check(blob, skey)
+    need = 4 * smem_words(skey, True)
+    if where == "shared" and need > smem_limit(blob.device):
+        raise ValueError(f"a {need}-byte blob and scratch exceed the "
+                         f"block's shared memory")
+    return _launch(blob, skey, where)
+
+
+def _launch(blob: torch.Tensor, skey: ShapeKey, where: str) -> torch.Tensor:
     prm = params(skey)
     lib = _lib()
     with torch.cuda.device(blob.device):
         stream = torch.cuda.current_stream(blob.device).cuda_stream
         err = lib.fused_epoch_launch(
             blob.data_ptr(), prm.ctypes.data_as(ctypes.c_void_p),
-            int(prm.size), stream)
+            int(prm.size), int(where == "shared"), stream)
         fused_epoch_cuda.launches += 1
+        fused_epoch_cuda.last_residency = where
     _build.check(lib, err, "fused_epoch")
     return blob
 
 
 fused_epoch_cuda.launches = 0
+fused_epoch_cuda.last_residency = None
 
 
 def fused_epoch(blob: torch.Tensor, skey: ShapeKey) -> torch.Tensor:

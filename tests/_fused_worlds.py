@@ -26,7 +26,7 @@ def _dev(pkg, device):
 
 def build_star(pkg, seed, *, sr=False, loss=0.0, kmax=0, nbytes=2000,
                n_senders=2, bw=3, cap=16, window=16, presteps=0,
-               extra_qps=0, device="cpu"):
+               extra_qps=0, qps=1, device="cpu"):
     netsim, rdma = _mods(pkg)
     cfg = netsim.FabricConfig(port_bandwidth=bw, port_delay=2,
                               queue_capacity=cap, loss_prob=loss,
@@ -34,13 +34,14 @@ def build_star(pkg, seed, *, sr=False, loss=0.0, kmax=0, nbytes=2000,
                               chaos_seed=seed if (loss or kmax) else None)
     fab = netsim.SwitchedFabric(n_senders + 1, cfg)
     mode = "selective_repeat" if sr else "go_back_n"
-    kw = dict(fc_window=window, rx_mode=mode, n_qps=32, mtu=MTU,
+    kw = dict(fc_window=window, rx_mode=mode,
+              n_qps=max(32, n_senders * qps + extra_qps + 1), mtu=MTU,
               **_dev(pkg, device))
     recv = rdma.RdmaNode(0, fab, **kw)
     senders = [rdma.RdmaNode(i + 1, fab, **kw) for i in range(n_senders)]
     rng = np.random.default_rng(seed)
     for i, s in enumerate(senders):
-        for j in range(1 + (extra_qps if i == 0 else 0)):
+        for j in range(qps + (extra_qps if i == 0 else 0)):
             q, _rk, _buf = s.init_rdma(1 << 16, recv)
             s.rdma_write(q, rng.integers(
                 0, 256, max(nbytes + 777 * i - 301 * j, 1),
@@ -110,6 +111,16 @@ def overflow_world(pkg, device="cpu"):
     fused epoch aborts (wire overflow) and returns None."""
     return build_p2p(pkg, 3, latency=4000, nbytes=3000, n_flows=2,
                      device=device)
+
+
+def wide_world(pkg, device="cpu"):
+    """A star of 4 senders x 5 QPs (20 messages of 84-94 packets, a
+    window of 8) into one receiver, 2 % loss: 40 directed flows, plan
+    rows bucketed to 128, a blob of over 227 KB, past what a block's
+    shared memory holds, so the fused epoch runs on the blob in device
+    memory."""
+    return build_star(pkg, 29, loss=0.02, nbytes=21_500, n_senders=4,
+                      qps=5, window=8, device=device)
 
 
 # ---------------------------------------------------------------------------

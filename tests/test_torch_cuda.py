@@ -19,8 +19,10 @@ bit-equal to ``dpi_scores(plaintext).amax(1)`` (both kernels run the MLP
 of ``csrc/dpi_mma.cuh``, and a beat's score does not depend on the tile,
 warp or block that computes it), at launches that pair their warps and
 launches that do not.  The fused epoch kernel: its output blob equals
-``epoch_ref``'s bit for bit (every shape key of the CPU suites, a
-watermark exit, a full wire's abort, ``max_ticks = 1``), and
+``epoch_ref``'s bit for bit (every shape key of the CPU suites, in the
+instantiation the wrapper picks and in each of the two by hand, a
+watermark exit, a full wire's abort, ``max_ticks = 1``, a world too wide
+for shared memory), the wrapper picks the instantiation by size, and
 ``run_network(epoch_mode="fused")`` on nodes on the card equals per-tick
 stepping on the CPU, whole world.
 """
@@ -682,3 +684,64 @@ def test_cuda_fused_epoch_wrapper_checks(cuda):
     assert ops.launches()["fused_epoch"] == 0
     fe.fused_epoch(blob, world.skey)
     assert ops.launches()["fused_epoch"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", fe.RESIDENCIES)
+@pytest.mark.parametrize("suite", sorted(W.FIXED))
+def test_cuda_fused_epoch_each_residency(cuda, suite, where):
+    """Every suite's shape key through the shared-memory instantiation
+    and through the device-memory one: both bit-equal to ``epoch_ref``."""
+    world = tfused.try_pack(W.build(PORT, suite, **W.FIXED[suite]),
+                            100_000, 8)
+    blob = _t(world.vec0).to(cuda)
+    ops.reset_launches()
+    fe.launch_epoch(blob, world.skey, where)
+    torch.cuda.synchronize()
+    assert ops.launches()["fused_epoch"] == 1
+    assert fe.fused_epoch_cuda.last_residency == where
+    ref = _t(world.vec0)
+    fe.epoch_ref(ref, world.skey)
+    _assert_same_blob(world, blob.cpu().numpy(), ref.numpy())
+    assert world.layout.get(ref.numpy(), "steps") > 1
+
+
+@pytest.mark.cuda
+def test_cuda_fused_epoch_wide_world_in_device_memory(cuda):
+    """A world whose blob and scratch exceed a block's shared memory
+    (40 flows x 128 plan rows, a 297 KB blob), its whole epoch on the
+    card: the wrapper runs it in device memory, bit-equal to
+    ``epoch_ref``; the shared-memory instantiation refuses it."""
+    world = tfused.try_pack(W.wide_world(PORT), 100_000, 8)
+    blob = _t(world.vec0).to(cuda)
+    assert fe.residency(world.skey, fe.smem_limit(blob.device)) == "global"
+    got, want = _kernel_and_plain(cuda, world)
+    assert fe.fused_epoch_cuda.last_residency == "global"
+    _assert_same_blob(world, got, want)
+    assert world.layout.get(got, "steps") > 1000
+    with pytest.raises(ValueError, match="shared memory"):
+        fe.launch_epoch(blob, world.skey, "shared")
+
+
+@pytest.mark.cuda
+def test_cuda_fused_epoch_picks_residency_by_size(cuda):
+    """The wrapper reads the card's opt-in shared memory and launches
+    the shared-memory instantiation exactly where the blob and scratch
+    fit it: every suite's world, not the wide one."""
+    worlds = [tfused.try_pack(W.build(PORT, s, **W.FIXED[s]), 1, 8)
+              for s in sorted(W.FIXED)]
+    worlds.append(tfused.try_pack(W.wide_world(PORT), 1, 8))
+    ran = []
+    for world in worlds:
+        blob = _t(world.vec0).to(cuda)
+        limit = fe.smem_limit(blob.device)
+        optin = getattr(torch.cuda.get_device_properties(blob.device),
+                        "shared_memory_per_block_optin", limit)
+        assert limit == optin
+        fe.fused_epoch(blob, world.skey)
+        torch.cuda.synchronize()
+        want = "shared" if 4 * fe.smem_words(world.skey, True) <= limit \
+            else "global"
+        assert fe.fused_epoch_cuda.last_residency == want
+        ran.append(want)
+    assert ran == ["shared"] * len(W.FIXED) + ["global"]

@@ -11,7 +11,12 @@
   a watermark exit, p2p spray in both RX modes, and a full wire's
   abort).
 * The kernel's epoch body (csrc/fused_epoch.cu outside its CUDA block),
-  compiled for the host with g++, against the plain version.
+  compiled for the host with g++, against the plain version, in both
+  residencies (the blob copied into the shared-memory buffer, or where
+  it lies): every suite, ragged scan tails, two flows' timers in one
+  tick, a gap resend of several rows, a full wire, and a world too wide
+  for shared memory; the size rule that picks the residency; a bump
+  that writes only its own plan row.
 * Property suites (tests/test_fused_core.py's, port only): a fused epoch
   leaves the ENTIRE world bit-identical to stepping it per tick, and
   never silently falls back.
@@ -275,21 +280,39 @@ def test_wrapper_checks_and_max_ticks():
 
 
 # the kernel's epoch body compiled for the host (everything outside the
-# ``#ifdef __CUDACC__`` block of csrc/fused_epoch.cu is plain C++), run
-# through its own ``read_params`` / ``Epoch`` on a copy of the blob
+# ``#ifdef __CUDACC__`` block of csrc/fused_epoch.cu is plain C++; its
+# lane abstraction evaluates a step's 32 lanes in a loop), run through
+# its own ``read_params`` / ``epoch_body`` on a copy of the blob, in
+# either residency: the blob copied into the shared-memory buffer, or
+# worked on where it lies
 _HOST_RUNNER = """
 #include <vector>
 #include "fused_epoch.cu"
-extern "C" int host_epoch(int* blob, const int* meta, int len) {
+extern "C" int host_epoch(int* blob, const int* meta, int len, int resident) {
   Params prm;
-  if (!read_params(&prm, meta, len)) return 1;
-  std::vector<int> smem(scratch_words(prm));
+  if (!read_params(&prm, meta, len)) return -1;
+  std::vector<int> smem(smem_words(prm, resident != 0));
+  return resident ? epoch_body<true>(blob, &prm, smem.data())
+                  : epoch_body<false>(blob, &prm, smem.data());
+}
+extern "C" long host_smem_words(const int* meta, int len, int resident) {
+  Params prm;
+  if (!read_params(&prm, meta, len)) return -1;
+  return smem_words(prm, resident != 0);
+}
+extern "C" int host_bump(int* blob, const int* meta, int len, int f, int row) {
+  Params prm;
+  if (!read_params(&prm, meta, len)) return -1;
+  std::vector<int> smem(smem_words(prm, false));
   Epoch e;
   e.init(blob, &prm, smem.data());
-  e.run();
-  return 0;
+  e.bump_send(f, row);
+  e.finish();
+  return e.faults();
 }
 """
+WHERE = ("shared", "global")
+H100_SMEM = 232_448       # an H100 block's opt-in shared memory, bytes
 
 
 @pytest.fixture(scope="module")
@@ -308,22 +331,41 @@ def host_kernel(tmp_path_factory):
                    check=True, capture_output=True, timeout=120)
     lib = ctypes.CDLL(str(d / "runner.so"))
     lib.host_epoch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_int]
+                               ctypes.c_int, ctypes.c_int]
     lib.host_epoch.restype = ctypes.c_int
+    lib.host_smem_words.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_int]
+    lib.host_smem_words.restype = ctypes.c_long
+    lib.host_bump.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.host_bump.restype = ctypes.c_int
     return lib
 
 
-def _host_epoch(lib, world):
-    blob = world.vec0.copy()
+def _host_epoch(lib, world, where="shared", vec=None):
+    """The host-built body's output blob; it must report no break of the
+    lane discipline (a lane-wide step inside a lane-0 block, a tally
+    also read as shared state)."""
+    blob = (world.vec0 if vec is None else vec).copy()
     prm = fe.params(world.skey)
-    assert lib.host_epoch(blob.ctypes.data, prm.ctypes.data, prm.size) == 0
+    assert lib.host_epoch(blob.ctypes.data, prm.ctypes.data, prm.size,
+                          int(where == "shared")) == 0
     return blob
 
 
-def test_kernel_body_on_host_matches_epoch_ref(host_kernel):
+def _host_and_ref(lib, world, where):
+    got, want = _host_epoch(lib, world, where), _epoch_ref(world)
+    _same_blob(world.layout, got, want)
+    return got
+
+
+@pytest.mark.parametrize("where", WHERE)
+def test_kernel_body_on_host_matches_epoch_ref(host_kernel, where):
     """csrc/fused_epoch.cu's epoch body, compiled for the host, against
-    the plain version, bit for bit: random worlds of every property
-    suite (some cut to 1 tick), a watermark exit and a full wire."""
+    the plain version, bit for bit, with the blob resident in the
+    shared-memory buffer and where it lies: random worlds of every
+    property suite (some cut to 1 tick), a watermark exit and a full
+    wire."""
     rng = np.random.default_rng(18)
     worlds = []
     for suite in sorted(W.SUITES):
@@ -346,11 +388,221 @@ def test_kernel_body_on_host_matches_epoch_ref(host_kernel):
                                   {(0, next(iter(nodes[0]._peer))): 512}))
     worlds.append(tfused.try_pack(W.overflow_world(PORT), 100_000, 8))
     for world in worlds:
-        _same_blob(world.layout, _host_epoch(host_kernel, world),
+        _same_blob(world.layout, _host_epoch(host_kernel, world, where),
                    _epoch_ref(world))
     last = worlds[-2:]
     assert last[0].layout.get(_epoch_ref(last[0]), "wm_hit") == 1
     assert last[1].layout.get(_epoch_ref(last[1]), "abort") == 1
+
+
+def _reshape(world, *, WCAP, PC):
+    """The world on another shape key: ``WCAP`` wire slots (the packed
+    ones that are taken all lie below it; any new ones free) and ``PC``
+    plan rows a flow (no fewer than packed; the new ones empty), every
+    other word as packed."""
+    skey = dataclasses.replace(world.skey, WCAP=WCAP, PC=PC)
+    old, lay = world.layout, fe.layout_for(skey)
+    assert PC >= world.skey.PC
+    assert not old.get(world.vec0, "w_valid")[WCAP:].any()
+    vec = np.zeros(lay.size, np.int32)
+    for name, (off, shape, n) in lay.index.items():
+        src = np.asarray(old.get(world.vec0, name))
+        dst = vec[off:off + n].reshape(shape or (1,))
+        if name.startswith("w_"):
+            k = min(WCAP, src.size)
+            dst[:k] = src[:k]
+        elif name.startswith("p_"):
+            dst[:, :src.shape[1]] = src
+        else:
+            dst[...] = src.reshape(dst.shape)
+    return dataclasses.replace(world, skey=skey, layout=lay, vec0=vec)
+
+
+@pytest.mark.parametrize("where", WHERE)
+def test_kernel_body_scans_with_ragged_tails(host_kernel, where):
+    """Wire and plan sizes that are not a multiple of the warp's 32
+    lanes (WCAP 70, 27 and 17, PC 45, 19 and 23; F is 4 to 6), so
+    every scan ends in a partial chunk: the free-slot search, the due
+    slots, the timer rows flattened over flows, the ACK's release masks
+    and the idle test.  The tight wires fill and abort in three of the
+    fifteen."""
+    aborts = 0
+    for suite in sorted(W.FIXED):
+        world = tfused.try_pack(W.build(PORT, suite, **W.FIXED[suite]),
+                                100_000, 8)
+        for wcap, pc in ((70, 45), (27, 19), (17, 23)):
+            got = _host_and_ref(host_kernel,
+                                _reshape(world, WCAP=wcap, PC=pc), where)
+            aborts += fe.layout_for(dataclasses.replace(
+                world.skey, WCAP=wcap, PC=pc)).get(got, "abort")
+    assert aborts == 3
+
+
+@pytest.mark.parametrize("where", WHERE)
+def test_kernel_body_two_flows_timers_in_one_tick(host_kernel, where):
+    """Two flows' retransmission timers fall due in the same tick: the
+    rows are bumped in T_ORDER, then row order, as the oracle steps."""
+    world = tfused.try_pack(W.build(PORT, "star_gbn_loss",
+                                    **W.FIXED["star_gbn_loss"]), 1, 8)
+    c = world.layout.views(world.vec0)
+    held = np.argwhere(c["p_held"] > 0)
+    flows = sorted({int(f) for f, _ in held})[:2]
+    assert len(flows) == 2
+    picked = [tuple(next(h for h in held if h[0] == f)) for f in flows]
+    for f, row in picked:
+        c["p_dl"][f, row] = c["now"][0] + 1
+    got = _host_and_ref(host_kernel, world, where)
+    lay = world.layout
+    for f, row in picked:
+        assert lay.get(got, "p_retr")[f, row] == c["p_retr"][f, row] + 1
+    assert lay.get(got, "n_retx").sum() >= c["n_retx"].sum() + 2
+
+
+@pytest.mark.parametrize("where", WHERE)
+def test_kernel_body_gap_resend_bumps_several_rows(host_kernel, where):
+    """One ACK whose SACK leaves a gap of several held rows: the gap's
+    mask is taken once and each of its rows bumped, in row order (a
+    p2p go-back-N world, the ACK put on the wire due next tick)."""
+    world = tfused.try_pack(W.build(PORT, "p2p_gbn_spray",
+                                    **W.FIXED["p2p_gbn_spray"]), 1, 8)
+    c = world.layout.views(world.vec0)
+    held = c["p_held"] > 0
+    f = int(np.argmax(held.sum(1)))
+    rows = np.flatnonzero(held[f])
+    assert rows.size >= 3
+    now = int(c["now"][0])
+    ap = (int(c["f_base"][f]) + int(rows[0]) - 1) & fe.MASK
+    link = int(c["f_lctrl"][f])
+    slot = int(np.flatnonzero(c["w_valid"] == 0)[0])
+    c["l_seq"][link] += 1
+    for name, v in (("w_valid", 1), ("w_arr", now + 1),
+                    ("w_seq", c["l_seq"][link]), ("w_dst", link),
+                    ("w_flow", f), ("w_pidx", 0), ("w_kind", 1),
+                    ("w_ap", ap), ("w_sack", 1 << 20)):
+        c[name][slot] = v
+    c["f_last_gap"][f] = fe.NEG
+    got = _host_and_ref(host_kernel, world, where)
+    lay = world.layout
+    assert lay.get(got, "f_last_gap")[f] == now + 1
+    bumped = lay.get(got, "p_retr")[f] > c["p_retr"][f]
+    assert bumped.sum() >= 2
+
+
+@pytest.mark.parametrize("where", WHERE)
+def test_kernel_body_due_ties_pop_in_slot_order(host_kernel, where):
+    """A link's wire packets due in one tick with equal (arrival, seq):
+    they pop in slot order, as the oracle's stable sort leaves them (the
+    kernel appends the due slots in slot order and ranks them)."""
+    world = tfused.try_pack(W.build(PORT, "p2p_gbn_spray",
+                                    **W.FIXED["p2p_gbn_spray"]), 1, 8)
+    c = world.layout.views(world.vec0)
+    valid = np.flatnonzero(c["w_valid"] > 0)
+    link = c["w_dst"][valid[0]]
+    tied = valid[c["w_dst"][valid] == link]
+    assert len(tied) >= 3 and len(tied) <= world.skey.DEL[link]
+    c["w_arr"][tied] = c["now"][0] + 1
+    c["w_seq"][tied] = 7
+    got = _host_and_ref(host_kernel, world, where)
+    assert world.layout.get(got, "n_rx").sum() >= \
+        c["n_rx"].sum() + len(tied)
+
+
+@pytest.mark.parametrize("where", WHERE)
+def test_kernel_body_zero_latency_links(host_kernel, where):
+    """Links of latency 0 (a blob ``try_pack`` would not pack): a packet
+    sent in a tick can be due on a later link in the same tick, so the
+    kernel's one due scan a tick no longer holds and each link after such
+    a send scans the wire again."""
+    for seed in (5, 21, 33):
+        world = tfused.try_pack(W.build(PORT, "p2p_gbn_spray", seed=seed,
+                                        loss=0.05, reorder=0.3, jitter=2,
+                                        presteps=4), 100_000, 8)
+        world.layout.views(world.vec0)["l_lat"][:] = 0
+        got = _host_and_ref(host_kernel, world, where)
+        assert world.layout.get(got, "steps") > 1
+
+
+@pytest.mark.parametrize("where", WHERE)
+def test_kernel_body_full_wire_takes_slot_0(host_kernel, where):
+    """Every wire slot taken: the first push finds no free slot in any
+    chunk, takes slot 0 and sets ``abort``; the epoch stops that tick."""
+    world = tfused.try_pack(W.build(PORT, "p2p_gbn_spray",
+                                    **W.FIXED["p2p_gbn_spray"]), 100_000, 8)
+    c = world.layout.views(world.vec0)
+    c["w_arr"][c["w_valid"] == 0] = c["now"][0] + 10 ** 6
+    c["w_valid"][:] = 1
+    c["p_dl"][tuple(np.argwhere(c["p_held"] > 0)[0])] = 0
+    got = _host_and_ref(host_kernel, world, where)
+    assert world.layout.get(got, "abort") == 1
+    assert world.layout.get(got, "steps") == 1
+    assert world.layout.get(got, "w_seq")[0] != c["w_seq"][0]
+
+
+def test_wide_world_runs_on_the_blob_in_device_memory(host_kernel):
+    """A world whose blob and scratch exceed an H100 block's 227 KB of
+    shared memory (40 flows, 128 plan rows a flow, more than 32 flows so
+    the flow scans take two chunks): the wrapper's size rule picks the
+    device-memory instantiation, whose body the host build runs against
+    the plain version over the whole epoch (7,302 ticks: timeouts after
+    quiet spells, when no row was held, test the timer bound)."""
+    world = tfused.try_pack(W.wide_world(PORT), 100_000, 8)
+    assert world.skey.F == 40 and world.skey.PC == 128
+    assert 4 * world.layout.size > H100_SMEM
+    assert fe.residency(world.skey, H100_SMEM) == "global"
+    got = _host_and_ref(host_kernel, world, "global")
+    lay = world.layout
+    assert lay.get(got, "steps") > 1000 and lay.get(got, "idle") == 8
+    assert lay.get(got, "n_retx").sum() > lay.get(world.vec0, "n_retx").sum()
+
+
+def test_residency_by_size_matches_the_kernels_rule(host_kernel):
+    """``smem_words`` is the kernel's ``smem_words`` (blob rounded up to
+    16 bytes, then the scratch) in both residencies, and ``residency``
+    keeps every suite's world in shared memory on an H100 and puts the
+    wide world in device memory."""
+    worlds = [tfused.try_pack(W.build(PORT, s, **W.FIXED[s]), 100_000, 8)
+              for s in sorted(W.FIXED)]
+    worlds.append(tfused.try_pack(W.wide_world(PORT), 100_000, 8))
+    for world in worlds:
+        prm = fe.params(world.skey)
+        for resident in (True, False):
+            assert fe.smem_words(world.skey, resident) == \
+                host_kernel.host_smem_words(prm.ctypes.data, prm.size,
+                                            int(resident))
+        limit = 4 * fe.smem_words(world.skey, True)
+        assert fe.residency(world.skey, limit) == "shared"
+        assert fe.residency(world.skey, limit - 1) == "global"
+    assert [fe.residency(w.skey, H100_SMEM) for w in worlds] == \
+        ["shared"] * 5 + ["global"]
+
+
+def test_bump_writes_only_its_own_plan_row(host_kernel):
+    """What lets a scan take its mask before the rows it picks are
+    bumped: ``bump_send`` (the kernel's, run alone on the host, and the
+    plain version's) changes, of the plan rows, only its own row's
+    ``p_retr`` and ``p_dl``, and the two agree on the whole blob."""
+    world = tfused.try_pack(W.build(PORT, "star_gbn_loss",
+                                    **W.FIXED["star_gbn_loss"]), 100_000, 8)
+    lay = world.layout
+    prm = fe.params(world.skey)
+    held = np.argwhere(lay.get(world.vec0, "p_held") > 0)
+    assert len(held) >= 4
+    for f, row in held[::max(1, len(held) // 4)]:
+        got = world.vec0.copy()
+        assert host_kernel.host_bump(got.ctypes.data, prm.ctypes.data,
+                                     prm.size, int(f), int(row)) == 0
+        want = world.vec0.copy()
+        fe._Epoch(want, world.skey).bump_send(int(f), int(row))
+        _same_blob(lay, got, want)
+        for name in ("p_op", "p_plen", "p_vaddr", "p_dlen", "p_ackreq",
+                     "p_rkey", "p_held", "p_retr", "p_dl", "p_acc",
+                     "p_aseq", "p_aaddr"):
+            changed = np.argwhere(lay.get(got, name)
+                                  != lay.get(world.vec0, name))
+            if name in ("p_retr", "p_dl"):
+                assert changed.tolist() == [[f, row]], name
+            else:
+                assert changed.size == 0, name
 
 
 # ---------------------------------------------------------------------------
