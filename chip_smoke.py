@@ -7,7 +7,9 @@ Builds the port's hand-written Hopper kernels from ``src/repro_torch/
 csrc`` and drives four paths of the system: the service-enhanced RDMA
 datapath (paper Fig. 1), the §8 streaming ingest into a full-size DLRM,
 the allreduce fabric, and the §8 ingest of encrypted shards that trains
-the DLRM; then the telemetry plane and the fused epoch core.
+the DLRM; then the telemetry plane and the fused epoch core,
+data-parallel DLRM training over the allreduce, and the host-sync
+census.
 
   0. device   the card's name and power limit (nvidia-smi)
   1. build    nvcc, one process per kernel source, all at once; each
@@ -89,8 +91,25 @@ the DLRM; then the telemetry plane and the fused epoch core.
               (the blob in shared memory or in device memory), its serial
               events and latency bound, the kernel's call time per epoch
               and per tick (CUDA events) and the walls
+ 10. exchange (a) ``repro_torch.examples.allreduce_dlrm`` as the
+              reference runs it: the smoke DLRM, 4 workers x 64 records,
+              8 steps, each worker's gradient exchanged by the offloaded
+              allreduce, every sum bit-identical to the oracle, the
+              parameters bit-identical to the oracle fold, the loss
+              falling; (b) full width: the ``config()`` DLRM's
+              166,899,521-f32 gradients of 4 workers exchanged by the
+              fused ring in 80 buckets of at most 2,097,152 f32
+              (``allreduce_bucketed``), joined bit-identical to the
+              oracle of the whole gradients for every rank, no fused
+              epoch refused or aborted (a refusal raises), one or two
+              steps; epochs, ``fused_epoch`` call time, the host's share
+              (``try_pack``, ``_apply``, folds, gradient copies) and the
+              wall of each step
+ 11. census   ``repro_torch.analysis.census.run_census`` on the card and
+              on the CPU, beside BENCH_sync_census.json: equal ticks,
+              and every call site whose count differs listed
 
-Thirteen paths are driven through the kernels, each with the launch
+Fifteen paths are driven through the kernels, each with the launch
 counters set to 0 just before it and read just after it: the main path
 (phase 3, kernel arm: AES, DPI), the ICRC chain (phase 4: all three
 services), ingest (6b, kernel arm, its warm-up tile included: preproc),
@@ -98,7 +117,9 @@ ingest_onpath (6c: preproc), allreduce_ring and allreduce_offload (7b,
 kernel arms: reduce_fold), secure_ingest (8, kernel arm, its warm-up
 tile included: fused decrypt+DPI, preproc), and in phase 9 fig6_fused,
 fig10_fused, fig11_fused, ingest_fused, ingest_fused_w16 and
-allreduce_ring_fused (fused_epoch, and the kernels each path runs). Each
+allreduce_ring_fused (fused_epoch, and the kernels each path runs), and
+in phase 10 dlrm_exchange (reduce_fold) and dlrm_exchange_full
+(fused_epoch, reduce_fold). Each
 path prints the shapes of its fold and preprocessing launches. The line
 before the last is a JSON object with every kernel's path, launches on
 that path (and on each path apart), error, time, plain time, bound and
@@ -1981,8 +2002,8 @@ class _Copies:
 
 def _copy_census(dev) -> dict:
     """The host<->card transfers of ``run_network(epoch_mode="fused")``
-    on the fig6 world, counted at the tensor API: per epoch one stacked
-    RX-table gather per node and one blob copy down, one blob copy up and
+    on the fig6 world, counted at the tensor API: per epoch one gather of
+    every node's RX table and one blob copy down, one blob copy up and
     one RX-row copy up per receiving node, nothing else."""
     from repro_torch.core import fused
     from repro_torch.core.rdma import run_network
@@ -2000,12 +2021,13 @@ def _copy_census(dev) -> dict:
            "launches": ops.launches()["fused_epoch"]}
     print(f"[fused] copy census, fig6 world, {e} epoch(s): {copies.h2d} "
           f"host-to-card transfers (1 blob + {receivers} receiving nodes' "
-          f"RX rows an epoch), {copies.d2h} card-to-host (1 blob + "
-          f"{len(nodes)} RX-table gathers an epoch), {out['launches']} "
+          f"RX rows an epoch), {copies.d2h} card-to-host (1 blob + 1 "
+          f"gather of {len(nodes)} nodes' RX tables an epoch), "
+          f"{out['launches']} "
           f"fused_epoch launches")
     assert e >= 1 and out["launches"] == e
     assert copies.h2d == e * (1 + receivers), out
-    assert copies.d2h == e * (1 + len(nodes)), out
+    assert copies.d2h == e * 2, out
     return out
 
 
@@ -2206,6 +2228,245 @@ def phase_fused(dev, keep: dict):
     return counts, record
 
 
+# ---------------------------------------------------------------------------
+# phase 10: data-parallel DLRM training over the allreduce
+# ---------------------------------------------------------------------------
+
+# the full DLRM's parameters (26 x 100,000 x 64 tables, bottom MLP
+# 154,944, top MLP 344,577), the largest bucket the fused ring takes in
+# one allreduce (try_pack's plan holds 512 rows a flow: 4 ranks x 512
+# packets x 4 KiB), and the script's wall under which the full-width arm
+# takes a second step
+FULL_PARAMS = 26 * 100_000 * 64 + 154_944 + 344_577
+FULL_BUCKET_ELEMS = 4 * 512 * 4096 // 4
+SECOND_STEP_WALL_S = 300.0
+
+
+class _ExchangeClock:
+    """While entered, sums the host time of the fused ring's pieces
+    (``try_pack``, ``_apply``, the folds' round trips) and the
+    ``fused_epoch`` calls by CUDA events (the wrapper's host work
+    included), and turns a refused or aborted fused epoch into an
+    error: the full-width ring must not fall back to per-tick
+    stepping."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import collectives, fused
+        from repro_torch.kernels import fused_epoch as fe
+        self.s = {"try_pack": 0.0, "apply": 0.0, "fold": 0.0}
+        self.events = []
+        self._orig = [(fused, "try_pack"), (fused, "_apply"),
+                      (collectives, "_fold_on"), (fe, "fused_epoch"),
+                      (fused, "run_fused_epoch")]
+        self._orig = [(m, n, getattr(m, n)) for m, n in self._orig]
+        timed = {"try_pack": fused.try_pack, "apply": fused._apply,
+                 "fold": collectives._fold_on}
+
+        def clocked(key):
+            fn = timed[key]
+
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self.s[key] += time.perf_counter() - t0
+            return run
+        epoch = fe.fused_epoch
+
+        def epoch_timed(blob, skey):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = epoch(blob, skey)
+            ev[1].record()
+            self.events.append(ev)
+            return out
+        run_epoch = fused.run_fused_epoch
+
+        def loud(nodes, *a, **k):
+            res = run_epoch(nodes, *a, **k)
+            if res is None:
+                raise RuntimeError(
+                    f"the full-width ring left the fused core "
+                    f"({fused.STATS.snapshot()}): per-tick stepping would "
+                    f"carry the rest")
+            return res
+        fused.try_pack, fused._apply = clocked("try_pack"), clocked("apply")
+        collectives._fold_on = clocked("fold")
+        fe.fused_epoch, fused.run_fused_epoch = epoch_timed, loud
+        return self
+
+    def epoch_ms(self) -> float:
+        import torch
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+    def __exit__(self, *exc):
+        for m, n, f in self._orig:
+            setattr(m, n, f)
+
+
+def phase_dlrm_exchange(dev) -> dict:
+    """Phase 10a: ``repro_torch.examples.allreduce_dlrm`` as the
+    reference runs it (smoke DLRM, 4 workers x 64 records, 8 steps, the
+    offload): the example asserts every step's sums bit-identical to
+    ``allreduce_oracle``, the parameters bit-identical to the oracle
+    fold and a falling loss."""
+    import torch
+    from repro_torch.examples import allreduce_dlrm as ex
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = ex.main(device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = ops.launches()
+    assert len(out["losses"]) == ex.STEPS
+    assert out["losses"][-1] < out["losses"][0]
+    assert launched["reduce_fold"] > 0, "the exchange folded nothing on " \
+        "the card"
+    print(f"[exchange] (a) smoke DLRM, {ex.WORLD} workers x "
+          f"{ex.RECORDS_PER_WORKER} records, {out['n_grad']} f32 a "
+          f"gradient, {ex.STEPS} steps over the offload: loss per step "
+          + ", ".join(f"{v:.4f}" for v in out["losses"])
+          + f"; every sum bit-identical to the oracle, parameters "
+          f"bit-identical to the oracle fold; fabric ticks={out['ticks']} "
+          f"absorbed={out['absorbed']} wall_s={wall:.2f} (steps "
+          f"{out['wall_s']:.2f}); launches {launched}")
+    return {"dlrm_exchange": launched}
+
+
+def phase_dlrm_full_width(dev, t_start: float) -> dict:
+    """Phase 10b: the full ``config()`` DLRM (166,899,521 parameters) on
+    the card, 4 workers x 64 records, lr 0.05: each worker's gradient
+    raveled in the reference's order and copied to the host, exchanged
+    by the fused ring in buckets of at most ``FULL_BUCKET_ELEMS``
+    (``CollectiveGroup.allreduce_bucketed``, one group sized for the
+    largest bucket), the joined sums held bit for bit against
+    ``allreduce_oracle`` of the whole gradients for every rank, with no
+    fused epoch refused or aborted; then the averaged update.  One step,
+    and a second while the script's wall stays under
+    ``SECOND_STEP_WALL_S``."""
+    import torch
+    from repro_torch.configs.dlrm import config
+    from repro_torch.core import fused
+    from repro_torch.core.collectives import allreduce_oracle, make_ring_group
+    from repro_torch.examples import allreduce_dlrm as ex
+    from repro_torch.kernels import ops
+    from repro_torch.models.dlrm import DLRM, ravel_params
+    cfg = config()
+    model = DLRM(cfg, seed=0, device=dev)
+    n = ravel_params(model).numel()
+    assert n == FULL_PARAMS, n
+    world = ex.WORLD
+    chunk = -(-n // world)
+    n_buckets = -(-chunk // (FULL_BUCKET_ELEMS // world))
+    group = make_ring_group(world, FULL_BUCKET_ELEMS * 4 + world * 4,
+                            offload=False, epoch_mode="fused", device=dev)
+    batches = [ex.worker_batch(cfg, r, dev) for r in range(world)]
+    fused.STATS.reset()
+    ops.reset_launches()
+    steps = []
+    while True:
+        t0 = time.perf_counter()
+        flats, losses, d2h = [], [], 0.0
+        for b in batches:
+            model.zero_grad(set_to_none=True)
+            loss, _ = model.loss(b)
+            loss.backward()
+            g = ravel_params(model, grad=True)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            flats.append(g.cpu().numpy())
+            d2h += time.perf_counter() - t1
+            losses.append(loss.item())
+            del g
+        model.zero_grad(set_to_none=True)
+        t_grad = time.perf_counter() - t0
+        epochs0 = fused.STATS.epochs
+        t1 = time.perf_counter()
+        with _ExchangeClock() as clock:
+            summed = group.allreduce_bucketed(flats, FULL_BUCKET_ELEMS)
+            epoch_ms = clock.epoch_ms()
+        t_exchange = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        want = allreduce_oracle(flats)
+        for r in range(world):
+            assert (summed[r].view(np.uint32) == want.view(np.uint32)).all(
+            ), f"full width: rank {r} not bit-identical to the oracle"
+        t_check = time.perf_counter() - t1
+        ex.sgd_apply(model, summed[0], world)
+        torch.cuda.synchronize()
+        del want, flats
+        st = fused.STATS.snapshot()
+        assert st["refusals"] == 0 and st["aborts"] == 0, st
+        rec = dict(loss=float(np.mean(losses)), epochs=st["epochs"] - epochs0,
+                   epoch_call_ms=epoch_ms, try_pack_s=clock.s["try_pack"],
+                   apply_s=clock.s["apply"], fold_s=clock.s["fold"],
+                   grad_d2h_s=d2h, grad_s=t_grad, exchange_s=t_exchange,
+                   check_s=t_check, wall_s=time.perf_counter() - t0)
+        steps.append(rec)
+        host = rec["try_pack_s"] + rec["apply_s"] + rec["fold_s"] + d2h
+        print(f"[exchange] (b) full width, step {len(steps) - 1}: loss "
+              f"{rec['loss']:.4f}; {n} f32 a worker in {n_buckets} buckets "
+              f"of <= {FULL_BUCKET_ELEMS}: {rec['epochs']} fused epochs, "
+              f"fused_epoch calls {epoch_ms / 1e3:.3f} s (CUDA events), "
+              f"host {host:.2f} s (try_pack {rec['try_pack_s']:.2f}, _apply "
+              f"{rec['apply_s']:.2f}, folds {rec['fold_s']:.2f}, gradient "
+              f"D2H {d2h:.2f}); exchange {t_exchange:.2f} s, gradients "
+              f"{t_grad:.2f} s, oracle check {t_check:.2f} s, step wall "
+              f"{rec['wall_s']:.2f} s; every rank bit-identical to "
+              f"allreduce_oracle, 0 refusals, 0 aborts")
+        if len(steps) == 2 or (time.perf_counter() - t_start
+                               + rec["wall_s"] > SECOND_STEP_WALL_S):
+            break
+    launched = ops.launches()
+    assert launched["fused_epoch"] == fused.STATS.epochs > 0, launched
+    assert launched["reduce_fold"] > 0, launched
+    print(f"[exchange] (b) {len(steps)} step(s), {fused.STATS.epochs} "
+          f"epochs ({fused.STATS.ticks} ticks), launches {launched}")
+    return {"dlrm_exchange_full": launched}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the host-sync census on the card and on the CPU
+# ---------------------------------------------------------------------------
+
+def phase_census(dev) -> dict:
+    """``repro_torch.analysis.census.run_census`` on the card, then on the
+    CPU in this process, beside ``BENCH_sync_census.json``'s bar (the
+    reference's counts of its own call sites); the ticks must agree,
+    and every call site whose count differs between the two runs is
+    listed."""
+    from repro_torch.analysis.census import run_census
+    bench = json.loads((ROOT / "BENCH_sync_census.json").read_text())
+    bench = bench["census"]
+    card = run_census(dev)["census"]
+    host = run_census("cpu")["census"]
+    print("[census] arm          ticks  d2h/tick card  cpu     ref    "
+          "h2d/tick card  cpu     ref")
+    for arm in bench:
+        c, h, b = card[arm], host[arm], bench[arm]
+        print(f"[census] {arm:12s} {c['ticks']:5d}  {c['d2h_per_tick']:13.4f}"
+              f"  {h['d2h_per_tick']:6.4f}  {b['d2h_per_tick']:7.4f}"
+              f"  {c['h2d_per_tick']:13.4f}  {h['h2d_per_tick']:6.4f}"
+              f"  {b['h2d_per_tick']:7.4f}")
+        assert c["ticks"] == h["ticks"] == b["ticks"], (arm, c, h, b)
+        for kind in ("d2h", "h2d"):
+            sites = sorted(set(c["sites"][kind]) | set(h["sites"][kind]))
+            for s in sites:
+                nc, nh = (c["sites"][kind].get(s, 0),
+                          h["sites"][kind].get(s, 0))
+                if nc != nh:
+                    print(f"[census] {arm} {kind} differs at {s}: card "
+                          f"{nc}, cpu {nh}")
+    print(f"[census] ticks equal on card, CPU and BENCH_sync_census.json "
+          f"in all {len(bench)} arms")
+    return {"card": card, "cpu": host}
+
+
 
 def launch_sizes_main(src: Path) -> int:
     """``python3 chip_smoke.py --launch-sizes [SRC]``: build the kernels of
@@ -2334,6 +2595,10 @@ def main() -> int:
     counts.update(phase_secure_ingest(dev, params, shapes))
     fused_counts, kern["fused_epoch"] = phase_fused(dev, keep)
     counts.update(fused_counts)
+    keep.clear()
+    counts.update(phase_dlrm_exchange(dev))
+    counts.update(phase_dlrm_full_width(dev, t_start))
+    phase_census(dev)
 
     # name -> (source, TPU kernel it replaces, the path it is counted on)
     sources = {"aes_ecb": ("src/repro_torch/csrc/aes_ecb.cu",

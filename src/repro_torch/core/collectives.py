@@ -389,6 +389,48 @@ class CollectiveGroup:
         return [w[:n_elems * width].copy().view(npdt).reshape(shape)
                 for w in work]
 
+    def allreduce_bucketed(self, xs: Sequence[np.ndarray],
+                           bucket_elems: int) -> List[np.ndarray]:
+        """``allreduce`` of a tensor larger than the registered buffers,
+        as a run of allreduces of at most ``bucket_elems`` elements (a
+        multiple of the world size), bit-identical to ``allreduce_oracle``
+        of the whole tensor.
+
+        Consecutive slices would not be: each element is folded in the
+        rotation of the ring chunk it falls in, and a slice's chunks are
+        not the whole tensor's.  So bucket ``k`` is the ``k``-th slice of
+        each of the whole tensor's N chunks, laid side by side: its ring
+        chunk ``c`` is a piece of the whole tensor's chunk ``c`` and
+        folds in that chunk's rotation."""
+        n = self.world
+        npdt = _DTYPES[self.dtype]
+        shape = np.asarray(xs[0]).shape
+        flats = [np.ravel(np.asarray(x, npdt)) for x in xs]
+        if any(f.size != flats[0].size for f in flats):
+            raise ValueError("ranks must contribute equal shapes")
+        n_elems = flats[0].size
+        if bucket_elems < n or bucket_elems % n:
+            raise ValueError(f"bucket_elems must be a positive multiple of "
+                             f"the world size {n}")
+        chunk = -(-n_elems // n)           # the whole tensor's ring chunk
+        piece = bucket_elems // n
+        outs = [np.empty(n_elems, npdt) for _ in range(n)]
+        for lo in range(0, chunk, piece):
+            w = min(piece, chunk - lo)
+            bucket = [np.zeros(n * w, npdt) for _ in range(n)]
+            for c in range(n):
+                a = min(c * chunk + lo, n_elems)
+                b = min(c * chunk + lo + w, n_elems)
+                for r in range(n):
+                    bucket[r][c * w:c * w + b - a] = flats[r][a:b]
+            summed = self.allreduce(bucket)
+            for c in range(n):
+                a = min(c * chunk + lo, n_elems)
+                b = min(c * chunk + lo + w, n_elems)
+                for r in range(n):
+                    outs[r][a:b] = summed[r][c * w:c * w + b - a]
+        return [o.reshape(shape) for o in outs]
+
     def broadcast(self, x: np.ndarray, root: int = 0) -> List[np.ndarray]:
         """Binary-tree broadcast from ``root``; returns every rank's
         copy (bit-identical to the input)."""

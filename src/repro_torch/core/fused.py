@@ -32,8 +32,8 @@ Design (the reference's, module for module)
   per-QP counter columns ride the blob and are written back once, at the
   epoch boundary.
 
-Host<->device traffic of one epoch: each node's RX table comes down in
-one stacked copy at pack time; the blob goes up in one copy, the kernel
+Host<->device traffic of one epoch: every node's RX table comes down
+in one copy at pack time; the blob goes up in one copy, the kernel
 runs once, the blob comes back in one copy; each receiving node's rows
 go up in one copy at unpack.  ``STATS`` counts epochs, their ticks,
 refusals (``try_pack`` returned ``None``) and aborts.
@@ -299,9 +299,15 @@ def try_pack(nodes, max_ticks: int, idle_done: int,
                 return None
 
     # ---- per-flow plan construction -----------------------------------
-    # each node's RX table in one stacked device-to-host copy
-    tbl = [torch.stack([getattr(nd.rx_tables, f) for f in _STATE_FIELDS]
-                       ).cpu().numpy() for nd in nodes]
+    # every node's RX table in ONE device-to-host copy (the nodes of a
+    # network share its device)
+    n_rows = [nd.rx_tables.epsn.numel() for nd in nodes]
+    flat = torch.cat([torch.stack([getattr(nd.rx_tables, f)
+                                   for f in _STATE_FIELDS]).reshape(-1)
+                      for nd in nodes]).cpu().numpy()
+    bounds = np.cumsum([len(_STATE_FIELDS) * q for q in n_rows])[:-1]
+    tbl = [part.reshape(len(_STATE_FIELDS), q)
+           for part, q in zip(np.split(flat, bounds), n_rows)]
     chunk_rows: List[List[int]] = []
     for fl in flows:
         s, r, sq, rq = fl.snd, fl.rcv, fl.sq, fl.rq

@@ -132,3 +132,68 @@ def dlrm_params_from_numpy(tree: Dict, device: DeviceLike = None
             out[f"{part}_b.{i}"] = to_device(
                 np.asarray(layer["b"], np.float32), dev)
     return out
+
+
+def _ravel_leaves(model: DLRM, grad: bool):
+    """The model's parameters (or their ``.grad``) in the order
+    ``jax.flatten_util.ravel_pytree`` walks the reference's tree: dict
+    keys sorted as strings (``bottom`` < ``tables`` < ``top``; ``b`` <
+    ``w`` inside a layer; ``l10`` < ``l2``; ``t10`` < ``t2``), each leaf
+    row-major.  The 26 tables are one tensor here, so they come out
+    through one gather in that order."""
+    def get(p):
+        return p.grad if grad else p
+
+    def mlp(ws, bs):
+        out = []
+        for i in sorted(range(len(ws)), key=lambda i: f"l{i}"):
+            out += [get(bs[i]), get(ws[i])]
+        return out
+
+    n_sparse = model.tables.shape[0]
+    perm = sorted(range(n_sparse), key=lambda i: f"t{i}")
+    tables = get(model.tables)[torch.tensor(perm,
+                                            device=model.tables.device)]
+    return (mlp(model.bottom_w, model.bottom_b) + [tables]
+            + mlp(model.top_w, model.top_b))
+
+
+def ravel_params(model: DLRM, *, grad: bool = False) -> torch.Tensor:
+    """The model's parameters as one flat float32 vector on its device,
+    element for element the vector ``ravel_pytree`` makes of the
+    reference's parameter tree (so a flat gradient of either package is
+    the same vector, and ring chunk boundaries agree).  ``grad=True``
+    ravels the parameters' gradients instead.  A copy, outside autograd."""
+    with torch.no_grad():
+        return torch.cat([t.reshape(-1)
+                          for t in _ravel_leaves(model, grad)])
+
+
+def unravel_params(model: DLRM, flat: torch.Tensor
+                   ) -> Dict[str, torch.Tensor]:
+    """Inverse of ``ravel_params``: a flat vector in ``ravel_pytree``'s
+    order -> a state dict of the model's parameter names (the shape
+    ``dlrm_params_from_numpy`` returns), on ``flat``'s device."""
+    named = dict(model.named_parameters())
+    n_sparse = model.tables.shape[0]
+    perm = sorted(range(n_sparse), key=lambda i: f"t{i}")
+
+    def mlp_names(part, n):
+        out = []
+        for i in sorted(range(n), key=lambda i: f"l{i}"):
+            out += [f"{part}_b.{i}", f"{part}_w.{i}"]
+        return out
+
+    names = (mlp_names("bottom", len(model.bottom_w)) + ["tables"]
+             + mlp_names("top", len(model.top_w)))
+    sizes = [named[n].numel() for n in names]
+    if flat.numel() != sum(sizes):
+        raise ValueError(f"flat vector has {flat.numel()} elements, the "
+                         f"model {sum(sizes)}")
+    out = {}
+    for name, piece in zip(names, torch.split(flat, sizes)):
+        out[name] = piece.reshape(named[name].shape)
+    inv = torch.empty(n_sparse, dtype=torch.int64)
+    inv[torch.tensor(perm)] = torch.arange(n_sparse)
+    out["tables"] = out["tables"][inv.to(flat.device)]
+    return out

@@ -24,7 +24,11 @@ instantiation the wrapper picks and in each of the two by hand, a
 watermark exit, a full wire's abort, ``max_ticks = 1``, a world too wide
 for shared memory), the wrapper picks the instantiation by size, and
 ``run_network(epoch_mode="fused")`` on nodes on the card equals per-tick
-stepping on the CPU, whole world.
+stepping on the CPU, whole world.  The data-parallel DLRM exchange: the
+bucketed fused ring on the card equals ``allreduce_oracle`` of the whole
+vector bit for bit, and one step of ``repro_torch.examples.
+allreduce_dlrm`` on the card keeps its sums and parameters bit-identical
+to the oracle fold.
 """
 import zlib
 
@@ -745,3 +749,43 @@ def test_cuda_fused_epoch_picks_residency_by_size(cuda):
         assert fe.fused_epoch_cuda.last_residency == want
         ran.append(want)
     assert ran == ["shared"] * len(W.FIXED) + ["global"]
+
+
+@pytest.mark.cuda
+def test_cuda_bucketed_fused_ring_is_the_whole_oracle(cuda):
+    """4 ranks x 1,000,003 f32 (4 MB a rank) in buckets of 400,000: ring
+    chunk 250,001 cut into slices of 100,000, 100,000 and 50,001, each
+    exchanged in fused epochs on the card, joined bit-identical to the
+    oracle of the whole vector; no refusal, no abort, a kernel launch an
+    epoch and the ring's folds on the card."""
+    from repro_torch.core.collectives import allreduce_oracle, make_ring_group
+    rng = np.random.default_rng(29)
+    n = 1_000_003
+    xs = [rng.standard_normal(n).astype(np.float32) for _ in range(4)]
+    g = make_ring_group(4, 400_000 * 4 + 16, epoch_mode="fused", device=cuda)
+    tfused.STATS.reset()
+    ops.reset_launches()
+    out = g.allreduce_bucketed(xs, 400_000)
+    launched = ops.launches()
+    want = allreduce_oracle(xs)
+    for r, o in enumerate(out):
+        assert (o.view(np.uint32) == want.view(np.uint32)).all(), r
+    st = tfused.STATS.snapshot()
+    assert st["refusals"] == 0 and st["aborts"] == 0
+    assert st["epochs"] == 3 * 6
+    assert launched["fused_epoch"] == st["epochs"]
+    assert launched["reduce_fold"] == 3 * 3 * 4     # 3 buckets x 3 steps
+
+
+@pytest.mark.cuda
+def test_cuda_allreduce_dlrm_step_is_the_oracle_fold(cuda):
+    """One step of the example on the card: the example asserts every
+    rank's sum bit-identical to allreduce_oracle and the parameters
+    bit-identical to the oracle-fold model; the offload's folds ran on
+    the card."""
+    from repro_torch.examples import allreduce_dlrm
+    ops.reset_launches()
+    out = allreduce_dlrm.main(steps=1)
+    assert ops.launches()["reduce_fold"] > 0
+    assert out["absorbed"] > 0 and np.isfinite(out["losses"]).all()
+    assert out["flat"].shape == (out["n_grad"],)
