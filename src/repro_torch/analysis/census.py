@@ -8,8 +8,11 @@ this counts the port's own call sites:
   ``Tensor.tolist``, the scalar reads ``int()``/``float()``/``bool()``/
   ``operator.index`` of a tensor, and ``Tensor.to`` from the card to
   the host;
-* H2D — ``repro_torch.device.to_device``, ``Tensor.to`` of host memory
-  onto a device, and ``torch.as_tensor`` with a device.
+* H2D — ``Tensor.to`` of host memory onto a device, and
+  ``torch.as_tensor`` with a device.  ``repro_torch.device.to_device``
+  (every caller hands it a numpy array) is one ``torch.as_tensor``
+  without a device, which marks a host tensor, and one ``Tensor.to``
+  of it, which counts; its count goes to the caller's line.
 
 It counts **calls, whatever the device**, so a run on the CPU gives the
 counts a run on the card would: a tensor made from host memory
@@ -119,11 +122,10 @@ def sync_census():
     docstring for what counts)."""
     c = SyncCounter()
     host: Dict[int, weakref.ref] = {}   # tensors that live in host memory
-    quiet = [0]                          # inside a counted to_device
 
     def count(kind: str):
         f = sys._getframe(2)
-        if quiet[0] or _in_plain_version(f):
+        if _in_plain_version(f):
             return
         setattr(c, kind, getattr(c, kind) + 1)
         c.sites[kind][_site(f)] += 1
@@ -187,24 +189,14 @@ def sync_census():
         out = saved_fns["tensor"](data, *a, **k)
         return out if k.get("device") is not None else mark(out)
 
-    def hook(fn, a, dev, dtype):
-        count("h2d")
-        quiet[0] += 1
-        try:
-            return fn(a, dev, dtype)
-        finally:
-            quiet[0] -= 1
-
     for n in _READS:
         setattr(T, n, reader(n))
     T.to = to
     torch.from_numpy, torch.as_tensor, torch.tensor = (from_numpy, as_tensor,
                                                        tensor)
-    prev_hook, _device.CENSUS_HOOK = _device.CENSUS_HOOK, hook
     try:
         yield c
     finally:
-        _device.CENSUS_HOOK = prev_hook
         for n, f in saved_fns.items():
             setattr(torch, n, f)
         for n, f in saved.items():

@@ -7,7 +7,7 @@ raises instead of quietly running on the host.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -27,24 +27,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-# The host-sync census (``repro_torch.analysis.census``) counts each
-# ``to_device`` call here: the port's modules bind ``to_device`` by name,
-# so replacing the module attribute would count none of them.
-CENSUS_HOOK: Optional[Callable] = None
-
-
 def to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
     """Copy a numpy array onto ``device``.  Always a copy: a tensor made
     by ``torch.from_numpy`` aliases the numpy buffer, and on the CPU
     ``.to("cpu")`` would hand that alias straight back.  A read-only
     array (a view of another framework's buffer) is copied on the host
     first, since torch does not take read-only memory."""
-    if CENSUS_HOOK is not None:
-        return CENSUS_HOOK(_to_device, a, device, dtype)
-    return _to_device(a, device, dtype)
-
-
-def _to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
     if isinstance(a, np.ndarray) and not a.flags.writeable:
         a = a.copy()
     t = torch.as_tensor(a)

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import sys
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -23,16 +23,21 @@ from repro_torch.core.ingest import (BalboaIngest, IngestConfig,
                                      make_dlrm_tile_decoder)
 from repro_torch.data import synthetic as syn
 from repro_torch.device import DeviceLike, resolve_device, to_device
-from repro_torch.models.dlrm import DLRM
+from repro_torch.models.dlrm import (DLRM, dlrm_params_from_numpy,
+                                     ravel_params)
 
 N_SHARDS = 30
 STEPS_PER_SHARD = 5
 LR = 0.05
 
 
-def main(device: DeviceLike = None, n_shards: int = N_SHARDS) -> Dict:
+def main(device: DeviceLike = None, n_shards: int = N_SHARDS,
+         params: Optional[Dict] = None) -> Dict:
     """Stream ``n_shards`` shards into training on ``device`` (default
-    the card).  Returns the losses, goodputs and overlaps a shard."""
+    the card).  ``params``, the reference's parameter tree as numpy
+    arrays, sets the initial weights (else the port's own seeded init).
+    Returns the losses, goodputs and overlaps a shard and the trained
+    parameters raveled (``flat``)."""
     dev = resolve_device(device)
     cfg = smoke_config()
     rec_w = cfg.n_dense + cfg.n_sparse
@@ -62,6 +67,8 @@ def main(device: DeviceLike = None, n_shards: int = N_SHARDS) -> Dict:
         device=dev)
 
     model = DLRM(cfg, seed=0, device=dev)
+    if params is not None:
+        model.load_state_dict(dlrm_params_from_numpy(params, device=dev))
     opt = torch.optim.SGD(model.parameters(), lr=LR)
 
     t0 = time.perf_counter()
@@ -101,7 +108,8 @@ def main(device: DeviceLike = None, n_shards: int = N_SHARDS) -> Dict:
     assert ing.host_payload_bytes == 0
     print("dlrm_ingest OK")
     return {"losses": losses, "goodputs": goodputs, "overlaps": overlaps,
-            "host_payload_bytes": ing.host_payload_bytes}
+            "host_payload_bytes": ing.host_payload_bytes,
+            "flat": ravel_params(model).cpu().numpy()}
 
 
 if __name__ == "__main__":

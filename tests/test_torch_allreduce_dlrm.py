@@ -14,6 +14,11 @@ reference, on the CPU.
   to the oracle fold (the example asserts both), and after 2 steps
   within rtol = 1e-5, atol = 1e-6 of the reference example's 2 steps,
   run in-process through ``repro`` from the same initial weights.
+* One averaged update at the full DLRM's widths, cut to 2 tables of
+  100,000 x 64 rows and to 26 tables of 1,000 rows, matches the
+  reference example's update from the same weights within the same
+  tolerance (``ravel_params``, ``unravel_params`` and ``sgd_apply`` at
+  the full table size).
 * ``CollectiveGroup.allreduce_bucketed`` in fused epochs (3 buckets, the
   last one ragged) is ``allreduce_oracle`` of the whole vector, bit for
   bit, with no refusal and no abort.
@@ -140,6 +145,57 @@ def test_main_on_cpu_matches_the_reference_example():
     np.testing.assert_allclose(out["flat"], want_flat, rtol=RTOL, atol=ATOL)
     print(f"worst |params port - params reference| after {steps} steps: "
           f"{float(np.max(np.abs(out['flat'] - want_flat))):.3e}")
+
+
+# the full config() cut in one dimension each: every table at its full
+# 100,000 x 64 rows with 2 of the 26 tables, and all 26 tables (351
+# interaction pairs) with 1,000 rows each; the MLPs at full width
+FULL_CUTS = {
+    "full_rows": dict(n_sparse=2),
+    "full_tables": dict(embed_rows=1000, modulus=1000),
+}
+
+
+@pytest.mark.parametrize("cut", sorted(FULL_CUTS))
+def test_full_width_update_matches_reference(cut):
+    """One averaged update at the full DLRM's widths (cut as
+    ``FULL_CUTS`` says): the 4 workers' raveled gradients, the oracle's
+    sum, ``sgd_apply`` through ``unravel_params`` against the
+    reference example's update (``p - LR * unravel(sum / WORLD)``) from
+    the same initial weights, within rtol = 1e-5, atol = 1e-6; the mean
+    loss before and after the step in both packages is printed."""
+    from repro.core.collectives import allreduce_oracle as jallreduce_oracle
+    jc = jcfg.config().__class__(**FULL_CUTS[cut])
+    tc = DLRMConfig(**FULL_CUTS[cut])
+    jm, params, tm = _carried(jc, tc)
+    jp = jax.tree.map(jax.numpy.asarray, params)
+    grad_fn = jax.jit(jax.grad(lambda p, b: jm.loss(p, b)[0]))
+    loss_fn = jax.jit(lambda p, b: jm.loss(p, b)[0])
+    batches = [ex.worker_batch(tc, r, "cpu") for r in range(ex.WORLD)]
+    jbatches = [{k: jax.numpy.asarray(v.numpy()) for k, v in b.items()}
+                for b in batches]
+
+    def losses():
+        with torch.no_grad():
+            t = float(np.mean([tm.loss(b)[0].item() for b in batches]))
+        return t, float(np.mean([loss_fn(jp, b) for b in jbatches]))
+
+    before = losses()
+    flats = [ex.worker_grad(tm, b) for b in batches]
+    jflats = [np.asarray(ravel_pytree(grad_fn(jp, b))[0]) for b in jbatches]
+    ex.sgd_apply(tm, allreduce_oracle(flats), ex.WORLD)
+    _, unravel = ravel_pytree(jp)
+    jp = jax.tree.map(lambda p, g: p - ex.LR * g, jp, unravel(
+        jax.numpy.asarray(jallreduce_oracle(jflats)) / ex.WORLD))
+    got, want = ravel_params(tm).numpy(), np.asarray(ravel_pytree(jp)[0])
+    after = losses()
+    print(f"{cut}: {got.size} parameters, worst |params port - params "
+          f"reference| after the update "
+          f"{float(np.max(np.abs(got - want))):.3e}; mean loss "
+          f"{before[0]:.4f} -> {after[0]:.4f} (port), "
+          f"{before[1]:.4f} -> {after[1]:.4f} (reference)")
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(after[0], after[1], rtol=RTOL, atol=ATOL)
 
 
 def test_bucketed_fused_ring_is_the_whole_oracle():

@@ -2,15 +2,16 @@
 
 * ``examples/secure_flow.py`` as written (2 x 64 KiB over a lossy link,
   sender-side AES, receiver-side decrypt + DPI, a sniffer on the
-  sender) runs through both packages with the same trained DPI model
-  (the committed fixture): ticks, every node snapshot, the engine
-  counters, the delivered bytes, ``dpi_flagged`` and the PCAP bytes
-  must be equal.
+  sender), run in-process with the committed DPI fixture in place of
+  the model it trains, against ``repro_torch.examples.secure_flow.main``
+  on the CPU: ticks, every node snapshot, the engine counters, the
+  delivered bytes, ``dpi_flagged`` and the PCAP bytes must be equal.
 * The port reproduces the committed tick baselines of
   ``BENCH_fig6_multipath.json`` exactly: the incast rows (8:1
   ack-clocked on the DCQCN-marking fabric named on its own) and the
   Clos multipath rows.
 """
+import importlib.util
 import json
 from pathlib import Path
 
@@ -19,67 +20,85 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import netsim as jnet
-from repro.core import rdma as jrdma
-from repro.core import services as jsvc
-from repro.core import sniffer as jsniff
-from repro.data import dpi_dataset as jdata
 from repro_torch.core import netsim as tnet
 from repro_torch.core import rdma as trdma
-from repro_torch.core import services as tsvc
-from repro_torch.core import sniffer as tsniff
-from repro_torch.data import dpi_dataset as tdata
 from repro_torch.data import load_dpi_params_seed0
+from repro_torch.examples import secure_flow
 
 torch.set_num_threads(1)
 
-KEY = np.arange(16, dtype=np.uint8)
 ROOT = Path(__file__).resolve().parents[1]
 FIG6 = json.loads((ROOT / "BENCH_fig6_multipath.json").read_text())
 
 
-def _secure_flow(port: bool, params, pcap: Path, engine="batched"):
-    """examples/secure_flow.py's scenario through one package."""
-    net_m, rdma_m, svc_m, sniff_m, data_m = (
-        (tnet, trdma, tsvc, tsniff, tdata) if port else
-        (jnet, jrdma, jsvc, jsniff, jdata))
-    kw = {"device": "cpu"} if port else {}
-    rng = np.random.default_rng(0)
-    benign = data_m.payload_with_embedded_malware(65536, 0.0, rng)
-    evil = data_m.payload_with_embedded_malware(65536, 0.2, rng)
-    net = net_m.Network(2, net_m.LinkConfig(loss_prob=0.02, latency_ticks=3,
-                                            seed=1))
-    sniffer = sniff_m.TrafficSniffer(capture_payload=True)
-    p = params if port else {k: jnp.asarray(v) for k, v in params.items()}
-    chain = svc_m.ServiceChain(
-        on_path=[svc_m.AesService(key=KEY, decrypt=True, **kw)],
-        parallel_after=[svc_m.DpiService(params=p, **kw)])
-    a = rdma_m.RdmaNode(0, net, sniffer=sniffer, engine=engine, **kw)
-    b = rdma_m.RdmaNode(1, net, services=chain, engine=engine, **kw)
-    qpn_a, _, _ = a.init_rdma(1 << 18, b)
-    enc = svc_m.AesService(key=KEY, **kw)
-    out = {"ticks": [], "flagged": []}
-    for data in (benign, evil):
-        blocks = data.reshape(-1, 4096)
-        plen = np.full(len(blocks), 4096, np.int32)
-        if port:
-            ct = enc(torch.from_numpy(blocks.copy()),
-                     torch.from_numpy(plen)).numpy()
-        else:
-            ct = np.asarray(enc(jnp.asarray(blocks), jnp.asarray(plen)))
-        before = b.stats.dpi_flagged
-        a.rdma_write(qpn_a, ct.reshape(-1))
-        out["ticks"].append(rdma_m.run_network([a, b], max_ticks=50_000))
-        out["flagged"].append(b.stats.dpi_flagged - before)
-        np.testing.assert_array_equal(b._qp_buffer[1][1][:len(data)], data)
-    out["snapshots"] = [a.snapshot(), b.snapshot()]
-    out["engine"] = [{k: v.tolist() for k, v in n.engine_counters().items()}
-                     for n in (a, b)]
-    out["buffer"] = b._qp_buffer[1][1].copy()
-    out["pcap_packets"] = sniffer.write_pcap(str(pcap))
-    out["pcap"] = pcap.read_bytes()
-    out["now"] = net.now
-    return out
+def _reference_example(name: str):
+    """``examples/<name>.py`` loaded as a module, to run in-process."""
+    spec = importlib.util.spec_from_file_location(
+        f"reference_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_secure_flow(mod, monkeypatch, capture: Path, engine="batched",
+                     **kw):
+    """Run a secure-flow example's ``main`` in-process (``mod`` is the
+    reference's or the port's module), recording its two nodes (built
+    with ``engine``), each ``run_network``'s ticks and the receiver's
+    DPI flags after it, with the capture written to ``capture``."""
+    rec = {"nodes": [], "ticks": [], "flagged_total": []}
+    node_cls, sniffer_cls, run = (mod.RdmaNode, mod.TrafficSniffer,
+                                  mod.run_network)
+
+    class Node(node_cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, engine=engine, **k)
+            rec["nodes"].append(self)
+
+    class Sniffer(sniffer_cls):
+        def write_pcap(self, path):
+            rec["pcap_packets"] = super().write_pcap(str(capture))
+            return rec["pcap_packets"]
+
+    def run_network(nodes, **k):
+        rec["ticks"].append(run(nodes, **k))
+        rec["flagged_total"].append(nodes[1].stats.dpi_flagged)
+        return rec["ticks"][-1]
+
+    with monkeypatch.context() as mp:
+        mp.setattr(mod, "RdmaNode", Node)
+        mp.setattr(mod, "TrafficSniffer", Sniffer)
+        mp.setattr(mod, "run_network", run_network)
+        rec["returned"] = mod.main(**kw)
+    a, b = rec["nodes"]
+    assert a.engine == b.engine == engine
+    tot = rec["flagged_total"]
+    return {"ticks": rec["ticks"],
+            "flagged": [tot[0], tot[1] - tot[0]],
+            "snapshots": [a.snapshot(), b.snapshot()],
+            "engine": [{k: v.tolist() for k, v in n.engine_counters().items()}
+                       for n in (a, b)],
+            "buffer": b._qp_buffer[1][1].copy(),
+            "pcap_packets": rec["pcap_packets"],
+            "pcap": capture.read_bytes(),
+            "now": a.net.now,
+            "returned": rec["returned"]}
+
+
+def _secure_flow_reference(monkeypatch, pcap: Path, params):
+    """``examples/secure_flow.py`` as written, with the committed DPI
+    fixture in place of the model it trains (the fixture is that
+    training's result)."""
+    mod = _reference_example("secure_flow")
+    monkeypatch.setattr(mod, "train_dpi_params", lambda *a, **k: {
+        k: jnp.asarray(v) for k, v in params.items()})
+    return _run_secure_flow(mod, monkeypatch, pcap)
+
+
+def _secure_flow_port(monkeypatch, pcap: Path, engine="batched"):
+    """``repro_torch.examples.secure_flow.main(device="cpu")``."""
+    return _run_secure_flow(secure_flow, monkeypatch, pcap, engine,
+                            device="cpu", pcap=str(pcap))
 
 
 @pytest.fixture(scope="module")
@@ -87,12 +106,16 @@ def dpi_params():
     return load_dpi_params_seed0()
 
 
-def test_secure_flow_matches_reference(dpi_params, tmp_path):
-    ref = _secure_flow(False, dpi_params, tmp_path / "ref.pcap")
-    got = _secure_flow(True, dpi_params, tmp_path / "port.pcap")
+def test_secure_flow_matches_reference(dpi_params, monkeypatch, tmp_path):
+    ref = _secure_flow_reference(monkeypatch, tmp_path / "ref.pcap",
+                                 dpi_params)
+    got = _secure_flow_port(monkeypatch, tmp_path / "port.pcap")
     assert got["ticks"] == ref["ticks"]
     assert got["flagged"] == ref["flagged"]
     assert got["flagged"][0] == 0 and got["flagged"][1] > 0
+    assert got["returned"]["flagged"] == dict(zip(("benign", "malicious"),
+                                                  ref["flagged"]))
+    assert got["returned"]["pcap_packets"] == ref["pcap_packets"]
     assert got["snapshots"] == ref["snapshots"]
     assert got["engine"] == ref["engine"]
     np.testing.assert_array_equal(got["buffer"], ref["buffer"])
@@ -101,10 +124,10 @@ def test_secure_flow_matches_reference(dpi_params, tmp_path):
     assert got["now"] == ref["now"]
 
 
-def test_secure_flow_scan_engine_matches_batched(dpi_params, tmp_path):
+def test_secure_flow_scan_engine_matches_batched(monkeypatch, tmp_path):
     """The per-packet oracle drives the same node to the same state."""
-    scan = _secure_flow(True, dpi_params, tmp_path / "s.pcap", engine="scan")
-    bat = _secure_flow(True, dpi_params, tmp_path / "b.pcap")
+    scan = _secure_flow_port(monkeypatch, tmp_path / "s.pcap", engine="scan")
+    bat = _secure_flow_port(monkeypatch, tmp_path / "b.pcap")
     for k in ("ticks", "flagged", "snapshots", "engine", "pcap", "now"):
         assert scan[k] == bat[k], k
 
