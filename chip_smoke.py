@@ -8,8 +8,8 @@ csrc`` and drives four paths of the system: the service-enhanced RDMA
 datapath (paper Fig. 1), the §8 streaming ingest into a full-size DLRM,
 the allreduce fabric, and the §8 ingest of encrypted shards that trains
 the DLRM; then the telemetry plane and the fused epoch core,
-data-parallel DLRM training over the allreduce, and the host-sync
-census.
+data-parallel DLRM training over the allreduce, the host-sync
+census, and the LM model stack's serving path.
 
   0. device   the card's name and power limit (nvidia-smi)
   1. build    nvcc, one process per kernel source, all at once; each
@@ -108,6 +108,18 @@ census.
  11. census   ``repro_torch.analysis.census.run_census`` on the card and
               on the CPU, beside BENCH_sync_census.json: equal ticks,
               and every call site whose count differs listed
+ 12. lm       the LM model stack served (no hand-written kernel on this
+              path): (a) every smoke arch of ``repro_torch.configs`` at
+              float32, weights drawn once on the CPU, ``serve_batch`` on
+              the card (batch 2, prompt 24, 8 new tokens): the CPU's
+              greedy tokens, prefill and decode logits within 1e-4;
+              then ``repro_torch.examples.serve.main()`` on the card at
+              bf16; (b) gemma2-2b's full ``config()`` (2,614,341,888
+              parameters) served at the reference's defaults (batch 4,
+              prompt 32, 16 tokens, bf16): init, prefill and decode
+              times, tok/s, peak memory; at float32 decode equals the
+              forward within 2e-3 on all 26 layers, and a 2-layer
+              truncation of it agrees between card and CPU within 1e-3
 
 Fifteen paths are driven through the kernels, each with the launch
 counters set to 0 just before it and read just after it: the main path
@@ -2238,6 +2250,7 @@ def phase_fused(dev, keep: dict):
 # packets x 4 KiB), and the script's wall under which the full-width arm
 # takes a second step
 FULL_PARAMS = 26 * 100_000 * 64 + 154_944 + 344_577
+DLRM_FIRST_LOSS_ATOL = 1e-5     # 10a's first loss, card vs CPU
 FULL_BUCKET_ELEMS = 4 * 512 * 4096 // 4
 SECOND_STEP_WALL_S = 300.0
 
@@ -2313,7 +2326,9 @@ def phase_dlrm_exchange(dev) -> dict:
     reference runs it (smoke DLRM, 4 workers x 64 records, 8 steps, the
     offload): the example asserts every step's sums bit-identical to
     ``allreduce_oracle``, the parameters bit-identical to the oracle
-    fold and a falling loss."""
+    fold and a falling loss.  One step of the same example on the CPU,
+    from the same seeded weights, gives the card's first loss within
+    ``DLRM_FIRST_LOSS_ATOL``."""
     import torch
     from repro_torch.examples import allreduce_dlrm as ex
     from repro_torch.kernels import ops
@@ -2325,6 +2340,14 @@ def phase_dlrm_exchange(dev) -> dict:
     launched = ops.launches()
     assert len(out["losses"]) == ex.STEPS
     assert out["losses"][-1] < out["losses"][0]
+    # the same weights as a CPU run (drawn on a CPU generator): the first
+    # step's loss agrees
+    host = ex.main(device="cpu", steps=1)["losses"][0]
+    first_err = abs(out["losses"][0] - host)
+    print(f"[exchange] (a) first loss on the card {out['losses'][0]:.7f}, "
+          f"on the CPU {host:.7f}: |diff| {first_err:.2e} (bound "
+          f"{DLRM_FIRST_LOSS_ATOL})")
+    assert first_err < DLRM_FIRST_LOSS_ATOL, (out["losses"][0], host)
     assert launched["reduce_fold"] > 0, "the exchange folded nothing on " \
         "the card"
     print(f"[exchange] (a) smoke DLRM, {ex.WORLD} workers x "
@@ -2467,6 +2490,223 @@ def phase_census(dev) -> dict:
     return {"card": card, "cpu": host}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the LM model stack, served on the card
+# ---------------------------------------------------------------------------
+
+LM_BATCH, LM_PROMPT, LM_GEN = 2, 24, 8          # 12a, every smoke arch
+LM_CARD_ATOL = 1e-4     # float32 logits, card vs CPU, TF32 off
+FULL_ARCH = "gemma2-2b"
+FULL_BATCH, FULL_PROMPT, FULL_GEN = 4, 32, 16   # the reference's defaults
+FULL_PARAMS_LM = 2_614_341_888
+DECODE_FORWARD_BOUND = 2e-3                     # tests/test_models.py:80
+TRUNC_ATOL = 1e-3       # 2-layer full-width truncation, card vs CPU, f32
+
+
+def _replay_logits(model, pre, tokens) -> list:
+    """The logits of a served run, step by step: the prefill's, then one
+    decode step's for each of ``tokens``' columns but the last, fed that
+    column (the run's own greedy choices)."""
+    import torch
+    from repro_torch.launch.serve import ENC_LEN
+    b, p = pre["tokens"].shape
+    gen = tokens.shape[1]
+    cache = model.init_cache(b, p + gen,
+                             enc_len=ENC_LEN if model.cfg.is_encdec else 0)
+    lg, cache = model.prefill(pre, cache)
+    out = [lg]
+    toks = tokens.to(model.device)
+    for t in range(gen - 1):
+        lg, cache = model.decode_step(cache, toks[:, t:t + 1], p + t)
+        out.append(lg)
+    return [x.float().cpu() for x in out]
+
+
+def _device_busy(fn) -> dict:
+    """One call of ``fn`` in a torch.profiler trace (CUDA activity): its
+    kernels' count, the time the card was busy (the union of the kernel
+    events' intervals, ms) and the five kernels by summed device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.elapsed_us() > 0)
+    busy, end, by_name = 0, None, {}
+    for t0, t1, name in spans:
+        by_name[name] = by_name.get(name, 0) + (t1 - t0)
+        if end is None or t0 >= end:
+            busy += t1 - t0
+            end = t1
+        elif t1 > end:
+            busy += t1 - end
+            end = t1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"kernels": len(spans), "busy_ms": busy / 1e3,
+            "top": [(name[:60], us / 1e3) for name, us in top]}
+
+
+def phase_lm_smoke(dev) -> dict:
+    """Phase 12a: every smoke arch at float32 compute on the card and on
+    the CPU from the same weights (drawn once, on the CPU) and prompts:
+    ``serve_batch`` on the card, from the seed, gives the CPU's greedy
+    tokens; the prefill's and every decode step's logits within
+    ``LM_CARD_ATOL``.  Then ``repro_torch.examples.serve.main()`` on the
+    card, at the configs' own bf16 compute."""
+    import torch
+    from repro_torch.configs import ALL_ARCHS, get_smoke_config
+    from repro_torch.examples import serve as ex
+    from repro_torch.launch.serve import generate, prefill_batch, serve_batch
+    from repro_torch.models.model import Model
+    t0 = time.perf_counter()
+    worst = {}
+    for arch in ALL_ARCHS:
+        cfg = get_smoke_config(arch).replace(compute_dtype="float32")
+        host = Model(cfg, device="cpu").init_params(0)
+        card = Model(cfg, device=dev)
+        card.load_state_dict(host.state_dict())
+        pre_h = prefill_batch(cfg, LM_BATCH, LM_PROMPT, device="cpu")
+        pre_c = prefill_batch(cfg, LM_BATCH, LM_PROMPT, device=dev)
+        tok_h = generate(host, pre_h, LM_GEN)[0]
+        tok_c, t_p, t_d = serve_batch(cfg, card, LM_BATCH, LM_PROMPT, LM_GEN,
+                                      device=dev)
+        assert tok_c.device.type == dev.type
+        assert torch.equal(tok_c.cpu(), tok_h), \
+            f"{arch}: greedy tokens differ, card {tok_c.tolist()} cpu " \
+            f"{tok_h.tolist()}"
+        errs = [float((a - b).abs().max()) for a, b in zip(
+            _replay_logits(card, pre_c, tok_h),
+            _replay_logits(host, pre_h, tok_h))]
+        worst[arch] = max(errs)
+        print(f"[lm] (a) {arch:18s} f32 batch {LM_BATCH} x prompt "
+              f"{LM_PROMPT} + {LM_GEN} tokens: tokens equal to the CPU's "
+              f"{tok_h[0].tolist()}; logits max abs err prefill "
+              f"{errs[0]:.2e}, decode {max(errs[1:]):.2e}; card prefill "
+              f"{t_p * 1e3:.1f} ms, decode {t_d * 1e3:.1f} ms")
+        assert worst[arch] < LM_CARD_ATOL, (arch, errs)
+    t_a = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out = ex.main(device=dev)
+    for arch, rec in out.items():
+        assert rec["tokens"].shape == (4, 16), arch
+    t_ex = time.perf_counter() - t1
+    print(f"[lm] (a) ten archs in {t_a:.1f} s (worst logits err "
+          f"{max(worst.values()):.2e} < {LM_CARD_ATOL}); "
+          f"repro_torch.examples.serve.main() on the card (bf16) in "
+          f"{t_ex:.1f} s")
+    return {"worst_logits_err": worst, "wall_s": t_a + t_ex}
+
+
+def phase_lm_full_width(dev, smi: str) -> dict:
+    """Phase 12b: gemma2-2b's full ``config()`` (26 layers, d_model
+    2304, vocab 256,000; 2,614,341,888 float32 parameters) on the card.
+    Its weights are drawn on a CUDA generator (seed 0) to save the
+    host's time; the serving loop is ``serve_batch``'s (``generate``) at
+    the reference's defaults: batch 4, prompt 32, 16 new tokens, bf16
+    compute.  Then, at float32 compute on the same weights: decode after
+    a 32-token prefill equals the 33-token forward within
+    ``DECODE_FORWARD_BOUND``; and a 2-layer truncation (the card model's
+    embedding, first block and final norm) gives the same logits on the
+    card and on the CPU within ``TRUNC_ATOL``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, prefill_batch
+    from repro_torch.models.model import Model
+    cfg = get_config(FULL_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    model.init_params(generator=torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize(dev)
+    t_init = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.parameters())
+    assert n == FULL_PARAMS_LM, n
+    pre = prefill_batch(cfg, FULL_BATCH, FULL_PROMPT, device=dev)
+    generate(model, pre, 2)                     # warm-up: first launches
+    tokens, t_p, t_d = generate(model, pre, FULL_GEN)
+    logits = _replay_logits(model, pre, tokens)
+    assert all(bool(torch.isfinite(x).all()) for x in logits), \
+        "full width: non-finite logits"
+    assert logits[0].shape == (FULL_BATCH, 1, cfg.vocab)
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_dec = FULL_BATCH * (FULL_GEN - 1)
+    # one decode step in a trace: how busy the card is in a step's wall
+    cache = model.init_cache(FULL_BATCH, FULL_PROMPT + 1)
+    _, cache = model.prefill(pre, cache)
+    busy = _device_busy(lambda: model.decode_step(
+        cache, tokens[:, :1], FULL_PROMPT))
+    step_ms = t_d * 1e3 / (FULL_GEN - 1)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    del cache
+    print(f"[lm] (b) {FULL_ARCH} full width on {smi}: {n:,} params "
+          f"(f32), init {t_init:.2f} s (CUDA generator); batch "
+          f"{FULL_BATCH} x prompt {FULL_PROMPT} + {FULL_GEN} tokens, bf16: "
+          f"prefill {t_p * 1e3:.2f} ms, decode {t_d * 1e3:.2f} ms for "
+          f"{FULL_GEN - 1} steps ({t_d * 1e3 / (FULL_GEN - 1):.2f} ms a "
+          f"step, {n_dec / t_d:.1f} tok/s); logits finite; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; sample "
+          f"{tokens[0].tolist()}")
+    print(f"[lm] (b) one bf16 decode step traced: {busy['kernels']} "
+          f"kernels, the card busy {busy['busy_ms']:.2f} ms of the "
+          f"{step_ms:.2f} ms step ({100 * busy['busy_ms'] / step_ms:.1f} %"
+          f"); reading the {weight_bytes:,} B of weights once takes "
+          f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s; "
+          f"largest kernels (ms): " + ", ".join(
+              f"{name} {ms:.3f}" for name, ms in busy["top"]))
+    rec = {"params": n, "init_s": t_init, "prefill_ms": t_p * 1e3,
+           "decode_ms": t_d * 1e3, "decode_tok_s": n_dec / t_d,
+           "max_memory_allocated": peak, "device": smi,
+           "decode_step_busy_ms": busy["busy_ms"],
+           "decode_step_kernels": busy["kernels"]}
+
+    # (1) f32: decode after a 32-token prefill == the 33-token forward
+    model.cfg = cfg.replace(compute_dtype="float32")   # same weights
+    gen = torch.Generator().manual_seed(7)
+    toks = torch.randint(0, cfg.vocab, (FULL_BATCH, FULL_PROMPT + 1),
+                         generator=gen, dtype=torch.int32).to(dev)
+    with torch.no_grad():
+        full = model.forward({"tokens": toks}, train=False)[0]
+    cache = model.init_cache(FULL_BATCH, FULL_PROMPT + 8)
+    _, cache = model.prefill({"tokens": toks[:, :FULL_PROMPT]}, cache)
+    lg, _ = model.decode_step(cache, toks[:, FULL_PROMPT:], FULL_PROMPT)
+    err = float((lg[:, 0] - full[:, FULL_PROMPT]).abs().max())
+    print(f"[lm] (b) f32, {cfg.n_layers} layers: decode of token 33 after a 32-token "
+          f"prefill vs the 33-token forward, max abs err {err:.3e} "
+          f"(bound {DECODE_FORWARD_BOUND})")
+    assert err < DECODE_FORWARD_BOUND, err
+    rec["decode_vs_forward_err"] = err
+    del full, cache, lg
+
+    # (2) a 2-layer truncation of the card model, card vs CPU
+    cfg2 = cfg.replace(n_layers=2, compute_dtype="float32")
+    sd = model.state_dict()
+    sub = {k: v for k, v in sd.items()
+           if not k.startswith("decoder.") or k.startswith("decoder.blocks.0.")}
+    card2 = Model(cfg2, device=dev)
+    card2.load_state_dict(sub)
+    del model, sd
+    host2 = Model(cfg2, device="cpu")
+    host2.load_state_dict({k: v.cpu() for k, v in sub.items()})
+    del sub
+    batch = {"tokens": pre["tokens"]}
+    with torch.no_grad():
+        lc = card2.forward(batch, train=False)[0].cpu()
+        lh = host2.forward({"tokens": pre["tokens"].cpu()}, train=False)[0]
+    err2 = float((lc - lh).abs().max())
+    print(f"[lm] (b) f32, 2-layer truncation (embedding, block 0, final "
+          f"norm of the card model): card vs CPU logits {tuple(lc.shape)} "
+          f"max abs err {err2:.3e} (bound {TRUNC_ATOL}; logits up to "
+          f"{float(lh.abs().max()):.2f})")
+    assert err2 < TRUNC_ATOL, err2
+    rec["truncation_err"] = err2
+    return rec
+
+
 
 def launch_sizes_main(src: Path) -> int:
     """``python3 chip_smoke.py --launch-sizes [SRC]``: build the kernels of
@@ -2599,6 +2839,10 @@ def main() -> int:
     counts.update(phase_dlrm_exchange(dev))
     counts.update(phase_dlrm_full_width(dev, t_start))
     phase_census(dev)
+    t12 = time.perf_counter()
+    phase_lm_smoke(dev)
+    phase_lm_full_width(dev, smi)
+    print(f"[lm] phase 12 wall_s={time.perf_counter() - t12:.1f}")
 
     # name -> (source, TPU kernel it replaces, the path it is counted on)
     sources = {"aes_ecb": ("src/repro_torch/csrc/aes_ecb.cu",

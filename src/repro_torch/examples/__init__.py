@@ -1,5 +1,6 @@
 """The paper's examples as entry points of the port, each run as
 ``python -m repro_torch.examples.<name>``: ``allreduce_dlrm`` (data-
 parallel DLRM training over the BALBOA allreduce), ``secure_flow`` (AES
-and DPI on the RDMA datapath) and ``dlrm_ingest`` (§8 streaming ingest
-into DLRM training)."""
+and DPI on the RDMA datapath), ``dlrm_ingest`` (§8 streaming ingest
+into DLRM training) and ``serve`` (batched LM serving with the KV-cache
+runtime)."""

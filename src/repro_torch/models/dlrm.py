@@ -9,9 +9,10 @@ weights are ``(in, out)`` and a layer computes ``x @ w + b``; the 26
 embedding tables are one ``(n_sparse, embed_rows, embed_dim)`` tensor so
 that the lookup is a single gather.  ``dlrm_params_from_numpy`` carries
 the reference's parameter tree across; without it the module
-initialises itself from a ``torch.Generator`` with the reference's
-scheme (tables ``0.02 * N(0, 1)``, weights ``N(0, 1) / sqrt(fan_in)``,
-biases zero) — the same distributions, not the same numbers.
+initialises itself from a CPU ``torch.Generator`` seeded with ``seed``
+(the same weights on every device) with the reference's scheme (tables
+``0.02 * N(0, 1)``, weights ``N(0, 1) / sqrt(fan_in)``, biases zero) —
+the reference's distributions, not its numbers.
 """
 from __future__ import annotations
 
@@ -41,11 +42,13 @@ class DLRM(nn.Module):
             raise NotImplementedError("the port's DLRM runs in float32 only")
         self.cfg = cfg
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        # drawn on the host whatever the device: a card model and a CPU
+        # model made from one seed start from the same weights
+        gen = torch.Generator().manual_seed(seed)
 
         def normal(shape, std):
-            return nn.Parameter(std * torch.randn(
-                shape, generator=gen, device=dev, dtype=torch.float32))
+            return nn.Parameter((std * torch.randn(
+                shape, generator=gen, dtype=torch.float32)).to(dev))
 
         def mlp(dims):
             w = nn.ParameterList(

@@ -28,7 +28,11 @@ stepping on the CPU, whole world.  The data-parallel DLRM exchange: the
 bucketed fused ring on the card equals ``allreduce_oracle`` of the whole
 vector bit for bit, and one step of ``repro_torch.examples.
 allreduce_dlrm`` on the card keeps its sums and parameters bit-identical
-to the oracle fold.
+to the oracle fold; the DLRM's seeded weights are the CPU's.  The LM
+model stack, at float32 with TF32 off: every smoke arch's weights drawn
+from one seed equal the CPU's bit for bit, its forward, prefill and
+decode logits within 1e-4 of the CPU's; the MoE gives the same bits on
+two runs; ``serve_batch`` gives the CPU's greedy tokens.
 """
 import zlib
 
@@ -789,3 +793,123 @@ def test_cuda_allreduce_dlrm_step_is_the_oracle_fold(cuda):
     assert ops.launches()["reduce_fold"] > 0
     assert out["absorbed"] > 0 and np.isfinite(out["losses"]).all()
     assert out["flat"].shape == (out["n_grad"],)
+
+
+# ---------------------------------------------------------------------------
+# the LM model stack and its serving path
+# ---------------------------------------------------------------------------
+
+LM_CARD_ATOL = 1e-4     # float32, TF32 off: sums in another order
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    """float32 products stay float32 on the card (TF32 off) for the
+    test, as on the CPU."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _lm_pair(arch, cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import Model
+    cfg = get_smoke_config(arch).replace(compute_dtype="float32")
+    host = Model(cfg, device="cpu").init_params(0)
+    card = Model(cfg, device=cuda).init_params(0)
+    return cfg, host, card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma3-4b", "gemma2-27b", "gemma2-2b",
+                                  "granite-3-2b", "xlstm-125m",
+                                  "whisper-base", "deepseek-v3-671b",
+                                  "deepseek-v2-236b", "qwen2-vl-72b",
+                                  "recurrentgemma-9b"])
+def test_cuda_lm_forward_and_decode_equal_the_cpu(no_tf32, arch):
+    """Every smoke arch at float32 on the card: the same weights as the
+    CPU model drawn from the same seed (bit for bit), and the forward
+    logits, the prefill's and four decode steps' logits within
+    ``LM_CARD_ATOL`` of the CPU's; the worst error printed."""
+    from _lm_batches import ENC_LEN, lm_batch, prompt_of
+    cfg, host, card = _lm_pair(arch, no_tf32)
+    for k, v in host.state_dict().items():
+        assert torch.equal(card.state_dict()[k].cpu(), v), k
+    batch = lm_batch(cfg, 2, 24, seed=1)
+    errs = []
+    outs = {}
+    for m in (host, card):
+        dev = m.device
+
+        def put(b):
+            return {k: torch.from_numpy(v.copy()).to(dev)
+                    for k, v in b.items()}
+        with torch.no_grad():
+            logits = [m.forward(put(batch), train=False)[0]]
+        cache = m.init_cache(2, 28, enc_len=ENC_LEN if cfg.is_encdec else 0)
+        lg, cache = m.prefill(put(prompt_of(batch, 20)), cache)
+        logits.append(lg)
+        toks = torch.from_numpy(batch["tokens"].copy()).to(dev)
+        for t in range(20, 24):
+            lg, cache = m.decode_step(cache, toks[:, t:t + 1], t)
+            logits.append(lg)
+        outs[dev.type] = [x.float().cpu() for x in logits]
+    errs = [float((a - b).abs().max())
+            for a, b in zip(outs["cuda"], outs["cpu"])]
+    print(f"{arch}: card vs CPU, forward / prefill / 4 decode logits max "
+          f"abs errs " + ", ".join(f"{e:.2e}" for e in errs))
+    assert max(errs) < LM_CARD_ATOL
+
+
+@pytest.mark.cuda
+def test_cuda_moe_is_run_to_run_equal(no_tf32):
+    """The MoE on the card: two runs give the same bits (the combine
+    sums each token's experts by gathers in one order), and the result
+    is within ``LM_CARD_ATOL`` of the CPU's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe, params as P
+    cfg = get_smoke_config("deepseek-v3-671b").replace(
+        compute_dtype="float32")
+    p = P.init(moe.moe_spec(cfg), torch.Generator().manual_seed(0),
+               "float32")
+    x = torch.randn((4, 32, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2))
+    pc = {k: (v.to(no_tf32) if isinstance(v, torch.Tensor)
+              else {kk: vv.to(no_tf32) for kk, vv in v.items()})
+          for k, v in p.items()}
+    a = moe.moe_ffn(cfg, pc, x.to(no_tf32), torch.float32)[0]
+    b = moe.moe_ffn(cfg, pc, x.to(no_tf32), torch.float32)[0]
+    assert torch.equal(a, b)
+    host = moe.moe_ffn(cfg, p, x, torch.float32)[0]
+    assert float((a.cpu() - host).abs().max()) < LM_CARD_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2-2b", "xlstm-125m",
+                                  "recurrentgemma-9b"])
+def test_cuda_serve_batch_tokens_equal_the_cpu(no_tf32, arch):
+    """``serve_batch`` at float32 on the card gives the CPU's greedy
+    tokens, from one seed."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import serve_batch
+    cfg = get_smoke_config(arch).replace(compute_dtype="float32")
+    card = serve_batch(cfg, None, 4, 32, 16, device=no_tf32)[0]
+    host = serve_batch(cfg, None, 4, 32, 16, device="cpu")[0]
+    assert card.device.type == "cuda"
+    assert torch.equal(card.cpu(), host)
+
+
+@pytest.mark.cuda
+def test_cuda_dlrm_init_equals_the_cpu(cuda):
+    """The DLRM draws its weights on a CPU generator: one seed, the same
+    weights on the card and on the host."""
+    from repro_torch.configs.dlrm import smoke_config
+    from repro_torch.models.dlrm import DLRM
+    a = DLRM(smoke_config(), seed=3, device=cuda).state_dict()
+    b = DLRM(smoke_config(), seed=3, device="cpu").state_dict()
+    for k in b:
+        assert torch.equal(a[k].cpu(), b[k]), k
