@@ -120,6 +120,20 @@ census, and the LM model stack's serving path.
               times, tok/s, peak memory; at float32 decode equals the
               forward within 2e-3 on all 26 layers, and a 2-layer
               truncation of it agrees between card and CPU within 1e-3
+ 13. train    LM training (no hand-written kernel on this path): (a)
+              ``repro_torch.examples.quickstart.main`` on the card
+              (gemma2-2b smoke, 120 steps, checkpoints in a temp
+              directory): the loss falls; then the smoke Trainer crashes
+              at step 6 and resumes from step 4 on the card; (b)
+              gemma2-2b's full ``config()`` (f32 parameters, bf16
+              compute, AdamW, remat on) trains 3 steps on one batch of
+              2 x 1024 tokens at lr 1e-4: a finite loss that falls step
+              to step; each step's ms, tokens/s and peak memory; a
+              fourth step traced in its halves (forward+backward, the
+              optimizer) for the card's busy share; and one float32 step
+              of a 2-layer truncation on the card and on the CPU from
+              the same weights: loss, new parameters and AdamW slots
+              within stated tolerances
 
 Fifteen paths are driven through the kernels, each with the launch
 counters set to 0 just before it and read just after it: the main path
@@ -2525,13 +2539,17 @@ def _replay_logits(model, pre, tokens) -> list:
 def _device_busy(fn) -> dict:
     """One call of ``fn`` in a torch.profiler trace (CUDA activity): its
     kernels' count, the time the card was busy (the union of the kernel
-    events' intervals, ms) and the five kernels by summed device time."""
+    events' intervals, ms), the five kernels by summed device time, the
+    call's wall (host clock to a synchronize, in the trace, ms) and what
+    ``fn`` returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        t0 = time.perf_counter()
+        out = fn()
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA
@@ -2547,7 +2565,8 @@ def _device_busy(fn) -> dict:
             end = t1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return {"kernels": len(spans), "busy_ms": busy / 1e3,
-            "top": [(name[:60], us / 1e3) for name, us in top]}
+            "top": [(name[:60], us / 1e3) for name, us in top],
+            "wall_ms": wall * 1e3, "out": out}
 
 
 def phase_lm_smoke(dev) -> dict:
@@ -2708,6 +2727,209 @@ def phase_lm_full_width(dev, smi: str) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 13: LM training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 3    # 13b, full width
+TRAIN_LR = 1e-4
+TRUNC_BATCH, TRUNC_SEQ = 2, 64                      # 13b's truncation
+# the truncation's float32 step, card vs CPU (TF32 off): the loss within
+# TRAIN_TRUNC_LOSS_ATOL; AdamW's first update is about lr * sign(g), and
+# a gradient within float order of 0 may take the other sign, so each
+# new parameter within TRAIN_TRUNC_ELEM_LR x lr, each leaf's error norm
+# within TRAIN_TRUNC_NORM_RTOL of its update's norm, and the slots within
+# TRAIN_TRUNC_SLOT_RTOL of their leaf's largest magnitude
+TRAIN_TRUNC_LOSS_ATOL = 1e-4
+TRAIN_TRUNC_ELEM_LR = 2.5
+TRAIN_TRUNC_NORM_RTOL = 2e-2
+TRAIN_TRUNC_SLOT_RTOL = 1e-3
+
+
+def phase_train_smoke(dev) -> dict:
+    """Phase 13a: ``repro_torch.examples.quickstart.main`` on the card
+    (its checkpoints in a temp directory): the loss falls.  Then the
+    smoke Trainer (granite-3-2b) crashes at step 6 and resumes from its
+    step-4 checkpoint on the card."""
+    import tempfile
+
+    import torch
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.examples import quickstart
+    from repro_torch.models.model import Model
+    from repro_torch.train.loop import Trainer, lm_batch_iterator
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        res = quickstart.main(device=dev, checkpoint_dir=f"{d}/quickstart")
+        t_qs = time.perf_counter() - t0
+        assert res.steps_run == 120 and res.resumed_from is None
+        assert np.isfinite(res.losses).all()
+        assert res.final_loss < res.losses[0], res.losses
+        print(f"[train] (a) quickstart on the card: {res.steps_run} steps, "
+              f"loss {res.losses[0]:.4f} -> {res.final_loss:.4f}, wall "
+              f"{t_qs:.1f} s ({t_qs / res.steps_run * 1e3:.1f} ms a step "
+              f"with its checkpoints)")
+        cfg = get_smoke_config("granite-3-2b")
+        tc = TrainConfig(steps=10, checkpoint_every=4, learning_rate=1e-3,
+                         checkpoint_dir=f"{d}/crash", log_every=100)
+        m = Model(cfg, device=dev)
+        try:
+            Trainer(m, tc).run(lm_batch_iterator(cfg, 4, 32), crash_at=6)
+            raise AssertionError("the injected failure did not raise")
+        except RuntimeError as e:
+            assert "injected failure at step 6" in str(e), e
+        t1 = time.perf_counter()
+        again = Trainer(m, tc).run(lm_batch_iterator(cfg, 4, 32))
+        t_res = time.perf_counter() - t1
+        assert again.resumed_from == 4 and again.steps_run == 6, again
+        assert np.isfinite(again.losses).all()
+        assert next(iter(m.parameters())).device.type == "cuda"
+    print(f"[train] (a) crash at step 6, resumed from step 4 on the card: "
+          f"steps 4..9 losses {[round(x, 4) for x in again.losses]}, "
+          f"wall {t_res:.2f} s")
+    return {"quickstart_losses": (res.losses[0], res.final_loss),
+            "quickstart_s": t_qs, "resume_s": t_res}
+
+
+def _train_step_on(model, batch, lr):
+    """One float32 AdamW step of ``model`` from a zero state: (loss, the
+    model's new parameters by name, the slots) on the host."""
+    import torch
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.models import params as P
+    from repro_torch.train.step import make_train_step
+    step, opt = make_train_step(model, TrainConfig(
+        steps=1, learning_rate=lr, warmup_steps=0))
+    state = P.init(opt.state_spec(model.param_spec()), torch.Generator(),
+                   "float32", model.device)
+    state, met = step(state, batch, 0)
+    return (float(met["loss"]),
+            {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            {f"{k}.{n}": t.cpu() for k, sl in state["slots"].items()
+             for n, t in sl.items()})
+
+
+def phase_train_full_width(dev, smi: str) -> dict:
+    """Phase 13b: gemma2-2b's full ``config()`` trained on the card —
+    ``make_train_step`` (the Trainer's step) on one batch of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens (``lm_shard``), ``TRAIN_STEPS``
+    steps at lr ``TRAIN_LR``, no warmup, no checkpoint; weights on a CUDA
+    generator (seed 0).  A finite loss that falls step to step; each
+    step's ms, tokens/s and ``max_memory_allocated``; one more step
+    traced in its two halves for the card's busy share.  Then a 2-layer
+    truncation (the trained model's embedding, block 0 and final norm)
+    at float32: one step on the card and on the CPU from the same
+    weights and batch."""
+    import torch
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_shard
+    from repro_torch.models import params as P
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import make_train_step
+    cfg = get_config(FULL_ARCH)
+    assert (cfg.param_dtype, cfg.compute_dtype, cfg.optimizer, cfg.remat) \
+        == ("float32", "bfloat16", "adamw", True), cfg
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = Model(cfg, device=dev)
+    model.init_params(generator=torch.Generator(device=dev).manual_seed(0))
+    step, opt = make_train_step(model, TrainConfig(
+        steps=TRAIN_STEPS, learning_rate=TRAIN_LR, warmup_steps=0))
+    state = P.init(opt.state_spec(model.param_spec()), torch.Generator(),
+                   "float32", dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in lm_shard(
+        0, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, seed=0).items()}
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    print(f"[train] (b) {FULL_ARCH} full width on {smi}: "
+          f"{sum(p.numel() for p in model.parameters()):,} f32 params "
+          f"({weight_bytes:,} B), AdamW state {2 * weight_bytes:,} B; "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, bf16 compute, remat on, "
+          f"lr {TRAIN_LR}")
+    losses, recs = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, met = step(state, batch, i)
+        loss = float(met["loss"])
+        torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses.append(loss)
+        recs.append({"ms": dt * 1e3, "tokens_s": n_tok / dt,
+                     "max_memory_allocated": peak, "loss": loss,
+                     "grad_norm": float(met["grad_norm"])})
+        print(f"[train] (b) step {i}: loss {loss:.6f}, grad_norm "
+              f"{recs[-1]['grad_norm']:.4f}, {dt * 1e3:.1f} ms, "
+              f"{n_tok / dt:,.0f} tokens/s, max_memory_allocated "
+              f"{peak / 2**30:.2f} GiB ({peak:,} B)")
+    assert np.isfinite(losses).all(), losses
+    assert all(b < a for a, b in zip(losses, losses[1:])), \
+        f"full width: the loss did not fall step to step: {losses}"
+    # one more step, in its halves, each in a trace
+    fb = _device_busy(lambda: step.forward_backward(batch))
+    up = _device_busy(lambda: step.apply_update(state, fb["out"],
+                                                TRAIN_STEPS))
+    state = up["out"][0]
+    for name, b in (("forward+backward", fb), ("optimizer", up)):
+        print(f"[train] (b) traced step, {name}: {b['kernels']} kernels, "
+              f"the card busy {b['busy_ms']:.2f} ms of {b['wall_ms']:.2f} "
+              f"ms ({100 * b['busy_ms'] / b['wall_ms']:.1f} %); largest "
+              f"kernels (ms): " + ", ".join(
+                  f"{k} {ms:.3f}" for k, ms in b["top"]))
+    busy = {"fwd_bwd": {k: fb[k] for k in ("kernels", "busy_ms", "wall_ms")},
+            "optimizer": {k: up[k] for k in ("kernels", "busy_ms",
+                                              "wall_ms")}}
+
+    # a 2-layer truncation of the trained model at float32, card vs CPU
+    cfg2 = cfg.replace(n_layers=2, compute_dtype="float32")
+    sub = {k: v.cpu() for k, v in model.state_dict().items()
+           if not k.startswith("decoder.")
+           or k.startswith("decoder.blocks.0.")}
+    del model, state, step, opt, batch, met, fb, up
+    torch.cuda.empty_cache()
+    tb = {k: torch.from_numpy(v) for k, v in lm_shard(
+        1, TRUNC_BATCH, TRUNC_SEQ, cfg.vocab, seed=0).items()}
+    runs = {}
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        m2 = Model(cfg2, device=where)
+        m2.load_state_dict(sub)
+        t0 = time.perf_counter()
+        runs[name] = _train_step_on(
+            m2, {k: v.to(where) for k, v in tb.items()}, TRAIN_LR)
+        runs[name + "_s"] = time.perf_counter() - t0
+        del m2
+    (lc, pc, sc), (lh, ph, sh) = runs["card"], runs["cpu"]
+    loss_err = abs(lc - lh)
+    elem = {k: float((pc[k] - ph[k]).abs().max()) / TRAIN_LR for k in ph}
+    norm = {}
+    for k in ph:
+        moved = float((ph[k] - sub[k]).norm())
+        norm[k] = float((pc[k] - ph[k]).norm()) / max(moved, 1e-30)
+    slot = {k: float((sc[k] - sh[k]).abs().max())
+            / max(float(sh[k].abs().max()), 1e-30) for k in sh}
+    we, wn, ws = (max(d, key=d.get) for d in (elem, norm, slot))
+    print(f"[train] (b) f32, 2-layer truncation, one AdamW step of batch "
+          f"{TRUNC_BATCH} x {TRUNC_SEQ} (card {runs['card_s']:.2f} s, CPU "
+          f"{runs['cpu_s']:.2f} s): loss card {lc:.6f} CPU {lh:.6f} (err "
+          f"{loss_err:.2e}, bound {TRAIN_TRUNC_LOSS_ATOL}); new params worst "
+          f"{elem[we]:.3f} x lr ({we}; bound {TRAIN_TRUNC_ELEM_LR}), worst "
+          f"error norm over update norm {norm[wn]:.2e} ({wn}; bound "
+          f"{TRAIN_TRUNC_NORM_RTOL}); slots worst rel {slot[ws]:.2e} ({ws};"
+          f" bound {TRAIN_TRUNC_SLOT_RTOL})")
+    assert loss_err < TRAIN_TRUNC_LOSS_ATOL, loss_err
+    assert elem[we] < TRAIN_TRUNC_ELEM_LR, (we, elem[we])
+    assert norm[wn] < TRAIN_TRUNC_NORM_RTOL, (wn, norm[wn])
+    assert slot[ws] < TRAIN_TRUNC_SLOT_RTOL, (ws, slot[ws])
+    return {"losses": losses, "steps": recs, "busy": busy, "device": smi,
+            "truncation": {"loss_err": loss_err, "elem_lr": elem[we],
+                           "norm_rel": norm[wn], "slot_rel": slot[ws]}}
+
+
+
 def launch_sizes_main(src: Path) -> int:
     """``python3 chip_smoke.py --launch-sizes [SRC]``: build the kernels of
     the ``repro_torch`` under SRC (default this checkout's ``src``) and
@@ -2843,6 +3065,10 @@ def main() -> int:
     phase_lm_smoke(dev)
     phase_lm_full_width(dev, smi)
     print(f"[lm] phase 12 wall_s={time.perf_counter() - t12:.1f}")
+    t13 = time.perf_counter()
+    phase_train_smoke(dev)
+    phase_train_full_width(dev, smi)
+    print(f"[train] phase 13 wall_s={time.perf_counter() - t13:.1f}")
 
     # name -> (source, TPU kernel it replaces, the path it is counted on)
     sources = {"aes_ecb": ("src/repro_torch/csrc/aes_ecb.cu",

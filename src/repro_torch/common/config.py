@@ -6,11 +6,13 @@ for field and property for property.
 ``repro_torch.configs`` instantiate it with the reference's values),
 ``ShapeConfig`` one (seq_len, global_batch, kind) input-shape cell,
 ``DLRMConfig`` the paper's own workload and ``TrainConfig`` the
-training loop's knobs (data only: the loop itself is not ported yet).
+training loop's knobs (``train/step.py``, ``train/loop.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -202,7 +204,8 @@ class TrainConfig:
     grad_clip: float = 1.0
     seed: int = 0
     checkpoint_every: int = 50
-    checkpoint_dir: str = "/tmp/repro_ckpt"
+    # the reference's /tmp/repro_ckpt, under the temp directory (TMPDIR)
+    checkpoint_dir: str = os.path.join(tempfile.gettempdir(), "repro_ckpt")
     # cross-pod gradient compression: none | bf16 | topk
     pod_grad_compression: str = "none"
     topk_fraction: float = 0.05

@@ -158,7 +158,7 @@ class Model(P.ParamTree):
         return torch.arange(seq, dtype=torch.int32,
                             device=self.device)[None].expand(b, seq)
 
-    def _encode(self, batch, compute_dtype):
+    def _encode(self, batch, train, compute_dtype):
         cfg = self.cfg
         ae = batch["audio_embed"].to(compute_dtype)
         s = ae.shape[1]
@@ -167,7 +167,7 @@ class Model(P.ParamTree):
         pos = torch.arange(s, dtype=torch.int32,
                            device=ae.device)[None].expand(ae.shape[0], s)
         return T.apply_encoder(cfg, self["encoder"], enc_in, pos,
-                               compute_dtype=compute_dtype)
+                               train=train, compute_dtype=compute_dtype)
 
     def _lm_logits(self, x, compute_dtype):
         cfg = self.cfg
@@ -184,7 +184,7 @@ class Model(P.ParamTree):
         cd = self._compute_dtype()
         x = self._embed_inputs(batch, cd)
         positions = self._positions(batch, x.shape[1])
-        enc_out = self._encode(batch, cd) if cfg.is_encdec else None
+        enc_out = self._encode(batch, train, cd) if cfg.is_encdec else None
         x, _, (aux, load) = T.apply_decoder(
             cfg, self["decoder"], x, positions=positions, enc_out=enc_out,
             train=train, compute_dtype=cd)
@@ -231,7 +231,7 @@ class Model(P.ParamTree):
         cd = self._compute_dtype()
         x = self._embed_inputs(batch, cd)
         positions = self._positions(batch, x.shape[1])
-        enc_out = self._encode(batch, cd) if cfg.is_encdec else None
+        enc_out = self._encode(batch, False, cd) if cfg.is_encdec else None
         x, new_cache, _ = T.apply_decoder(
             cfg, self["decoder"], x, positions=positions, cache=cache,
             cache_index=0, enc_out=enc_out, train=False, compute_dtype=cd)

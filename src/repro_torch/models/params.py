@@ -14,7 +14,13 @@ spec tree come:
     becomes an ``nn.ModuleList`` of per-layer trees;
   * ``params_from_numpy``: the reference's parameter tree (numpy
     arrays) as a ``state_dict`` of that module; ``lm_params_from_numpy``
-    does it for an LM config's whole tree.
+    does it for an LM config's whole tree, ``params_to_numpy`` the way
+    back, and ``opt_state_from_numpy`` carries the reference's optimizer
+    state;
+  * ``leaf_groups``: a module's parameters by the reference's leaf
+    paths, in the reference's leaf order (``tree_items``: dict keys
+    sorted as strings at every level), a stacked leaf as the list of its
+    layers' tensors — what the optimizers and the checkpoint work on.
 
 A ``ParamTree`` and a plain dict of tensors are read the same way
 (``p["w"]``, ``"b" in p``), so the layer functions take either.
@@ -210,9 +216,11 @@ def params_from_numpy(tree, spec, device, param_dtype: str
         for k, sub in s.items():
             if is_spec(sub):
                 dtype = torch_dtype(sub.dtype or param_dtype)
-                a = np.asarray(t[k])
-                if a.dtype != np.float32 and dtype.is_floating_point:
-                    a = a.astype(np.float32)          # bf16 from ml_dtypes
+                a = t[k]
+                if not torch.is_tensor(a):
+                    a = np.asarray(a)
+                    if a.dtype != np.float32 and dtype.is_floating_point:
+                        a = a.astype(np.float32)      # bf16 from ml_dtypes
                 out[prefix + k] = to_device(a, device, dtype)
             elif is_stacked(sub):
                 n, layer = unstack(sub)
@@ -240,4 +248,88 @@ def lm_params_from_numpy(tree, cfg, device=None) -> Dict[str, torch.Tensor]:
 def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
-    return np.asarray(tree)[i]
+    return tree[i] if torch.is_tensor(tree) else np.asarray(tree)[i]
+
+
+def tree_items(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """``(dotted path, leaf)`` of a nested dict in the reference's pytree
+    order: keys sorted as strings at every level.  (A dict keyed by
+    dotted paths comes out in the same order as the nested dict they
+    name: "." sorts below every character of a key.)"""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from tree_items(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+def leaf_groups(tree: ParamTree, prefix: str = "") -> Dict[str, Any]:
+    """The parameters of ``tree`` keyed by the reference's leaf paths, in
+    its leaf order: a tensor for a leaf, and for a leaf of a stacked
+    subtree (path without a layer index) the list of its layers'
+    tensors — the reference's ``(layers, ...)`` leaf, unstacked."""
+    out: Dict[str, Any] = {}
+    for name in sorted(list(tree._specs) + list(tree._modules)):
+        path = prefix + name
+        if name in tree._specs:
+            out[path] = tree._parameters[name]
+        elif isinstance(tree[name], nn.ModuleList):
+            layers = [leaf_groups(m) for m in tree[name]]
+            for sub in layers[0]:
+                out[f"{path}.{sub}"] = [layer[sub] for layer in layers]
+        else:
+            out.update(leaf_groups(tree[name], path + "."))
+    return out
+
+
+def nest(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """A dict keyed by dotted paths as the nested dict they name."""
+    out: Dict[str, Any] = {}
+    for path, v in flat.items():
+        *head, last = path.split(".")
+        node = out
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out
+
+
+def host_array(x) -> np.ndarray:
+    """A host copy of a tensor (or array) as numpy; bfloat16, which numpy
+    lacks, as float32 (the reference's checkpoint does the same)."""
+    if torch.is_tensor(x):
+        dtype = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+        return x.detach().to("cpu", dtype, copy=True).numpy()
+    a = np.array(x)
+    return a.astype(np.float32) if a.dtype.kind not in "fiub" else a
+
+
+def params_to_numpy(tree: ParamTree) -> Dict[str, Any]:
+    """The parameters of ``tree`` as the reference's parameter tree of
+    numpy arrays (a copy): a stacked subtree's layers stacked along a
+    leading ``layers`` axis — the inverse of ``params_from_numpy``."""
+    return nest({path: (np.stack([host_array(t) for t in v])
+                        if isinstance(v, list) else host_array(v))
+                 for path, v in leaf_groups(tree).items()})
+
+
+def opt_state_from_numpy(tree, cfg, device=None) -> Dict[str, Any]:
+    """The reference's optimizer state for the LM config ``cfg`` (numpy
+    arrays: ``{"slots": <the parameter tree's structure, each leaf a
+    dict of slots>, "count"}``) as the port's: ``{"slots": {path:
+    {slot: tensor}}, "count"}``, keyed by the reference's leaf paths,
+    the stacked slots kept whole, float32 (the count int32), on
+    ``device`` (default the card)."""
+    from repro_torch.device import resolve_device
+    from repro_torch.models.model import param_spec
+    dev = resolve_device(device)
+    slots = {}
+    for path, _ in tree_items(param_spec(cfg)):
+        node = tree["slots"]
+        for k in path.split("."):
+            node = node[k]
+        slots[path] = {k: to_device(np.asarray(a, np.float32), dev)
+                       for k, a in node.items()}
+    return {"slots": slots,
+            "count": to_device(np.asarray(tree["count"]), dev, torch.int32)}

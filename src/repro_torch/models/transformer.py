@@ -5,14 +5,21 @@ recurrent), the layer stack, encoder-decoder support — the reference's
 Where the reference scans one stacked block over ``n_blocks`` layers
 (``lax.scan``), the port loops over the ``ModuleList`` that
 ``ParamTree`` makes of the stacked parameters, and keeps one cache dict
-per block in a list.  Remat is a training matter and is not ported yet.
+per block in a list.  Where the reference wraps the scan body in
+``jax.checkpoint`` (``train`` and ``cfg.remat``), the port wraps each
+loop step in ``torch.utils.checkpoint`` (``_remat``): the block's
+activations are recomputed in the backward pass, none kept, or with
+``remat_policy="dots"`` its matmul outputs kept.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import attention as attn
@@ -189,6 +196,32 @@ def _cross_from_cache(cfg, p, x, ck, cv, compute_dtype):
 
 
 # ---------------------------------------------------------------------------
+# Remat
+# ---------------------------------------------------------------------------
+
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable: the products
+# of a 2-D weight (torch.matmul folds the leading dims into mm/addmm);
+# batched products (attention's bmm) are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str = "nothing"):
+    """``jax.checkpoint(fn, policy=...)``: ``fn``'s activations are
+    recomputed in the backward pass — none kept ("nothing"), or the
+    matmul outputs kept ("dots")."""
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+# ---------------------------------------------------------------------------
 # Layer-stack layout
 # ---------------------------------------------------------------------------
 
@@ -278,15 +311,21 @@ def apply_decoder(
             new_cache[f"first_{i}"] = nc
 
     if cfg.n_blocks > 0:
-        blocks_out: List[Dict[str, Any]] = []
-        for i, bp in enumerate(params["blocks"]):
-            bc = cache["blocks"][i] if cache is not None else None
+        def block_step(bp, bc, x, aux, load):
             nc_out = {}
             for j, (k, fk) in enumerate(pat):
                 c = bc.get(f"sub{j}") if bc else None
                 x, nc, (a, l) = run_block(k, fk, bp[f"sub{j}"], x, c)
                 aux, load = aux + a, load + l
                 nc_out[f"sub{j}"] = nc if nc is not None else {}
+            return x, aux, load, nc_out
+
+        step = (_remat(block_step, cfg.remat_policy)
+                if train and cfg.remat else block_step)
+        blocks_out: List[Dict[str, Any]] = []
+        for i, bp in enumerate(params["blocks"]):
+            bc = cache["blocks"][i] if cache is not None else None
+            x, aux, load, nc_out = step(bp, bc, x, aux, load)
             blocks_out.append(nc_out)
         if cache is not None:
             new_cache["blocks"] = blocks_out
@@ -313,10 +352,12 @@ def encoder_spec(cfg: ModelConfig):
 
 def apply_encoder(cfg: ModelConfig, params, x, positions, train=False,
                   compute_dtype=torch.bfloat16):
+    def body(bp, x):
+        return apply_block(cfg, "enc", "dense", bp, x, positions=positions,
+                           compute_dtype=compute_dtype)[0]
+    fn = _remat(body) if train and cfg.remat else body   # nothing saved
     for bp in params["blocks"]:
-        x, _, _ = apply_block(cfg, "enc", "dense", bp, x,
-                              positions=positions,
-                              compute_dtype=compute_dtype)
+        x = fn(bp, x)
     return _norm(cfg, params["ln_post"], x)
 
 

@@ -1,1 +1,1 @@
-"""Step builders of the port (the serving half so far)."""
+"""The train step and loop of the port, and its serving steps."""

@@ -32,8 +32,14 @@ to the oracle fold; the DLRM's seeded weights are the CPU's.  The LM
 model stack, at float32 with TF32 off: every smoke arch's weights drawn
 from one seed equal the CPU's bit for bit, its forward, prefill and
 decode logits within 1e-4 of the CPU's; the MoE gives the same bits on
-two runs; ``serve_batch`` gives the CPU's greedy tokens.
+two runs; ``serve_batch`` gives the CPU's greedy tokens.  LM training:
+one AdamW update (granite-3-2b) and one Adafactor update (deepseek-v3-
+671b) on the card within ``TRAIN_UPDATE_ULPS`` of the CPU's; the smoke
+``Trainer`` crashes at step 6 and resumes from step 4 on the card, its
+losses those of an uninterrupted run; and granite-3-2b's losses over 4
+steps from the same CPU-generator weights within 1e-4 of the CPU's.
 """
+import itertools
 import zlib
 
 import numpy as np
@@ -913,3 +919,139 @@ def test_cuda_dlrm_init_equals_the_cpu(cuda):
     b = DLRM(smoke_config(), seed=3, device="cpu").state_dict()
     for k in b:
         assert torch.equal(a[k].cpu(), b[k]), k
+
+
+# ---------------------------------------------------------------------------
+# LM training
+# ---------------------------------------------------------------------------
+
+# one update, card vs CPU, per element in float32 ulps of the larger of
+# the value before and after it: AdamW is elementwise (IEEE division and
+# square root on both), Adafactor divides by means that the card sums in
+# another order
+TRAIN_UPDATE_ULPS = {"adamw": 4, "adafactor": 32}
+
+
+def _ulps(got, want, before):
+    scale = np.maximum(np.abs(want), np.abs(before))
+    return np.abs(got.astype(np.float64) - want) / np.spacing(
+        np.maximum(scale, np.finfo(np.float32).tiny))
+
+
+def _update_on(dev, arch, grads_np, state_np):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import params as P
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizers import make_optimizer
+    cfg = get_smoke_config(arch)
+    m = Model(cfg, device=dev).init_params(0)
+    groups = P.leaf_groups(m)
+    grads = {k: (list(_t(grads_np[k]).to(dev).unbind(0))
+                 if isinstance(v, list) else _t(grads_np[k]).to(dev))
+             for k, v in groups.items()}
+    state = {"slots": {k: {n: _t(a).to(dev) for n, a in sl.items()}
+                       for k, sl in state_np["slots"].items()},
+             "count": torch.tensor(state_np["count"], dtype=torch.int32,
+                                   device=dev)}
+    with torch.no_grad():
+        _, new = make_optimizer(cfg.optimizer).update(
+            grads, state, groups, torch.tensor(1e-3))
+    host = {k: (torch.stack(v) if isinstance(v, list) else v)
+            .detach().cpu().numpy() for k, v in groups.items()}
+    return host, {k: {n: t.cpu().numpy() for n, t in sl.items()}
+                  for k, sl in new["slots"].items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-3-2b", "deepseek-v3-671b"])
+def test_cuda_optimizer_update_equals_the_cpu(no_tf32, arch):
+    """One update of the arch's optimizer (AdamW, Adafactor) from the
+    same parameters, numpy-seeded gradients and a nonzero state (count
+    3) on the card and on the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import params as P
+    from repro_torch.models.model import Model, param_spec
+    from repro_torch.optim.optimizers import make_optimizer
+    cfg = get_smoke_config(arch)
+    rng = np.random.default_rng(5)
+    before = {k: (torch.stack(v) if isinstance(v, list) else v)
+              .detach().numpy().copy() for k, v in P.leaf_groups(
+                  Model(cfg, device="cpu").init_params(0)).items()}
+    grads = {k: (rng.standard_normal(v.shape) * 0.01).astype(np.float32)
+             for k, v in before.items()}
+    spec = make_optimizer(cfg.optimizer).state_spec(param_spec(cfg))
+    state = {"slots": {k: {n: (rng.random(s.shape) * 1e-4).astype(
+        np.float32) for n, s in sl.items()}
+        for k, sl in spec["slots"].items()}, "count": 3}
+    p_card, s_card = _update_on(no_tf32, arch, grads, state)
+    p_host, s_host = _update_on("cpu", arch, grads, state)
+    errs = {k: float(_ulps(p_card[k], p_host[k], before[k]).max())
+            for k in p_host}
+    errs.update({f"{k}.{n}": float(_ulps(
+        s_card[k][n], s_host[k][n], state["slots"][k][n]).max())
+        for k in s_host for n in s_host[k]})
+    worst = max(errs, key=errs.get)
+    print(f"{arch} {cfg.optimizer}: card vs CPU, {len(errs)} leaves and "
+          f"slots, worst {errs[worst]:.0f} ulps ({worst})")
+    assert errs[worst] <= TRAIN_UPDATE_ULPS[cfg.optimizer]
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_crash_and_resume(no_tf32, tmp_path):
+    """The smoke Trainer on the card: a crash at step 6 leaves the step-4
+    checkpoint, the resume runs steps 4..9, and its losses are an
+    uninterrupted run's (the restored state is exact)."""
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.train.loop import Trainer, lm_batch_iterator
+    cfg = get_smoke_config("granite-3-2b").replace(compute_dtype="float32")
+
+    def tc(d):
+        return TrainConfig(steps=10, checkpoint_every=4, learning_rate=1e-3,
+                           checkpoint_dir=str(tmp_path / d), log_every=100)
+    m = Model(cfg, device=no_tf32)
+    with pytest.raises(RuntimeError, match="injected failure"):
+        Trainer(m, tc("ck")).run(lm_batch_iterator(cfg, 4, 32), crash_at=6)
+    res = Trainer(m, tc("ck")).run(lm_batch_iterator(cfg, 4, 32))
+    assert res.resumed_from == 4 and res.steps_run == 6
+    # the resume restarts the batches at shard 0 while the steps go on
+    # from 4 (as the reference does): the same shards uninterrupted
+    shards = itertools.chain(lm_batch_iterator(cfg, 4, 32, n=4),
+                             lm_batch_iterator(cfg, 4, 32))
+    whole = Trainer(Model(cfg, device=no_tf32), tc("whole")).run(shards)
+    assert whole.steps_run == 10
+    err = max(abs(a - b) for a, b in zip(res.losses, whole.losses[4:]))
+    print(f"resumed losses {res.losses}; uninterrupted {whole.losses[4:]};"
+          f" max err {err:.2e}")
+    assert err < LM_CARD_ATOL
+
+
+@pytest.mark.cuda
+def test_cuda_train_losses_equal_the_cpu(no_tf32, tmp_path):
+    """granite-3-2b smoke at float32: 4 steps from the same CPU-generator
+    weights on the card and on the CPU; per-step losses within
+    ``LM_CARD_ATOL``, and the parameters after the last step within 2.5 x
+    lr a step per element of the CPU's."""
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.train.loop import Trainer, lm_batch_iterator
+    cfg = get_smoke_config("granite-3-2b").replace(compute_dtype="float32")
+    runs = {}
+    for dev in (no_tf32, torch.device("cpu")):
+        m = Model(cfg, device=dev)
+        tc = TrainConfig(steps=4, checkpoint_every=100, learning_rate=1e-3,
+                         warmup_steps=0, log_every=100,
+                         checkpoint_dir=str(tmp_path / dev.type))
+        res = Trainer(m, tc).run(lm_batch_iterator(cfg, 4, 32))
+        runs[dev.type] = (res.losses, {k: v.cpu() for k, v in
+                                       m.state_dict().items()})
+    (lc, pc), (lh, ph) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) for a, b in zip(lc, lh))
+    elem = max(float((pc[k] - ph[k]).abs().max()) for k in ph) / (4 * 1e-3)
+    print(f"card losses {lc}, CPU {lh}: max err {loss_err:.2e}; params "
+          f"worst {elem:.3f} x lr a step")
+    assert len(lc) == len(lh) == 4
+    assert loss_err < LM_CARD_ATOL
+    assert elem < 2.5
