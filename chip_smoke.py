@@ -134,6 +134,23 @@ census, and the LM model stack's serving path.
               of a 2-layer truncation on the card and on the CPU from
               the same weights: loss, new parameters and AdamW slots
               within stated tolerances
+ 14. mesh     the mesh layer (no hand-written kernel on this path): (a)
+              ``python -m repro_torch.launch.dryrun --arch gemma2-2b
+              --shape train_4k`` in a subprocess (its ``fake`` world of
+              512 ranks must not meet this process's NCCL one): ``ok``,
+              the reference's per-device argument bytes (384,748,552,
+              committed: the card machine has no JAX) and its two
+              fallbacks; the H100 roofline terms printed; (b) a one-rank
+              NCCL world (``make_host_mesh()``): the shard_map MoE
+              (``expert_sharding="ep_sm"``, deepseek-v3 smoke, float32,
+              4 x 4096 tokens) forward and gradients against the card's
+              no-mesh path within 1e-5, 2 all-to-alls and 1 all-reduce
+              made a chunk; ``repro_torch.launch.train --smoke
+              --steps 20`` (granite-3-2b) on that mesh, its losses equal
+              to the same Trainer without a mesh; (c) the dry run's
+              per-device argument bytes of gemma2-2b at phase 13b's batch
+              (2 x 1024, AdamW, a one-card mesh) at or below the
+              ``max_memory_allocated`` phase 13b measured
 
 Fifteen paths are driven through the kernels, each with the launch
 counters set to 0 just before it and read just after it: the main path
@@ -154,6 +171,15 @@ the script exits non-zero and prints no verdict; it also exits non-zero,
 printing nothing, without a CUDA device or without the port's sources
 beside it.
 
+    python3 chip_smoke.py --mesh DATA MODEL
+
+runs the mesh layer across DATA x MODEL cards, one process a card, in an
+NCCL world: on ``make_host_mesh(DATA, MODEL)`` the shard_map MoE of
+phase 14b against each card's no-mesh path (forward, gradients, the
+collectives called, fwd+bwd wall), then a data-parallel ``Trainer`` on
+``make_host_mesh(data=DATA x MODEL)`` against one process on one card
+(losses); one JSON line of every rank's results.
+
     python3 chip_smoke.py --launch-sizes [SRC]
 
 times the kernels of the ``repro_torch`` under SRC (default ``src``) at
@@ -163,13 +189,17 @@ before and after and the SASS summary, as one JSON line: run on a parent
 tree unpacked under ``build/`` and on this one in turns (parent, change,
 change, parent) in one call, it compares the two on one card.
 """
+import atexit
+import contextlib
 import itertools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 from pathlib import Path
@@ -2930,6 +2960,267 @@ def phase_train_full_width(dev, smi: str) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the mesh layer
+# ---------------------------------------------------------------------------
+
+# the reference's compiled memory analysis of gemma2-2b x train_4k on its
+# 16x16 mesh (Auto axes; tests/test_torch_mesh_dryrun.py holds the port
+# to it on the CPU)
+DRYRUN_ARG_BYTES = 384_748_552
+DRYRUN_FALLBACKS = ("kv_heads=4 !-> ('model',) (indivisible)",
+                    "heads=8 !-> ('model',) (indivisible)")
+MESH_ATOL = 1e-5        # ep_sm vs no mesh: forward (abs), grads (rel)
+MESH_TRAIN_ATOL = 1e-5  # launch.train's losses, mesh vs no mesh
+
+
+def start_dryrun(out: Path) -> subprocess.Popen:
+    """Phase 14a's dry run, started early in a process of its own."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "gemma2-2b", "--shape", "train_4k", "--json", str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+
+
+def _moe_grads(cfg, p0, x0, mesh):
+    """y and the gradients of sum(sin(y)) w.r.t. x, w1, w2, w3 of the
+    port's moe_ffn (float32) under ``mesh`` (None: no mesh), and the
+    collectives the forward called."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding as sh
+    p = {k: (v.clone().requires_grad_(True) if torch.is_tensor(v) else
+             {kk: vv.clone() for kk, vv in v.items()}) for k, v in p0.items()}
+    x = x0.clone().requires_grad_(True)
+    ctx = (sh.activate(mesh, sh.make_rules("train"), "moe")
+           if mesh is not None else contextlib.nullcontext())
+    with ctx, CommDebugMode() as comm:
+        y = moe.moe_ffn(cfg, p, x, torch.float32)[0]
+    torch.sin(y).sum().backward()
+    torch.cuda.synchronize()
+    counts = {str(k).rsplit(".", 1)[-1]: v
+              for k, v in comm.get_comm_counts().items()}
+    return y.detach(), {"x": x.grad, "w1": p["w1"].grad, "w2": p["w2"].grad,
+                        "w3": p["w3"].grad}, counts
+
+
+def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
+               peak_13b: int) -> dict:
+    """Phase 14: the mesh layer; (a) the dry run started by
+    ``start_dryrun``, (b) a one-rank NCCL mesh on the card, (c) the dry
+    run's argument bytes against phase 13b's peak memory."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.common.config import ShapeConfig, TrainConfig
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.launch.dryrun import argument_bytes
+    from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
+                                         make_host_mesh)
+    from repro_torch.models import moe
+    from repro_torch.models import params as P
+    from repro_torch.models.model import Model
+    from repro_torch.train.loop import Trainer, lm_batch_iterator
+    t0 = time.perf_counter()
+    # (a) the dry run
+    try:
+        out, err = dryrun.communicate(timeout=300)
+    finally:
+        if dryrun.poll() is None:
+            dryrun.kill()
+            dryrun.communicate()
+    assert dryrun.returncode == 0, err[-3000:]
+    cell = json.loads(dry_json.read_text())[0]
+    assert cell["status"] == "ok", cell
+    assert cell["memory"]["argument_bytes"] == DRYRUN_ARG_BYTES, cell
+    for line in DRYRUN_FALLBACKS:
+        assert f"[gemma2-2b/train_4k] {line}" in cell["sharding_fallbacks"]
+    t = cell["terms"]
+    print(f"[mesh] (a) dry run gemma2-2b x train_4k on the 16x16 mesh (a "
+          f"fake world of 512 ranks, on the host): ok in {cell['step_s']} "
+          f"s walk; argument bytes per device {DRYRUN_ARG_BYTES:,} (the "
+          f"reference's); fallbacks {list(DRYRUN_FALLBACKS)}; H100 "
+          f"data-sheet roofline of the even split: compute "
+          f"{t['compute_s'] * 1e3:.2f} ms ({PEAK_FLOPS_BF16:.3g} FLOP/s "
+          f"bf16), memory {t['memory_s'] * 1e3:.2f} ms ({HBM_BW:.3g} B/s, "
+          f"unfused upper bound), collectives not counted")
+
+    # (b) a one-rank NCCL world on the card
+    mesh = make_host_mesh()
+    assert dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1)
+    cfg = get_smoke_config("deepseek-v3-671b").replace(
+        compute_dtype="float32", expert_sharding="ep_sm")
+    gen = torch.Generator().manual_seed(0)
+    p0 = P.init(moe.moe_spec(cfg), gen, "float32", dev)
+    x0 = (0.1 * torch.randn((4, 4096, cfg.d_model), generator=gen)).to(dev)
+    t1 = time.perf_counter()
+    y0, g0, c0 = _moe_grads(cfg, p0, x0, None)
+    t_plain = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    y1, g1, c1 = _moe_grads(cfg, p0, x0, mesh)
+    t_sm = time.perf_counter() - t1
+    fwd = float((y1 - y0).abs().max())
+    rel = {k: float((g1[k] - g0[k]).abs().max() / g0[k].abs().max())
+           for k in g0}
+    assert not c0 and c1 == {"all_to_all_single": 2, "all_reduce": 1,
+                             "all_gather_into_tensor": 1}, (c0, c1)
+    print(f"[mesh] (b) NCCL world of one, mesh {tuple(mesh.shape)} "
+          f"{mesh.mesh_dim_names}: ep_sm MoE (deepseek-v3 smoke, f32, "
+          f"x {tuple(x0.shape)}) vs the no-mesh path on the card: forward "
+          f"max abs err {fwd:.3e}, grads rel " + ", ".join(
+              f"{k} {v:.3e}" for k, v in rel.items())
+          + f" (bound {MESH_ATOL}); collectives in the forward {c1}; "
+          f"fwd+bwd wall {t_sm * 1e3:.1f} ms (no mesh {t_plain * 1e3:.1f})")
+    assert fwd < MESH_ATOL and max(rel.values()) < MESH_ATOL, (fwd, rel)
+
+    runs = {}
+
+    class Recording(Trainer):
+        def run(self, *a, **k):
+            runs["mesh"] = super().run(*a, **k)
+            return runs["mesh"]
+
+    with tempfile.TemporaryDirectory() as d:
+        argv = ["--arch", "granite-3-2b", "--smoke", "--steps", "20"]
+        real, tlaunch.Trainer = tlaunch.Trainer, Recording
+        try:
+            assert tlaunch.main(argv + ["--ckpt-dir", f"{d}/mesh"]) == 0
+        finally:
+            tlaunch.Trainer = real
+        assert runs["mesh"].__class__.__name__ == "TrainResult"
+        cfg2 = get_smoke_config("granite-3-2b")
+        tc = TrainConfig(steps=20, learning_rate=1e-3,
+                         checkpoint_dir=f"{d}/plain", checkpoint_every=50)
+        runs["plain"] = Trainer(Model(cfg2, device=dev), tc).run(
+            lm_batch_iterator(cfg2, 8, 128))
+    lm, lp = np.array(runs["mesh"].losses), np.array(runs["plain"].losses)
+    err = float(np.abs(lm - lp).max())
+    print(f"[mesh] (b) repro_torch.launch.train --smoke --steps 20 on the "
+          f"mesh: loss {lm[0]:.4f} -> {lm[-1]:.4f} in "
+          f"{runs['mesh'].wall_s:.1f} s; the same Trainer without a mesh "
+          f"{lp[0]:.4f} -> {lp[-1]:.4f}; max abs err over 20 steps "
+          f"{err:.2e} (bound {MESH_TRAIN_ATOL})")
+    assert len(lm) == len(lp) == 20 and err < MESH_TRAIN_ATOL, (lm, lp)
+
+    # (c) the dry run's argument bytes at phase 13b's batch, one-card mesh
+    shape = ShapeConfig("phase13b", seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH, kind="train")
+    by_tree = argument_bytes(get_config(FULL_ARCH), shape, mesh)
+    arg = sum(by_tree.values())
+    print(f"[mesh] (c) {FULL_ARCH} at {TRAIN_BATCH} x {TRAIN_SEQ}, AdamW, "
+          f"one-card mesh: dry-run argument bytes {arg:,} ({by_tree}) vs "
+          f"phase 13b's max_memory_allocated {peak_13b:,} on {smi} "
+          f"({arg / peak_13b:.3f} of it)")
+    assert arg <= peak_13b, (arg, peak_13b)
+    dist.destroy_process_group()
+    wall = time.perf_counter() - t0
+    print(f"[mesh] phase 14 wall_s={wall:.1f}")
+    return {"dryrun": cell["terms"], "ep_sm_fwd_err": fwd,
+            "ep_sm_grad_rel": rel, "train_loss_err": err,
+            "arg_bytes_13b": arg, "peak_13b": peak_13b, "wall_s": wall}
+
+
+def _mesh_rank(rank: int, world: int, data: int, model: int, tmp: str):
+    """One rank of ``--mesh``: its card, the NCCL world, its results as
+    JSON under ``tmp``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.models import params as P
+    from repro_torch.models.model import Model
+    from repro_torch.train.loop import Trainer, lm_batch_iterator
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=world, device_id=dev)
+    try:
+        mesh = make_host_mesh(data, model)
+        cfg = get_smoke_config("deepseek-v3-671b").replace(
+            compute_dtype="float32", expert_sharding="ep_sm")
+        gen = torch.Generator().manual_seed(0)
+        p0 = P.init(moe.moe_spec(cfg), gen, "float32", dev)
+        x0 = (0.1 * torch.randn((4, 4096, cfg.d_model), generator=gen)
+              ).to(dev)
+        walls, res = {"plain": [], "mesh": []}, {}
+        for _ in range(3):                    # the first warms up
+            for name, m in (("plain", None), ("mesh", mesh)):
+                t0 = time.perf_counter()
+                res[name] = _moe_grads(cfg, p0, x0, m)
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+        (y0, g0, _), (y1, g1, c1) = res["plain"], res["mesh"]
+        rec = {"rank": rank, "coordinate": mesh.get_coordinate(),
+               "fwd_err": float((y1 - y0).abs().max()),
+               "grad_rel": {k: float((g1[k] - g0[k]).abs().max()
+                                     / g0[k].abs().max()) for k in g0},
+               "collectives": c1,
+               "ms": {k: statistics.median(v) for k, v in walls.items()}}
+        tcfg = get_smoke_config("granite-3-2b").replace(
+            compute_dtype="float32")
+        runs = {}
+        for name, m in (("mesh", make_host_mesh(data=world)), ("plain", None)):
+            if name == "plain" and rank:
+                break
+            tc = TrainConfig(steps=8, learning_rate=1e-3, log_every=100,
+                             checkpoint_every=100,
+                             checkpoint_dir=f"{tmp}/ckpt_{name}{rank}")
+            runs[name] = Trainer(Model(tcfg, device=dev), tc, mesh=m).run(
+                lm_batch_iterator(tcfg, 8, 128)).losses
+        rec["losses"] = runs
+        Path(tmp, f"rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_main(data: int, model: int) -> int:
+    """``python3 chip_smoke.py --mesh DATA MODEL`` (see the docstring)."""
+    import torch
+    import torch.multiprocessing as mp
+    world = data * model
+    if not torch.cuda.is_available() or torch.cuda.device_count() < world:
+        print(f"chip_smoke.py --mesh: needs {world} CUDA devices",
+              file=sys.stderr)
+        return 2
+    smi = phase_device()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_mesh_rank, args=(world, data, model, tmp),
+                           nprocs=world, start_method="spawn")
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(world)]
+    for r in ranks:
+        print(f"[mesh] rank {r['rank']} at {r['coordinate']} of "
+              f"{data} x {model}: ep_sm fwd err {r['fwd_err']:.3e}, grads "
+              f"rel " + ", ".join(f"{k} {v:.3e}"
+                                  for k, v in r["grad_rel"].items())
+              + f"; {r['collectives']}; fwd+bwd {r['ms']['mesh']:.1f} ms "
+              f"(no mesh {r['ms']['plain']:.1f})")
+        assert r["fwd_err"] < MESH_ATOL, r
+        assert max(r["grad_rel"].values()) < MESH_ATOL, r
+        assert r["collectives"] == {"all_to_all_single": 2, "all_reduce": 1,
+                                    "all_gather_into_tensor": 1}, r
+    lm = np.array(ranks[0]["losses"]["mesh"])
+    lp = np.array(ranks[0]["losses"]["plain"])
+    for r in ranks:
+        assert r["losses"]["mesh"] == ranks[0]["losses"]["mesh"], r
+    err = float(np.abs(lm - lp).max())
+    print(f"[mesh] Trainer data-parallel over {world} cards, granite-3-2b "
+          f"smoke f32, 8 steps of 8 x 128: losses {lm.round(6).tolist()}; "
+          f"one process on one card: max abs err {err:.2e} (bound "
+          f"{MESH_TRAIN_ATOL}) on {smi}")
+    assert err < MESH_TRAIN_ATOL, (lm, lp)
+    print(json.dumps({"device": smi, "mesh": [data, model], "ranks": ranks}))
+    return 0
+
+
 def launch_sizes_main(src: Path) -> int:
     """``python3 chip_smoke.py --launch-sizes [SRC]``: build the kernels of
     the ``repro_torch`` under SRC (default this checkout's ``src``) and
@@ -2964,6 +3255,8 @@ def launch_sizes_main(src: Path) -> int:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--mesh"]:
+        return mesh_main(int(sys.argv[2]), int(sys.argv[3]))
     if sys.argv[1:2] == ["--launch-sizes"]:
         return launch_sizes_main(Path(sys.argv[2]) if sys.argv[2:] else SRC)
     if not (SRC / "repro_torch").is_dir():
@@ -3061,14 +3354,21 @@ def main() -> int:
     counts.update(phase_dlrm_exchange(dev))
     counts.update(phase_dlrm_full_width(dev, t_start))
     phase_census(dev)
+    # phase 14a's dry run works on the host: start it now, read it later
+    tmp = tempfile.TemporaryDirectory()
+    dry_json = Path(tmp.name) / "dryrun.json"
+    dryrun = start_dryrun(dry_json)
+    atexit.register(lambda: dryrun.poll() is None and dryrun.kill())
     t12 = time.perf_counter()
     phase_lm_smoke(dev)
     phase_lm_full_width(dev, smi)
     print(f"[lm] phase 12 wall_s={time.perf_counter() - t12:.1f}")
     t13 = time.perf_counter()
     phase_train_smoke(dev)
-    phase_train_full_width(dev, smi)
+    full = phase_train_full_width(dev, smi)
     print(f"[train] phase 13 wall_s={time.perf_counter() - t13:.1f}")
+    phase_mesh(dev, smi, dryrun, dry_json,
+               max(r["max_memory_allocated"] for r in full["steps"]))
 
     # name -> (source, TPU kernel it replaces, the path it is counted on)
     sources = {"aes_ecb": ("src/repro_torch/csrc/aes_ecb.cu",

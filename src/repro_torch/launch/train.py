@@ -1,5 +1,6 @@
 """Training launcher of the port — the reference's
-``repro.launch.train``, on one device.
+``repro.launch.train``: the Trainer on ``make_host_mesh(data=<the world
+size>)``.
 
   python -m repro_torch.launch.train --arch granite-3-2b --steps 20 \\
       --device cuda
@@ -7,18 +8,24 @@
       --steps 3 --batch 2 --seq 1024          # on the card
 
 ``--smoke`` (the default) selects the reduced config; ``--full`` the
-full config, which must fit the one device (no mesh: a config that does
-not fit fails with the device's own out-of-memory error).  ``--device``
-defaults to the card."""
+full config, which must fit one device (parameters are replicated: a
+config that does not fit fails with the device's own out-of-memory
+error).  ``--device`` defaults to the card.  Run alone, the world is
+this process (a world of one, started and ended here); started in a
+process group of N ranks (one process a device), it trains data-parallel
+over them."""
 from __future__ import annotations
 
 import argparse
 import os
 import tempfile
 
+import torch.distributed as dist
+
 from repro_torch.common.config import TrainConfig
 from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.model import Model
 from repro_torch.train.loop import Trainer, lm_batch_iterator
 
@@ -49,9 +56,17 @@ def main(argv=None):
                      checkpoint_dir=args.ckpt_dir,
                      checkpoint_every=args.ckpt_every,
                      pod_grad_compression=args.compression)
-    model = Model(cfg, device=dev)
-    trainer = Trainer(model, tc)
-    res = trainer.run(lm_batch_iterator(cfg, args.batch, args.seq))
+    owns_world = not dist.is_initialized()
+    mesh = make_host_mesh(
+        data=dist.get_world_size() if dist.is_initialized() else 1,
+        device=dev)
+    try:
+        model = Model(cfg, device=dev)
+        trainer = Trainer(model, tc, mesh=mesh)
+        res = trainer.run(lm_batch_iterator(cfg, args.batch, args.seq))
+    finally:
+        if owns_world and dist.is_initialized():
+            dist.destroy_process_group()
     print(f"[train] done: {res.steps_run} steps, "
           f"loss {res.losses[0]:.4f} -> {res.final_loss:.4f}, "
           f"{res.wall_s:.1f}s"

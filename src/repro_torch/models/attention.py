@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.common.config import ModelConfig
 from repro_torch.models.layers import apply_mrope, apply_rope, rms_norm, softcap
 from repro_torch.models.params import Spec
+from repro_torch.parallel.sharding import constrain
 
 NEG_INF = -2.3819763e38  # large negative for bf16-safe masking
 
@@ -259,6 +260,9 @@ def _project_qkv(cfg, p, x, positions, theta, compute_dtype):
         pos2d = positions if positions.dim() == 2 else positions[0]
         q = apply_rope(q, pos2d, theta)
         k = apply_rope(k, pos2d, theta)
+    q = constrain(q, "batch", "seq", "heads", "head_dim")
+    k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
+    v = constrain(v, "batch", "seq", "kv_heads", "head_dim")
     return q, k, v
 
 
@@ -331,6 +335,9 @@ def self_attention(
             v_att = _dequant_kv(cache["v"], cache["v_scale"], v.dtype)
         else:
             cache["k"][:, at], cache["v"][:, at] = k, v
+            for name in ("k", "v"):
+                constrain(cache[name], "batch", "cache_seq", "kv_heads",
+                          "head_dim")
             k_att, v_att = cache["k"], cache["v"]
         cache["pos"][:, at] = pos2d.to(torch.int32)
         new_cache = cache
@@ -345,7 +352,9 @@ def self_attention(
         out = _dot_attention(q, k_att, v_att, mask, scale, cfg.attn_softcap,
                              "naive" if cfg.attn_impl == "blocked"
                              else cfg.attn_impl, cfg.attn_chunk)
-    return _out_proj(out, p["wo"], compute_dtype), new_cache
+    out = constrain(out, "batch", "seq", "heads", "head_dim")
+    y = _out_proj(out, p["wo"], compute_dtype)
+    return constrain(y, "batch", "seq", "d_model"), new_cache
 
 
 def cross_attention(
@@ -416,6 +425,8 @@ def mla_attention(
         idx = int(cache_index)
         cache["ckv"][:, idx:idx + 1] = ckv
         cache["kpe"][:, idx:idx + 1] = k_pe
+        constrain(cache["ckv"], "batch", "cache_seq", None)
+        constrain(cache["kpe"], "batch", "cache_seq", None)
         new_cache = cache
         ckv_c = cache["ckv"].to(compute_dtype)
         kpe_c = cache["kpe"].to(compute_dtype)
@@ -436,6 +447,8 @@ def mla_attention(
         k = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, h, dr)],
                       dim=-1)
         q = torch.cat([q_nope, q_pe], dim=-1)
+        q = constrain(q, "batch", "seq", "heads", "head_dim")
+        k = constrain(k, "batch", "seq", "heads", "head_dim")
         mask = _build_mask(pos2d, pos2d, True, 0)[:, None, None]
         out = _dot_attention(q, k, val, mask, scale, 0.0, cfg.attn_impl,
                              cfg.attn_chunk)
@@ -445,5 +458,6 @@ def mla_attention(
             new_cache = {
                 "ckv": F.pad(ckv, (0, 0, 0, pad)).to(cache["ckv"].dtype),
                 "kpe": F.pad(k_pe, (0, 0, 0, pad)).to(cache["kpe"].dtype)}
-    return torch.einsum("bshv,hvd->bsd", out, p["wo"].to(compute_dtype)), \
-        new_cache
+    out = constrain(out, "batch", "seq", "heads", "head_dim")
+    y = torch.einsum("bshv,hvd->bsd", out, p["wo"].to(compute_dtype))
+    return constrain(y, "batch", "seq", "d_model"), new_cache

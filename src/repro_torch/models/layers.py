@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.params import Spec
+from repro_torch.parallel.sharding import constrain
 
 
 # ---------------------------------------------------------------------------
@@ -78,12 +79,14 @@ def embedding_spec(vocab: int, d_model: int):
 
 def embed(params, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
     # gather, then cast: the rows the reference takes from its cast table
-    return params["table"][tokens.long()].to(compute_dtype)
+    y = params["table"][tokens.long()].to(compute_dtype)
+    return constrain(y, "batch", "seq", "d_model")
 
 
 def unembed(params, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     """Tied LM head: logits = x @ table.T."""
-    return torch.matmul(x, params["table"].to(compute_dtype).t())
+    logits = torch.matmul(x, params["table"].to(compute_dtype).t())
+    return constrain(logits, "batch", "seq", "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -129,10 +132,11 @@ def ffn(params, x: torch.Tensor, compute_dtype,
         h = swiglu(gate, up) if act == "silu" else geglu(gate, up)
     else:
         h = gelu(up) if act == "gelu" else F.silu(up)
+    h = constrain(h, "batch", "seq", "d_ff")
     y = torch.matmul(h, params["w_down"].to(compute_dtype))
     if "b_down" in params:
         y = y + params["b_down"].to(compute_dtype)
-    return y
+    return constrain(y, "batch", "seq", "d_model")
 
 
 # ---------------------------------------------------------------------------
@@ -174,8 +178,7 @@ def apply_mrope(
     half = x.shape[-1] // 2
     assert sum(sections) == half, (sections, half)
     freqs = rope_freqs(x.shape[-1], theta, x.device)            # (half,)
-    band = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))                # (half,)
+    band = torch.tensor([i for i, n in enumerate(sections)
+                         for _ in range(n)], device=x.device)    # (half,)
     pos = positions.float()[band]                               # (half, B, S)
     return _rotate(x, pos.permute(1, 2, 0) * freqs)

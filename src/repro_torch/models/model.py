@@ -6,6 +6,10 @@ the configs — the reference's ``repro.models.model``.
   * ``prefill(batch, cache)``          -> last-token logits, filled cache
   * ``decode_step(cache, tokens, i)``  -> logits of one token a sequence
 
+plus spec trees (params, cache, and ``input_specs`` for the inputs) so the
+dry run never allocates the full-size configs: ``Model(cfg,
+device="meta")`` holds shapes only.
+
 The module holds its parameters as a ``ParamTree`` of its spec tree
 (the reference's tree, the stacked ``blocks`` as a ``ModuleList``), so
 ``state_dict`` keys are the reference's paths joined by dots, a block's
@@ -21,12 +25,13 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.common.config import ModelConfig
+from repro_torch.common.config import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import params as P
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import embed, embedding_spec, softcap, unembed
 from repro_torch.models.params import Spec, lm_params_from_numpy  # noqa: F401
+from repro_torch.parallel.sharding import constrain
 
 ENC_LEN_FOR_DECODE = 1504  # whisper: 30 s of audio -> ~1500 frames (padded)
 
@@ -148,7 +153,7 @@ class Model(P.ParamTree):
         if cfg.pos_embed == "sinusoidal":
             x = x + T.sinusoidal_positions(x.shape[1], cfg.d_model, x.dtype,
                                            x.device)[None]
-        return x
+        return constrain(x, "batch", "seq", "d_model")
 
     def _positions(self, batch, seq: int):
         cfg = self.cfg
@@ -175,6 +180,7 @@ class Model(P.ParamTree):
             logits = unembed(self["embed"], x, compute_dtype)
         else:
             logits = torch.matmul(x, self["lm_head"]["w"].to(compute_dtype))
+            logits = constrain(logits, "batch", "seq", "vocab")
         return softcap(logits, cfg.final_softcap)
 
     # ------------------------------------------------------------------ train
@@ -259,3 +265,39 @@ class Model(P.ParamTree):
             cache_index=index, train=False, compute_dtype=cd)
         x = T._norm(cfg, self["final_norm"], x)
         return self._lm_logits(x, cd), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Input specs per (arch x shape) — meta tensors + logical axes
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """Returns (dict of tensors on the ``meta`` device, dict of
+    logical-axes tuples) — the reference's ShapeDtypeStruct tree."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    cd = P.torch_dtype(cfg.compute_dtype)
+    specs: Dict[str, Any] = {}
+    axes: Dict[str, Any] = {}
+
+    def add(name, shp, ax, dtype=i32):
+        specs[name] = torch.empty(shp, dtype=dtype, device="meta")
+        axes[name] = ax
+
+    if shape.kind in ("train", "prefill"):
+        add("tokens", (b, s), ("batch", "seq"))
+        if shape.kind == "train":
+            add("targets", (b, s), ("batch", "seq"))
+        if cfg.is_encdec:
+            add("audio_embed", (b, s, cfg.d_model),
+                ("batch", "seq", "d_model"), cd)
+        if cfg.vision_stub:
+            add("vision_embed", (b, s, cfg.d_model),
+                ("batch", "seq", "d_model"), cd)
+            add("vision_mask", (b, s), ("batch", "seq"))
+            add("mrope_pos", (3, b, s), (None, "batch", "seq"))
+    else:  # decode
+        add("tokens", (b, 1), ("batch", None))
+        if cfg.vision_stub:
+            add("mrope_pos", (3, b, 1), (None, "batch", None))
+    return specs, axes

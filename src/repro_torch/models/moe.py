@@ -13,10 +13,17 @@
     and on every device — no scatter-add with atomics.
   * Shared experts are a dense always-on FFN.
 
-The module constants keep the reference's names: tests set them.  The
-reference's shard_map MoE (``expert_sharding="ep_sm"``) needs a device
-mesh; without one the reference takes ``_moe_chunked``, and so does the
-port.
+The module constants keep the reference's names: tests set them.
+
+``expert_sharding="ep_sm"`` under an active mesh takes the reference's
+shard_map MoE (``_moe_chunked_shardmap``): each rank slices its block of
+the global inputs by the reference's ``in_specs`` and runs the body with
+the collectives written out — the tiled all-to-all over "data" and its
+inverse, one all-reduce of the combined token tensor over "model" — then
+all-gathers the rows (``out_specs=P("data")``).  Each collective's
+backward is written so that every rank ends with the whole gradient of
+every global input, the no-mesh path's.  Without a mesh the reference
+takes ``_moe_chunked``, and so does the port.
 """
 from __future__ import annotations
 
@@ -24,12 +31,17 @@ import math
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.models.layers import ffn, ffn_spec
 from repro_torch.models.params import Spec
-from repro_torch.parallel.sharding import active_mesh, constrain
+from repro_torch.parallel.sharding import (NamedSharding, PartitionSpec,
+                                          active_mesh, constrain,
+                                          entry_axes)
 
 ROW_LEN = 4096          # tokens per dispatch row (<= one sequence)
 ROWS_PER_CHUNK = 16     # rows processed per step (1 per data shard)
@@ -91,7 +103,10 @@ def route(cfg: ModelConfig, p, x: torch.Tensor):
         w, ids = _top_k(probs, k)
         w = w * cfg.routed_scaling
     # load-balance statistics (flatten all token dims)
-    load = torch.bincount(ids.reshape(-1), minlength=e).float()
+    # the counts of torch.bincount, by an op that also runs on ``meta``
+    flat = ids.reshape(-1)
+    load = torch.zeros((e,), dtype=torch.int64, device=x.device).scatter_add_(
+        0, flat, torch.ones_like(flat)).float()
     load = load / torch.clamp_min(torch.sum(load), 1.0)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.router_aux_coef:
@@ -166,6 +181,11 @@ def _expert_ffn(cfg: ModelConfig, p, x_e: torch.Tensor,
     h1 = torch.einsum("...ecd,edf->...ecf", x_e, w1)
     h3 = torch.einsum("...ecd,edf->...ecf", x_e, w3)
     h = F.silu(h1) * h3
+    ffax = None if cfg.expert_sharding == "ep2d" else "expert_ff"
+    if x_e.dim() == 4:
+        h = constrain(h, None, _eax(cfg), None, ffax)
+    else:
+        h = constrain(h, _eax(cfg), None, ffax)
     return torch.einsum("...ecf,efd->...ecd", h, w2)
 
 
@@ -179,14 +199,12 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor,
     if b * s <= FLAT_PATH_MAX_TOKENS:
         y, aux, load = _moe_flat(cfg, p, x, compute_dtype)
     elif cfg.expert_sharding == "ep_sm" and active_mesh() is not None:
-        raise NotImplementedError(
-            "the shard_map MoE needs a device mesh (multi-device placement "
-            "is not ported yet)")
+        y, aux, load = _moe_chunked_shardmap(cfg, p, x, compute_dtype)
     else:
         y, aux, load = _moe_chunked(cfg, p, x, compute_dtype)
     if cfg.n_shared_experts:
         y = y + ffn(p["shared"], x, compute_dtype)
-    return y, aux, load
+    return constrain(y, "batch", "seq", "d_model"), aux, load
 
 
 def _moe_flat(cfg, p, x, compute_dtype):
@@ -203,8 +221,212 @@ def _moe_flat(cfg, p, x, compute_dtype):
     x_pad = torch.cat([xf, xf.new_zeros((1, d))])
     x_e = constrain(x_pad[buf_tok], _eax(cfg), None, None)  # EP all-to-all
     y_e = _expert_ffn(cfg, p, x_e, compute_dtype)              # (E, C, d)
+    y_e = constrain(y_e, _eax(cfg), None, None)
     y = _combine_row(buf_tok, buf_w, y_e, n, k)
-    return y.reshape(b, s, d), aux, load
+    return constrain(y.reshape(b, s, d), "batch", "seq", "d_model"), aux, load
+
+
+def _route_rows(cfg, p, x_c, cap: int):
+    """Route a chunk of rows (r, L, d) and build each row's capacity
+    buckets: (buf_tok, buf_w) (r, E, C), the aux loss, the load."""
+    r, row_len, _ = x_c.shape
+    ids, w, aux, load = route(cfg, p, x_c)
+    bufs = [_dispatch_row(ids[i], w[i], row_len, cfg.n_experts, cap)
+            for i in range(r)]
+    return (torch.stack([bt for bt, _ in bufs]),
+            torch.stack([bw for _, bw in bufs]), aux, load)
+
+
+# ---------------------------------------------------------------------------
+# The shard_map MoE (expert_sharding="ep_sm") over explicit collectives
+# ---------------------------------------------------------------------------
+
+def _wait(t: torch.Tensor) -> torch.Tensor:
+    return funcol.wait_tensor(t)
+
+
+# all_gather_single is the newer name of all_gather_tensor
+_all_gather_dim0 = getattr(funcol, "all_gather_single",
+                           funcol.all_gather_tensor)
+
+
+def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The blocks of ``group``'s ranks concatenated along ``dim``, in rank
+    order."""
+    out = _wait(_all_gather_dim0(x.movedim(dim, 0).contiguous(), 0, group))
+    return out.movedim(0, dim)
+
+
+def _all_to_all(x: torch.Tensor, group, split: int, concat: int
+                ) -> torch.Tensor:
+    """``jax.lax.all_to_all(..., tiled=True)``: split ``x`` along
+    ``split`` into one block a rank of ``group``, send block i to rank
+    i, and concatenate the blocks received along ``concat`` in rank
+    order."""
+    n = dist.get_world_size(group)
+    xs = x.movedim(split, 0).contiguous()
+    out = _wait(funcol.all_to_all_single(xs, None, None, group))
+    out = out.reshape(n, xs.shape[0] // n, *xs.shape[1:]).movedim(1, split + 1)
+    out = out.movedim(0, concat)
+    return out.reshape(*out.shape[:concat], -1, *out.shape[concat + 2:])
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all; its backward is the inverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, group, split, concat):
+        ctx.args = (group, split, concat)
+        return _all_to_all(x, group, split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split, concat = ctx.args
+        return _all_to_all(g, group, concat, split), None, None, None
+
+
+class _SumReplicas(torch.autograd.Function):
+    """``psum`` over ``group`` of partial sums whose total every rank then
+    holds as its own replica: the cotangent each rank receives is the
+    whole cotangent of the total, so the backward is the identity (an
+    all-reduce here would count it once per rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _wait(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ShardIn(torch.autograd.Function):
+    """This rank's block of a global (replicated) tensor by ``sharding``
+    (a ``shard_map`` in_spec).  The backward assembles the global
+    tensor's whole gradient on every rank: the blocks all-gathered along
+    their dims, and the partial sums of ``partial_over`` (the axes whose
+    ranks each computed a part of this block's gradient) all-reduced."""
+
+    @staticmethod
+    def forward(ctx, x, sharding, partial_over):
+        ctx.args = (sharding, partial_over)
+        return sharding.local_block(x).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        sharding, partial_over = ctx.args
+        mesh = sharding.mesh
+        for dim, e in reversed(list(enumerate(sharding.spec))):
+            for a in reversed(entry_axes(e)):
+                g = _all_gather(g, dim, mesh.get_group(a))
+        for a in partial_over:
+            g = _wait(funcol.all_reduce(g, "sum", mesh.get_group(a)))
+        return g, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """``out_specs=P("data")`` (``rows``): every rank's rows all-gathered
+    over "data" (dim 0); every rank then holds the global output and its
+    whole cotangent, so the backward keeps this rank's block of it."""
+
+    @staticmethod
+    def forward(ctx, y, rows):
+        ctx.rows = rows
+        return _all_gather(y, 0, rows.mesh.get_group("data"))
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.rows.local_block(g), None
+
+
+def _expert_shard_map_fn(cfg, mesh, row_len: int):
+    """Per-rank body of the shard_map MoE (``expert_sharding="ep_sm"``):
+    run the expert FFN on f-shards and combine the per-shard partials
+    into the token tensor before a single all-reduce over "model",
+    instead of all-reducing the dispatched (tokens x k x capacity)
+    buffer.
+
+    Per-rank inputs (``_ShardIn`` slices them):
+      x_pad   (r_loc, L+1, d)   rows of this data shard (+ zero sentinel)
+      buf_tok (r_loc, E, C)     dispatch buckets for those rows
+      buf_w   (r_loc, E, C)
+      w1/w3   (E_loc, d, f_loc) this rank's expert/f shards
+      w2      (E_loc, f_loc, d)
+    Output: y (r_loc, L, d) — fully reduced over "model"."""
+    g_data, g_model = mesh.get_group("data"), mesh.get_group("model")
+
+    def body(x_pad, buf_tok, buf_w, w1, w3, w2):
+        r_loc = x_pad.shape[0]
+        rows = torch.arange(r_loc, device=x_pad.device)[:, None, None]
+        x_e = x_pad[rows, buf_tok]                        # (r, E, C, d)
+        # EP all-to-all over "data": split experts, concat rows ->
+        # (r_loc * n_data, E_loc, C, d): every row shard's tokens for the
+        # experts that live on this data shard
+        x_e = _AllToAll.apply(x_e, g_data, 1, 0)
+        h1 = torch.einsum("recd,edf->recf", x_e, w1)
+        h3 = torch.einsum("recd,edf->recf", x_e, w3)
+        y_e = torch.einsum("recf,efd->recd", F.silu(h1) * h3, w2)
+        # partial over "model" (f contracted locally); the inverse
+        # all-to-all sends expert outputs back to their row shards
+        y_e = _AllToAll.apply(y_e, g_data, 0, 1)          # (r_loc, E, C, d)
+        # combine to tokens while still partial over "model" ...
+        y = torch.stack([_combine_row(buf_tok[i], buf_w[i], y_e[i], row_len,
+                                      cfg.top_k) for i in range(r_loc)])
+        # ... then one reduction of the token tensor
+        return _SumReplicas.apply(y, g_model)
+    return body
+
+
+def _moe_chunked_shardmap(cfg, p, x, compute_dtype):
+    """expert_sharding="ep_sm": the explicit-collective MoE (above), on
+    the active mesh.  Routing and dispatch run on every rank over the
+    global chunk, as the reference's run outside its shard_map."""
+    mesh = active_mesh()
+    b, s, d = x.shape
+    e = cfg.n_experts
+    row_len = min(s, ROW_LEN)
+    n_rows = b * (s // row_len)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    n_data = sizes.get("data", 1)
+    n_model = sizes.get("model", 1)
+    xr = x.reshape(n_rows, row_len, d)
+    nc = max(1, n_rows // max(n_data, ROWS_PER_CHUNK))
+    r = n_rows // nc
+    if r % n_data or e % n_data or cfg.moe_d_ff % n_model:
+        raise ValueError(
+            f"ep_sm: {r} rows a chunk and {e} experts must divide over "
+            f"data={n_data}, moe_d_ff={cfg.moe_d_ff} over model={n_model}")
+    xrc = xr.reshape(r, nc, row_len, d)
+    cap = max(1, math.ceil(CAPACITY_FACTOR * row_len * cfg.top_k / e))
+    # the reference's in_specs
+    rows = NamedSharding(mesh, PartitionSpec("data"))
+    w13 = NamedSharding(mesh, PartitionSpec("data", None, "model"))
+    w1 = _ShardIn.apply(p["w1"].to(compute_dtype), w13, ())
+    w3 = _ShardIn.apply(p["w3"].to(compute_dtype), w13, ())
+    w2 = _ShardIn.apply(p["w2"].to(compute_dtype), NamedSharding(
+        mesh, PartitionSpec("data", "model", None)), ())
+    body = _expert_shard_map_fn(cfg, mesh, row_len)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    load = torch.zeros((e,), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nc):
+        x_c = constrain(xrc[:, c], "batch", None, None)    # (r, L, d)
+        buf_tok, buf_w, a, l = _route_rows(cfg, p, x_c, cap)
+        aux, load = aux + a, load + l
+        buf_w = buf_w.to(compute_dtype)
+        x_pad = torch.cat([x_c.to(compute_dtype),
+                           x_c.new_zeros((r, 1, d), dtype=compute_dtype)],
+                          dim=1)
+        # recompute the expert segment in the backward instead of keeping
+        # its all-to-all and dispatch intermediates for every chunk
+        y_c = checkpoint(
+            body, _ShardIn.apply(x_pad, rows, ("model",)),
+            _ShardIn.apply(buf_tok, rows, ("model",)),
+            _ShardIn.apply(buf_w, rows, ("model",)), w1, w3, w2,
+            use_reentrant=False)
+        ys.append(_GatherRows.apply(y_c, rows))            # (r, L, d)
+    y = torch.stack(ys, dim=1).reshape(b, s, d)
+    return y.to(x.dtype), aux / nc, load / nc
 
 
 def _moe_chunked(cfg, p, x, compute_dtype):
@@ -225,17 +447,15 @@ def _moe_chunked(cfg, p, x, compute_dtype):
     load = torch.zeros((e,), dtype=torch.float32, device=x.device)
     ys = []
     for c in range(nc):
-        x_c = xrc[:, c]                                    # (r, L, d)
-        ids, w, a, l = route(cfg, p, x_c)
+        x_c = constrain(xrc[:, c], "batch", None, None)    # (r, L, d)
+        buf_tok, buf_w, a, l = _route_rows(cfg, p, x_c, cap)
         aux, load = aux + a, load + l
-        bufs = [_dispatch_row(ids[i], w[i], row_len, e, cap)
-                for i in range(r)]
-        buf_tok = torch.stack([bt for bt, _ in bufs])      # (r, E, C)
-        buf_w = torch.stack([bw for _, bw in bufs])
         x_pad = torch.cat([x_c, x_c.new_zeros((r, 1, d))], dim=1)
         x_e = torch.stack([x_pad[i][buf_tok[i]] for i in range(r)])
         x_e = constrain(x_e, None, _eax(cfg), None, None)  # EP all-to-all
         y_e = _expert_ffn(cfg, p, x_e, compute_dtype)      # (r, E, C, d)
+        y_e = constrain(y_e, None, _eax(cfg), None, None)
+        y_e = constrain(y_e, "batch", None, None, None)    # back to rows
         ys.append(torch.stack([
             _combine_row(buf_tok[i], buf_w[i], y_e[i], row_len, k)
             for i in range(r)]))                           # (r, L, d)

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.common.config import ModelConfig
 from repro_torch.models.layers import gelu
 from repro_torch.models.params import Spec
+from repro_torch.parallel.sharding import constrain
 
 
 # ---------------------------------------------------------------------------
@@ -96,8 +97,8 @@ def _mlstm_chunkwise(q, k, v, ig, fg, chunk: int, state=None):
 
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=dev))
-    outs = []
-    for c0 in range(0, s, chunk):
+
+    def step(c0, C, n, m):
         qb, kb, vb = (t[:, :, c0:c0 + chunk].float() for t in (q, k, v))
         ib, fb = (t[:, :, c0:c0 + chunk].float() for t in (ig, fg))
         logf = F.logsigmoid(fb)                   # (B,H,L)
@@ -119,8 +120,7 @@ def _mlstm_chunkwise(q, k, v, ig, fg, chunk: int, state=None):
         n_inter = torch.einsum("bhtd,bhd->bht", qb, n) * scale_in
         num = h_inter + torch.einsum("bhts,bhse->bhte", smat, vb)
         den = n_inter + torch.sum(smat, dim=-1)
-        outs.append(num / torch.maximum(torch.abs(den),
-                                        torch.exp(-m_t))[..., None])
+        out = num / torch.maximum(torch.abs(den), torch.exp(-m_t))[..., None]
         # state update to end of chunk
         m_next = torch.maximum(m + btot, torch.amax(
             ib + btot[..., None] - bcum, dim=-1))
@@ -129,7 +129,22 @@ def _mlstm_chunkwise(q, k, v, ig, fg, chunk: int, state=None):
         C = (C * decay[..., None, None]
              + torch.einsum("bhs,bhsd,bhse->bhde", kv_scale, kb, vb))
         n = n * decay[..., None] + torch.einsum("bhs,bhsd->bhd", kv_scale, kb)
-        m = m_next
+        return out, C, n, m_next
+
+    if q.is_meta:
+        # shapes only (the dry run): the chunks are alike, so one is run
+        # and counted as the s // chunk it stands for
+        from repro_torch.launch.cost_analysis import count_as
+        nch = s // chunk
+        out, C, n, m = count_as(nch, lambda: step(0, C, n, m),
+                                [q, k, v, ig, fg, C, n, m])
+        out = out[:, :, None].expand(b, h, nch, chunk, dh).reshape(
+            b, h, s, dh)
+        return out.to(v.dtype), (C, n, m)
+    outs = []
+    for c0 in range(0, s, chunk):
+        out, C, n, m = step(c0, C, n, m)
+        outs.append(out)
     return torch.cat(outs, dim=2).to(v.dtype), (C, n, m)
 
 
@@ -172,6 +187,7 @@ def mlstm_block(cfg: ModelConfig, p, x: torch.Tensor, cache=None,
     b, s, _ = x.shape
 
     up = torch.matmul(x, p["w_up"].to(compute_dtype))
+    up = constrain(up, "batch", "seq", "d_ff")
     xm, z = torch.chunk(up, 2, dim=-1)
     conv_state = cache["conv"] if cache is not None else None
     xc, conv_new = causal_conv1d(p["conv"], xm, conv_state)
@@ -204,7 +220,8 @@ def mlstm_block(cfg: ModelConfig, p, x: torch.Tensor, cache=None,
     hflat = h.transpose(1, 2).reshape(b, s, inner)
     hflat = _group_rms(hflat, p["gn_scale"], nh, cfg.norm_eps)
     hflat = hflat * F.silu(z)
-    return torch.matmul(hflat, p["w_down"].to(compute_dtype)), new_cache
+    y = torch.matmul(hflat, p["w_down"].to(compute_dtype))
+    return constrain(y, "batch", "seq", "d_model"), new_cache
 
 
 def mlstm_cache_spec(cfg: ModelConfig, batch: int):
@@ -289,11 +306,19 @@ def slstm_block(cfg: ModelConfig, p, x: torch.Tensor, cache=None,
         state = (c0, c0, c0, c0)
     else:
         state = (cache["c"], cache["n"], cache["m"], cache["h"])
-    hs = []
-    for t in range(s):
-        state = _slstm_cell(p, xg[:, t], state, nh)
-        hs.append(state[3].to(compute_dtype))
-    hs = torch.stack(hs, dim=1)                            # (B,S,d)
+    if x.is_meta:
+        # shapes only (the dry run): the steps are alike, so one is run
+        # and counted as the s it stands for
+        from repro_torch.launch.cost_analysis import count_as
+        state = count_as(s, lambda: _slstm_cell(p, xg[:, 0], state, nh),
+                         [xg, *state])
+        hs = state[3].to(compute_dtype)[:, None].expand(b, s, d)
+    else:
+        hs = []
+        for t in range(s):
+            state = _slstm_cell(p, xg[:, t], state, nh)
+            hs.append(state[3].to(compute_dtype))
+        hs = torch.stack(hs, dim=1)                        # (B,S,d)
     hs = _group_rms(hs, p["gn_scale"], nh, cfg.norm_eps)
     up = torch.matmul(hs, p["w_up"].to(compute_dtype))
     g, u = torch.chunk(up, 2, dim=-1)
@@ -302,7 +327,7 @@ def slstm_block(cfg: ModelConfig, p, x: torch.Tensor, cache=None,
     if cache is not None:
         c, n, m, h_last = state
         new_cache = {"c": c, "n": n, "m": m, "h": h_last, "conv": conv_new}
-    return y, new_cache
+    return constrain(y, "batch", "seq", "d_model"), new_cache
 
 
 def slstm_cache_spec(cfg: ModelConfig, batch: int):
@@ -362,7 +387,8 @@ def rglru_block(cfg: ModelConfig, p, x: torch.Tensor, cache=None,
                 compute_dtype=torch.bfloat16):
     """Griffin recurrent block. x: (B,S,d)."""
     gate = gelu(torch.matmul(x, p["w_gate"].to(compute_dtype)))
-    xr = torch.matmul(x, p["w_x"].to(compute_dtype))
+    xr = constrain(torch.matmul(x, p["w_x"].to(compute_dtype)),
+                   "batch", "seq", "lru")
     conv_state = cache["conv"] if cache is not None else None
     xc, conv_new = causal_conv1d(p["conv"], xr, conv_state)
 
@@ -388,7 +414,8 @@ def rglru_block(cfg: ModelConfig, p, x: torch.Tensor, cache=None,
         new_cache = {"h": h1, "conv": conv_new}
 
     y = h.to(compute_dtype) * gate
-    return torch.matmul(y, p["w_down"].to(compute_dtype)), new_cache
+    y = torch.matmul(y, p["w_down"].to(compute_dtype))
+    return constrain(y, "batch", "seq", "d_model"), new_cache
 
 
 def rglru_cache_spec(cfg: ModelConfig, batch: int):

@@ -21,9 +21,9 @@ reference's where the two meet, and the framework tests of
 * ``test_system.py`` in the port: ``test_crash_resume_training``,
   ``test_training_reduces_loss``, ``test_checkpoint_roundtrip``,
   ``test_checkpoint_keeps_latest``, ``test_mtp_loss_present``; and for
-  ``test_sharding_divisibility_fallback`` the port's counterpart: one
-  device, no mesh — the trainer refuses a mesh and placement is the
-  identity until the port places over several devices.
+  ``test_sharding_divisibility_fallback`` the reference's resolution and
+  fallback on both packages' rule tables (the trainer on a mesh:
+  ``tests/test_torch_mesh_train.py``).
 """
 import shutil
 
@@ -250,17 +250,35 @@ def test_checkpoint_save_is_a_snapshot(tmp_path):
 
 
 def test_sharding_divisibility_fallback(tmp_path):
-    """The port's counterpart: it places on one device, so there is no
-    rule table to fall back from — ``constrain`` is the identity, no
-    mesh is active, and the trainer refuses a mesh (until placement over
-    several devices is ported)."""
+    """The reference's test, on the port's rule tables (both packages on
+    a stand-in mesh: ``resolve_spec`` reads only the axis names and
+    sizes), and an indivisible dim falls back to replication, logged as
+    the reference logs it.  ``constrain`` moves nothing; the trainer
+    takes a mesh (its data-parallel run: ``tests/
+    test_torch_mesh_train.py``)."""
+    from types import SimpleNamespace
+
+    from repro.parallel import sharding as jsh
+    one = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(1, 1))
+    spec = sharding.resolve_spec((8, 128), ("batch", "d_ff"), one,
+                                 sharding.make_rules("train"), "t")
+    assert spec == ("data", "model")
+    mesh = SimpleNamespace(mesh_dim_names=("data", "model"), shape=(2, 4))
+    jmesh = SimpleNamespace(axis_names=("data", "model"),
+                            devices=SimpleNamespace(shape=(2, 4)))
+    for mod, m in ((sharding, mesh), (jsh, jmesh)):
+        mod.clear_fallback_log()
+        got = mod.resolve_spec((7, 128), ("batch", "d_ff"), m,
+                               mod.make_rules("train"), "t2")
+        assert tuple(got) == (None, "model")
+    assert sharding.FALLBACK_LOG == jsh.FALLBACK_LOG == [
+        ("t2", "batch", 7, ("data",), "indivisible")]
     x = torch.zeros(7, 128)
     assert sharding.constrain(x, "batch", "d_ff") is x
     assert sharding.active_mesh() is None
     cfg = get_smoke_config("granite-3-2b")
     tc = TrainConfig(checkpoint_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Trainer(Model(cfg, device="cpu"), tc, mesh=object())
+    assert Trainer(Model(cfg, device="cpu"), tc).mesh is None
 
 
 def test_mtp_loss_present():

@@ -132,6 +132,9 @@ def test_launch_train_matches_reference(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(tlaunch, "get_smoke_config",
                         f32(tlaunch.get_smoke_config))
     monkeypatch.setattr(tlaunch, "Trainer", _carrying_trainer(rec, out))
+    # no process group in the pytest worker: the launcher's world of one
+    # runs in tests/test_torch_mesh_train.py, in a subprocess
+    monkeypatch.setattr(tlaunch, "make_host_mesh", lambda **k: None)
     assert tlaunch.main(argv + ["--ckpt-dir", str(tmp_path / "port"),
                                 "--device", "cpu"]) == 0
     assert "[train] done: 6 steps" in capsys.readouterr().out
