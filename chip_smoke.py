@@ -9,7 +9,9 @@ datapath (paper Fig. 1), the §8 streaming ingest into a full-size DLRM,
 the allreduce fabric, and the §8 ingest of encrypted shards that trains
 the DLRM; then the telemetry plane and the fused epoch core,
 data-parallel DLRM training over the allreduce, the host-sync
-census, and the LM model stack's serving path.
+census, the LM model stack's serving and training paths, the mesh
+layer, and the DPI model's training, the sharded landing zone and the
+elastic checkpoint restore.
 
   0. device   the card's name and power limit (nvidia-smi)
   1. build    nvcc, one process per kernel source, all at once; each
@@ -151,8 +153,25 @@ census, and the LM model stack's serving path.
               per-device argument bytes of gemma2-2b at phase 13b's batch
               (2 x 1024, AdamW, a one-card mesh) at or below the
               ``max_memory_allocated`` phase 13b measured
+ 15. placement DPI training, the sharded landing zone and the elastic
+              restore: (a) ``train_dpi_params(make_dataset(2048,
+              seed=0), steps=200)`` on the card against the CPU from the
+              same CPU-generator weights (worst float error before
+              ternarization within 1e-5 of each leaf's largest
+              magnitude, ternary entries that differ, walls), the card's
+              weights scoring ``make_dataset(512, seed=2)`` through the
+              DPI kernel above 0.85, then
+              ``repro_torch.examples.secure_flow.main`` on the card,
+              which trains the same weights and flags the malicious
+              flow; on an NCCL world of one: (b) 6b's first shard
+              landed in a zone sharded ("data", None), its
+              ``full_tensor()`` bit-equal to the unsharded zone; (c)
+              gemma2-2b's full ``config()`` parameters (float32, 10.46
+              GB, the weights 13b starts from) written once and restored
+              by the train rules on the mesh of one, every leaf a
+              ``DTensor`` bit-equal to what was written; walls
 
-Fifteen paths are driven through the kernels, each with the launch
+Seventeen paths are driven through the kernels, each with the launch
 counters set to 0 just before it and read just after it: the main path
 (phase 3, kernel arm: AES, DPI), the ICRC chain (phase 4: all three
 services), ingest (6b, kernel arm, its warm-up tile included: preproc),
@@ -162,7 +181,9 @@ tile included: fused decrypt+DPI, preproc), and in phase 9 fig6_fused,
 fig10_fused, fig11_fused, ingest_fused, ingest_fused_w16 and
 allreduce_ring_fused (fused_epoch, and the kernels each path runs), and
 in phase 10 dlrm_exchange (reduce_fold) and dlrm_exchange_full
-(fused_epoch, reduce_fold). Each
+(fused_epoch, reduce_fold), and in phase 15 secure_flow_trained (the
+example with its trained inspector: AES, DPI) and ingest_sharded (15b:
+preproc). Each
 path prints the shapes of its fold and preprocessing launches. The line
 before the last is a JSON object with every kernel's path, launches on
 that path (and on each path apart), error, time, plain time, bound and
@@ -178,7 +199,14 @@ NCCL world: on ``make_host_mesh(DATA, MODEL)`` the shard_map MoE of
 phase 14b against each card's no-mesh path (forward, gradients, the
 collectives called, fwd+bwd wall), then a data-parallel ``Trainer`` on
 ``make_host_mesh(data=DATA x MODEL)`` against one process on one card
-(losses); one JSON line of every rank's results.
+(losses); then phase 6b's first shard landed over "data" of a
+(DATA x MODEL, 1) mesh on every card (each block bit-equal to rank 0's
+unsharded rows; tiles decoded against landed), gemma2-2b's full
+parameters written once by rank 0 and restored by the train rules on
+(DATA, MODEL) and (DATA x MODEL, 1) meshes (every block bit-equal to
+the file's slice; bytes resident a card), and a save from the (DATA,
+MODEL) ``DTensor``s byte-identical to rank 0's file; one JSON line of
+every rank's results.
 
     python3 chip_smoke.py --launch-sizes [SRC]
 
@@ -1405,6 +1433,10 @@ def phase_fig10(dev) -> dict:
     return got
 
 
+def _poisoned(raw):
+    raise AssertionError("host decode touched payload bytes")
+
+
 def _ingest_cfg(epoch_mode=None, fc_window=None):
     from repro_torch.core.ingest import IngestConfig
     return IngestConfig(batch_bytes=SHARD_PKTS * MTU, n_storage_nodes=4,
@@ -1423,12 +1455,9 @@ def run_ingest(dev, model, impl, n_shards, epoch_mode=None,
     from repro_torch.core.ingest import BalboaIngest, make_dlrm_tile_decoder
     from repro_torch.data import synthetic as syn
 
-    def poisoned(raw):
-        raise AssertionError("host decode touched payload bytes")
-
     ing = BalboaIngest(
         _ingest_cfg(epoch_mode, fc_window), None,
-        _dlrm_shard_fn(SHARD_PKTS), decode_fn=poisoned,
+        _dlrm_shard_fn(SHARD_PKTS), decode_fn=_poisoned,
         tile_to_batch=make_dlrm_tile_decoder(N_DENSE, N_SPARSE, MOD,
                                              impl=impl), device=dev)
     shards = []
@@ -1710,11 +1739,8 @@ def run_secure_ingest(dev, model, tparams, shards, impl) -> dict:
                                               impl=impl)
         return {**decode(plain), "dpi_score": score}
 
-    def poisoned(raw):
-        raise AssertionError("host decode touched payload bytes")
-
     ing = BalboaIngest(_ingest_cfg(), None, lambda i: shards[i],
-                       decode_fn=poisoned, tile_to_batch=tile_to_batch,
+                       decode_fn=_poisoned, tile_to_batch=tile_to_batch,
                        device=dev)
     out = []
     t0 = time.perf_counter()
@@ -3125,6 +3151,379 @@ def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
             "arg_bytes_13b": arg, "peak_13b": peak_13b, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: DPI training, the sharded landing zone, the elastic restore
+# ---------------------------------------------------------------------------
+
+DPI_TRAIN_STEPS = 200   # examples/secure_flow.py's training
+DPI_TRAIN_RTOL = 1e-5   # card vs CPU float weights, of each leaf's max |w|
+DPI_ACC_BAR = 0.85      # the reference's tests/test_kernels.py bar
+
+
+def phase_dpi_training(dev) -> dict:
+    """Phase 15a: ``train_dpi_params`` on the card against the CPU from
+    the same CPU-generator weights (float error, ternary entries that
+    differ, walls), the accuracy of the card's weights scored by the DPI
+    kernel, then ``repro_torch.examples.secure_flow.main()`` on the card,
+    which trains the same weights and serves the flows with them.
+    Returns the launch counts of that run (path ``secure_flow_trained``)."""
+    import torch
+    from repro_torch.data.dpi_dataset import make_dataset
+    from repro_torch.examples import secure_flow
+    from repro_torch.kernels import dpi_mlp, ops
+    x, y = make_dataset(2048, seed=0)
+    floats, tern, walls = {}, {}, {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        p0 = dpi_mlp.init_dpi_params(0, d)
+        floats[name] = {k: v.cpu().numpy() for k, v in
+                        dpi_mlp.train_float_dpi_params(
+                            p0, x, y, DPI_TRAIN_STEPS, device=d).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tern[name] = dpi_mlp.train_dpi_params(x, y, DPI_TRAIN_STEPS,
+                                              device=d)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        want = dpi_mlp.ternarize(floats[name])
+        assert all(tern[name][k].tobytes() == want[k].tobytes()
+                   for k in want), f"train_dpi_params on {d} is not " \
+            "ternarize of its float loop"
+    card, cpu = floats["card"], floats["cpu"]
+    errs = {k: float(np.abs(card[k] - cpu[k]).max() / np.abs(cpu[k]).max())
+            for k in card}
+    flips = []
+    for k in ("w1", "w2", "w3"):
+        thr = 0.7 * np.abs(cpu[k]).mean()
+        for idx in zip(*np.nonzero(tern["card"][k] != tern["cpu"][k])):
+            flips.append((k, idx, float(abs(abs(cpu[k][idx]) - thr))))
+    print(f"[dpi-train] (a) train_dpi_params(make_dataset(2048, seed=0), "
+          f"steps={DPI_TRAIN_STEPS}) on the card vs the CPU: worst float "
+          f"error before ternarization, of each leaf's max |w|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (bound {DPI_TRAIN_RTOL}); ternary entries that differ "
+          f"{len(flips)} of {sum(card[k].size for k in ('w1', 'w2', 'w3'))}"
+          f" {flips}; wall card {walls['card'] * 1e3:.1f} ms, CPU "
+          f"{walls['cpu'] * 1e3:.1f} ms")
+    assert max(errs.values()) < DPI_TRAIN_RTOL, errs
+    assert all(dist < DPI_TRAIN_RTOL * float(np.abs(cpu[k]).max())
+               for k, _, dist in flips), flips
+    xt, yt = make_dataset(512, seed=2)
+    params = dpi_mlp.dpi_params_from_numpy(tern["card"], dev)
+    before = ops.launches()["dpi_mlp"]
+    scores = ops.dpi_scores(torch.from_numpy(xt.reshape(len(xt), 64))
+                            .to(dev), params)[:, 0].cpu().numpy()
+    assert ops.launches()["dpi_mlp"] == before + 1, "dpi_scores not launched"
+    acc = float(((scores > 0) == (yt > 0.5)).mean())
+    print(f"[dpi-train] (a) accuracy of the card's ternary weights on "
+          f"make_dataset(512, seed=2), scored by the dpi_mlp kernel: "
+          f"{acc:.4f} (bar {DPI_ACC_BAR})")
+    assert acc > DPI_ACC_BAR, acc
+
+    got = {}
+    real = secure_flow.train_dpi_params
+
+    def recording(*a, **k):
+        got["params"] = real(*a, **k)
+        return got["params"]
+
+    secure_flow.train_dpi_params = recording
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    try:
+        res = secure_flow.main(dev)
+    finally:
+        secure_flow.train_dpi_params = real
+    on_path = ops.launches()
+    wall = time.perf_counter() - t0
+    assert res["device"] == str(dev), res
+    assert all(got["params"][k].tobytes() == tern["card"][k].tobytes()
+               for k in tern["card"]), "secure_flow trained other weights"
+    assert res["flagged"]["malicious"] > 0, res
+    print(f"[dpi-train] (a) repro_torch.examples.secure_flow.main({dev}) on the "
+          f"card trains the same weights and serves the flows: delivered "
+          f"bytes equal, dpi_flagged {res['flagged']}, {res['pcap_packets']}"
+          f" packets captured, wall {wall:.2f} s; kernel launches {on_path}")
+    assert on_path["dpi_mlp"] > 0, "dpi_mlp not launched on secure_flow"
+    return {"secure_flow_trained": on_path}
+
+
+def _stacked_tree(model) -> dict:
+    """The model's parameters as the reference's tree (a stacked
+    subtree's layers stacked along a leading axis), on its device."""
+    import torch
+    from repro_torch.models import params as P
+    with torch.no_grad():
+        return P.nest({path: (torch.stack(v) if isinstance(v, list)
+                              else v.detach())
+                       for path, v in P.leaf_groups(model).items()})
+
+
+def _gemma_like():
+    """gemma2-2b's full parameter tree as ``meta`` stand-ins (the
+    restore's ``like``), and its spec tree."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import params as P
+    from repro_torch.models.model import param_spec
+    cfg = get_config(FULL_ARCH)
+    assert cfg.param_dtype == "float32", cfg
+    pspec = param_spec(cfg)
+    return {"params": P.shapes(pspec, cfg.param_dtype)}, pspec
+
+
+def _gemma_full(dev) -> dict:
+    """gemma2-2b's full ``config()`` parameters (float32, drawn on a CUDA
+    generator seeded 0: the weights phase 13b starts from) as the
+    reference's tree on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    model = Model(get_config(FULL_ARCH), device=dev)
+    model.init_params(generator=torch.Generator(device=dev).manual_seed(0))
+    return _stacked_tree(model)
+
+
+def _train_shardings(like, pspec, mesh) -> dict:
+    from repro_torch.models import params as P
+    from repro_torch.parallel import sharding as sh
+    sh.clear_fallback_log()
+    return {"params": sh.tree_shardings(like["params"], P.axes(pspec), mesh,
+                                        sh.make_rules("train"), FULL_ARCH)}
+
+
+def phase_placement(dev, smi: str) -> dict:
+    """Phase 15b-c on an NCCL world of one (as 14b builds it): (b) phase
+    6b's first shard streamed into a landing zone sharded ("data", None)
+    on the mesh of one against the unsharded zone; (c) gemma2-2b's full
+    parameters written once and restored by the train rules on that
+    mesh, every leaf bit-equal.  Returns the launch counts of the
+    sharded fetch (path ``ingest_sharded``)."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.core.ingest import BalboaIngest, make_dlrm_tile_decoder
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.params import tree_items
+    from repro_torch.parallel.sharding import (NamedSharding, PartitionSpec,
+                                               fallback_summary)
+    mesh = make_host_mesh()
+    assert dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1)
+    rows = NamedSharding(mesh, PartitionSpec("data", None))
+
+    def fetch(shardings):
+        ing = BalboaIngest(
+            _ingest_cfg(), None, _dlrm_shard_fn(SHARD_PKTS),
+            decode_fn=_poisoned, shardings=shardings, device=dev,
+            tile_to_batch=make_dlrm_tile_decoder(N_DENSE, N_SPARSE, MOD))
+        t0 = time.perf_counter()
+        batch, rep = ing.fetch_shard_streaming(0)
+        torch.cuda.synchronize()
+        return ing, batch, rep, time.perf_counter() - t0
+
+    _, whole, wrep, wall_whole = fetch(None)
+    ops.reset_launches()
+    ing, got, rep, wall = fetch({"dense": rows, "sparse": rows})
+    on_path = ops.launches()
+    assert rep.events == wrep.events and rep.ticks == wrep.ticks
+    for k in ("dense", "sparse"):
+        assert isinstance(got[k], DTensor) and got[k].to_local().is_cuda, k
+        full = got[k].full_tensor()
+        assert full.shape == whole[k].shape and torch.equal(
+            full.view(torch.int32), whole[k].view(torch.int32)), k
+    assert ing.host_payload_bytes == 0
+    print(f"[placement] (b) phase 6b's shard 0 ({SHARD_PKTS} packets, "
+          f"{RPP * SHARD_PKTS} records) into a zone sharded ('data', None) "
+          f"on the NCCL mesh of one {tuple(mesh.shape)}: full_tensor() "
+          f"bit-equal to the unsharded zone (dense and sparse), the same "
+          f"{rep.ticks} ticks and events; tiles decoded {ing.tiles_decoded}"
+          f" / landed {rep.tiles}, skipped {ing.tiles_skipped}; wall "
+          f"{wall:.2f} s (unsharded {wall_whole:.2f}); kernel launches "
+          f"{on_path}")
+    assert on_path["preproc"] > 0, "preproc not launched on ingest_sharded"
+
+    # (c) the elastic restore at full width
+    like, pspec = _gemma_like()
+    tree = _gemma_full(dev)
+    state = {"params": tree}
+    n_bytes = sum(t.numel() * t.element_size() for _, t in tree_items(state))
+    assert n_bytes == FULL_PARAMS_LM * 4, n_bytes
+    with tempfile.TemporaryDirectory() as d:
+        free = shutil.disk_usage(d).free
+        ck = Checkpointer(d)
+        t0 = time.perf_counter()
+        ck.save(0, state, blocking=True)
+        t_save = time.perf_counter() - t0
+        npz = Path(d, "step_00000000", "arrays.npz")
+        shd = _train_shardings(like, pspec, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, back = ck.restore(like, shardings=shd)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        file_bytes = npz.stat().st_size
+    assert step == 0
+    n = 0
+    for (path, a), (_, b) in zip(tree_items(back), tree_items(state)):
+        assert isinstance(a, DTensor) and a.to_local().is_cuda, path
+        assert torch.equal(a.to_local().view(torch.int32),
+                           b.view(torch.int32)), path
+        n += 1
+    print(f"[placement] (c) {FULL_ARCH} full config(): {n} leaves, "
+          f"{FULL_PARAMS_LM:,} f32 ({n_bytes:,} B) written once "
+          f"(arrays.npz {file_bytes:,} B, {free / 1e9:.1f} GB free before) "
+          f"in {t_save:.2f} s and restored by the train rules on the mesh "
+          f"of one in {t_restore:.2f} s: every leaf a DTensor on the card, "
+          f"bit-equal; {fallback_summary().splitlines()[0]} on {smi}")
+    del tree, state, back
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return {"ingest_sharded": on_path}
+
+
+def _file_block(arr: np.ndarray, spec, sizes: dict, coord: dict):
+    """The block of a stored array at a mesh coordinate, cut by plain
+    index arithmetic (each dimension's axes major first), apart from
+    ``NamedSharding.block_bounds``."""
+    from repro_torch.parallel.sharding import entry_axes
+    idx = []
+    for d, n in enumerate(arr.shape):
+        k, m = 0, 1
+        for a in entry_axes(spec[d] if d < len(spec) else None):
+            k, m = k * sizes[a] + coord[a], m * sizes[a]
+        idx.append(slice(k * (n // m), (k + 1) * (n // m)))
+    return arr[tuple(idx)]
+
+
+def _blocks_match_file(got, shd, mesh, npz: Path):
+    """Whether every leaf's local block equals the file's slice at this
+    rank's coordinate, and the bytes resident on this card."""
+    from repro_torch.models.params import tree_items
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    ok, resident = True, 0
+    with np.load(npz) as data:
+        for i, ((_, a), (_, s)) in enumerate(zip(tree_items(got),
+                                                 tree_items(shd))):
+            want = _file_block(data[f"leaf_{i}"], s.spec, sizes, coord)
+            local = a.to_local().cpu().numpy()
+            ok &= want.shape == local.shape and np.array_equal(
+                want.view(np.uint32), local.view(np.uint32))
+            resident += local.nbytes
+    return ok, resident
+
+
+def _mesh_placement(rank: int, world: int, data: int, model: int, dev,
+                    tmp: str) -> dict:
+    """``--mesh``'s placement part, on one rank: phase 6b's first shard
+    landed over "data" of a (world, 1) mesh against rank 0's unsharded
+    zone; gemma2-2b's full parameters written once by rank 0, restored
+    by the train rules on (data, model) and (world, 1) meshes against
+    the file's slices; and a save from the first mesh's DTensors."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.core.ingest import BalboaIngest, make_dlrm_tile_decoder
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import (FALLBACK_LOG, NamedSharding,
+                                               PartitionSpec)
+    rec = {}
+    # the sharded landing zone
+    mesh = make_host_mesh(data=world)
+    rows = NamedSharding(mesh, PartitionSpec("data", None))
+
+    def ingest(shardings):
+        return BalboaIngest(
+            _ingest_cfg(), None, _dlrm_shard_fn(SHARD_PKTS),
+            decode_fn=_poisoned, shardings=shardings, device=dev,
+            tile_to_batch=make_dlrm_tile_decoder(N_DENSE, N_SPARSE, MOD))
+    whole = {"dense": torch.empty((SHARD_PKTS * RPP, N_DENSE),
+                                  dtype=torch.float32, device=dev),
+             "sparse": torch.empty((SHARD_PKTS * RPP, N_SPARSE),
+                                   dtype=torch.int32, device=dev)}
+    if rank == 0:
+        got, _ = ingest(None).fetch_shard_streaming(0)
+        for k in whole:
+            whole[k].copy_(got[k])
+    for k in ("dense", "sparse"):
+        dist.broadcast(whole[k], src=0)
+    ing = ingest({"dense": rows, "sparse": rows})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, rep = ing.fetch_shard_streaming(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    equal = True
+    for k in whole:
+        (start, n), _ = rows.block_bounds(whole[k].shape)
+        want = whole[k][start:start + n]
+        equal &= torch.equal(got[k].to_local().view(torch.int32),
+                             want.view(torch.int32))
+        equal &= torch.equal(got[k].full_tensor().view(torch.int32),
+                             whole[k].view(torch.int32))
+    rec["landing"] = {"equal": bool(equal), "decoded": ing.tiles_decoded,
+                      "skipped": ing.tiles_skipped, "landed": rep.tiles,
+                      "wall_s": wall}
+    del got, whole
+
+    # the elastic restore at full width
+    full = Path(tmp, "ckpt_full")
+    like, pspec = _gemma_like()
+    if rank == 0:
+        tree = _gemma_full(dev)
+        t0 = time.perf_counter()
+        Checkpointer(str(full)).save(0, {"params": tree}, blocking=True)
+        rec["save_s"] = time.perf_counter() - t0
+        del tree
+        torch.cuda.empty_cache()
+    dist.barrier()
+    npz = full / "step_00000000" / "arrays.npz"
+    rec["restore"] = {}
+    keep = None
+    for shape in dict.fromkeys(((data, model), (world, 1))):
+        m = make_host_mesh(*shape)
+        shd = _train_shardings(like, pspec, m)
+        fallbacks = sorted({f"{name}={dim} !-> {cand}"
+                            for _, name, dim, cand, _ in FALLBACK_LOG})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, back = Checkpointer(str(full)).restore(like, shardings=shd)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        ok, resident = _blocks_match_file(back["params"], shd["params"], m,
+                                          npz)
+        rec["restore"]["x".join(map(str, shape))] = {
+            "coordinate": m.get_coordinate(), "equal": bool(ok),
+            "resident_bytes": resident, "wall_s": t_restore,
+            "fallbacks": fallbacks}
+        if keep is None:
+            keep = back
+        else:
+            del back
+    # a save from the first mesh's DTensors: every rank gathers, the rank
+    # at (0, 0) writes
+    t0 = time.perf_counter()
+    Checkpointer(str(Path(tmp, "ckpt_dt"))).save(0, keep, blocking=True)
+    rec["dtensor_save_s"] = time.perf_counter() - t0
+    del keep
+    dist.barrier()
+    if rank == 0:
+        same = True
+        with np.load(npz) as a, np.load(Path(
+                tmp, "ckpt_dt", "step_00000000", "arrays.npz")) as b:
+            same &= a.files == b.files
+            for f in a.files:
+                x, y = a[f], b[f]
+                same &= (x.dtype == y.dtype and x.shape == y.shape
+                         and np.array_equal(x.view(np.uint8),
+                                            y.view(np.uint8)))
+            rec["n_leaves"] = len(a.files)
+        rec["dtensor_save_identical"] = bool(same)
+    return rec
+
+
 def _mesh_rank(rank: int, world: int, data: int, model: int, tmp: str):
     """One rank of ``--mesh``: its card, the NCCL world, its results as
     JSON under ``tmp``."""
@@ -3176,9 +3575,45 @@ def _mesh_rank(rank: int, world: int, data: int, model: int, tmp: str):
             runs[name] = Trainer(Model(tcfg, device=dev), tc, mesh=m).run(
                 lm_batch_iterator(tcfg, 8, 128)).losses
         rec["losses"] = runs
+        rec["placement"] = _mesh_placement(rank, world, data, model, dev,
+                                           tmp)
         Path(tmp, f"rank{rank}.json").write_text(json.dumps(rec))
     finally:
         dist.destroy_process_group()
+
+
+def report_mesh_placement(ranks: list, data: int, model: int, smi: str):
+    """Print and check ``--mesh``'s placement results of every rank."""
+    world = data * model
+    whole = FULL_PARAMS_LM * 4
+    for r in ranks:
+        land = r["placement"]["landing"]
+        print(f"[mesh] rank {r['rank']}: phase 6b's shard 0 landed over "
+              f"'data' of ({world}, 1): tiles decoded {land['decoded']} / "
+              f"landed {land['landed']} (skipped {land['skipped']}), block "
+              f"bit-equal to rank 0's unsharded rows and full_tensor() to "
+              f"its zone: {land['equal']}; wall {land['wall_s']:.2f} s")
+        assert land["equal"], r["placement"]
+        assert land["decoded"] + land["skipped"] == land["landed"] \
+            and 0 < land["decoded"] < land["landed"], land
+        for name, res in r["placement"]["restore"].items():
+            print(f"[mesh] rank {r['rank']}: {FULL_ARCH} full restored by "
+                  f"the train rules on {name} at {res['coordinate']}: "
+                  f"blocks bit-equal to the file's slices: {res['equal']}; "
+                  f"resident {res['resident_bytes']:,} B of the whole "
+                  f"{whole:,} ({res['resident_bytes'] / whole:.3f}); "
+                  f"restore {res['wall_s']:.2f} s; fallbacks "
+                  f"{res['fallbacks']}")
+            assert res["equal"], res
+            assert res["resident_bytes"] < whole or world == 1, res
+    p0 = ranks[0]["placement"]
+    print(f"[mesh] {FULL_ARCH} full config(), {p0['n_leaves']} leaves: "
+          f"rank 0 wrote {whole:,} B once in {p0['save_s']:.2f} s; the save "
+          f"from the ({data}, {model}) DTensors (gathered on every rank, "
+          f"written at (0, 0)) took {p0['dtensor_save_s']:.2f} s and is "
+          f"byte-identical, leaf by leaf: {p0['dtensor_save_identical']} "
+          f"on {smi}")
+    assert p0["dtensor_save_identical"], p0
 
 
 def mesh_main(data: int, model: int) -> int:
@@ -3217,6 +3652,7 @@ def mesh_main(data: int, model: int) -> int:
           f"one process on one card: max abs err {err:.2e} (bound "
           f"{MESH_TRAIN_ATOL}) on {smi}")
     assert err < MESH_TRAIN_ATOL, (lm, lp)
+    report_mesh_placement(ranks, data, model, smi)
     print(json.dumps({"device": smi, "mesh": [data, model], "ranks": ranks}))
     return 0
 
@@ -3369,6 +3805,10 @@ def main() -> int:
     print(f"[train] phase 13 wall_s={time.perf_counter() - t13:.1f}")
     phase_mesh(dev, smi, dryrun, dry_json,
                max(r["max_memory_allocated"] for r in full["steps"]))
+    t15 = time.perf_counter()
+    counts.update(phase_dpi_training(dev))
+    counts.update(phase_placement(dev, smi))
+    print(f"[placement] phase 15 wall_s={time.perf_counter() - t15:.1f}")
 
     # name -> (source, TPU kernel it replaces, the path it is counted on)
     sources = {"aes_ecb": ("src/repro_torch/csrc/aes_ecb.cu",

@@ -101,9 +101,10 @@ def _round_keys():
 
 
 def _dpi_params():
-    from repro_torch.data import load_dpi_params_seed0
-    from repro_torch.kernels.dpi_mlp import dpi_params_from_numpy
-    return dpi_params_from_numpy(load_dpi_params_seed0(), device=CPU)
+    from repro_torch.kernels.dpi_mlp import (dpi_params_from_numpy,
+                                             init_dpi_params, ternarize)
+    return dpi_params_from_numpy(ternarize(init_dpi_params(7, device=CPU)),
+                                 device=CPU)
 
 
 def registry() -> List[EntryPoint]:

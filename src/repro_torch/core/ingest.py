@@ -29,10 +29,21 @@ HOST via ``decode_fn`` (payload bytes are copied — counted in
 failover oracle and as the baseline the streaming plane is measured
 against.
 
-This slice runs on one card: ``shardings`` (multi-device placement in
-the reference) is not ported yet and raises.  ``epoch_mode="fused"`` (or
-``BALBOA_EPOCH_MODE=fused``) advances the stream in watermark-bounded
-fused micro-epochs, as the reference does.
+**Sharded landing** (``shardings``: a batch key -> ``NamedSharding``
+on a ``DeviceMesh``, as in the reference).  The port runs one process a
+device, so the reference's single controller becomes SPMD: every rank
+runs the whole deterministic transport simulation itself (the host work
+is replicated), and the device work is split.  A rank allocates only
+its own block of each sharded key, decodes only the tiles whose rows
+meet that block (the rest are skipped before their device copy and
+counted in ``tiles_skipped``), lands only the overlap, and returns a
+``DTensor`` of the global shape (PyTorch's sharded ``jax.Array``); the
+synchronous plane hands each rank its block of the host batch the same
+way.  A shape that the mesh does not divide raises, as the reference's
+``device_put`` does.
+
+``epoch_mode="fused"`` (or ``BALBOA_EPOCH_MODE=fused``) advances the
+stream in watermark-bounded fused micro-epochs, as the reference does.
 """
 from __future__ import annotations
 
@@ -52,6 +63,7 @@ from repro_torch.core.rdma import (RdmaNode, check_epoch_mode, run_network,
 from repro_torch.core.services import ServiceChain
 from repro_torch.device import DeviceLike, resolve_device, to_device
 from repro_torch.kernels import ops
+from repro_torch.parallel.sharding import NamedSharding
 
 
 @dataclasses.dataclass
@@ -192,29 +204,70 @@ class DeviceLandingZone:
     copied in place into its rows (``buf[row:row+n].copy_(tile)``), so
     placement never reallocates and never bounces through a host array.
 
+    A key with a sharding in ``shardings`` holds only this rank's block
+    (``NamedSharding.block_bounds``; a shape the mesh does not divide
+    raises), on ``device``, which must be of the mesh's device type; a
+    tile lands only where its rows (and, for a spec that splits other
+    dimensions, its columns) meet the block, and ``arrays()`` returns
+    the block as a ``DTensor`` of the global shape.
+
     The reference places with a jitted ``dynamic_update_slice``, which
     clamps a start index so that the update fits; a tile that would run
     past the end here raises instead (the streaming plane never asks
-    for one).  Its ``shardings`` (multi-device placement) is not
-    ported: the zone lives on one device."""
+    for one)."""
 
     def __init__(self, specs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]],
+                 shardings: Optional[Dict] = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
-        self.bufs: Dict[str, torch.Tensor] = {
-            k: torch.zeros(shape, dtype=dtype, device=self.device)
-            for k, (shape, dtype) in specs.items()}
+        self.shapes: Dict[str, Tuple[int, ...]] = {}
+        self.shardings: Dict = {}
+        self._bounds: Dict[str, Tuple[Tuple[int, int], ...]] = {}
+        self.bufs: Dict[str, torch.Tensor] = {}
+        for k, (shape, dtype) in specs.items():
+            self.shapes[k] = shape = tuple(shape)
+            shd = (shardings or {}).get(k)
+            if shd is not None:
+                shd.check_device(self.device)
+                self.shardings[k] = shd
+                self._bounds[k] = shd.block_bounds(shape)
+                shape = tuple(n for _, n in self._bounds[k])
+            self.bufs[k] = torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def _rows(self, key: str, row_offset: int, n: int) -> Tuple[int, int]:
+        """The global rows ``[lo, hi)`` of a tile at ``row_offset`` that
+        this rank holds (empty when ``lo >= hi``)."""
+        rows = self.shapes[key][0]
+        if row_offset < 0 or row_offset + n > rows:
+            raise ValueError(f"tile rows [{row_offset}, {row_offset + n}) "
+                             f"outside {key}'s {rows} rows")
+        if key not in self._bounds:
+            return row_offset, row_offset + n
+        r0, nr = self._bounds[key][0]
+        return max(row_offset, r0), min(row_offset + n, r0 + nr)
+
+    def wants(self, key: str, row_offset: int, n: int) -> bool:
+        """Whether a tile of ``n`` rows at ``row_offset`` meets this
+        rank's block of ``key``."""
+        lo, hi = self._rows(key, row_offset, n)
+        return lo < hi
 
     def place(self, key: str, tile: torch.Tensor, row_offset: int):
-        buf = self.bufs[key]
-        n = tile.shape[0]
-        if row_offset < 0 or row_offset + n > buf.shape[0]:
-            raise ValueError(f"tile rows [{row_offset}, {row_offset + n}) "
-                             f"outside {key}'s {buf.shape[0]} rows")
-        buf[row_offset:row_offset + n].copy_(tile)
+        lo, hi = self._rows(key, row_offset, tile.shape[0])
+        if lo >= hi:
+            return
+        src = tile[lo - row_offset:hi - row_offset]
+        r0 = 0
+        if key in self._bounds:
+            (r0, _), *cols = self._bounds[key]
+            for d, (c0, nc) in enumerate(cols, 1):
+                src = src.narrow(d, c0, nc)
+        self.bufs[key][lo - r0:hi - r0].copy_(src)
 
     def arrays(self) -> Dict[str, torch.Tensor]:
-        return dict(self.bufs)
+        return {k: (self.shardings[k].dtensor(b, self.shapes[k])
+                    if k in self.shardings else b)
+                for k, b in self.bufs.items()}
 
 
 def make_dlrm_tile_decoder(n_dense: int, n_sparse: int,
@@ -255,7 +308,11 @@ def make_dlrm_tile_decoder(n_dense: int, n_sparse: int,
 class BalboaIngest:
     """Streams shards from storage to the device through the service
     chain.  Every node's RX tables and the landing zone live on
-    ``device`` (default the card)."""
+    ``device`` (default the card).  ``shardings`` (batch key ->
+    ``NamedSharding``) lands each key sharded over its mesh (see the
+    module docstring); ``tiles_decoded`` and ``tiles_skipped`` count the
+    streamed tiles this rank decoded and those it skipped because their
+    rows miss its blocks."""
 
     def __init__(self, cfg: IngestConfig, services: Optional[ServiceChain],
                  shard_fn: Callable[[int], np.ndarray],
@@ -263,10 +320,11 @@ class BalboaIngest:
                  shardings: Optional[Dict] = None,
                  tile_to_batch: Optional[Callable] = None,
                  device: DeviceLike = None):
-        if shardings is not None:
-            raise NotImplementedError(
-                "shardings (multi-device landing) is not ported yet")
         check_epoch_mode(cfg.epoch_mode)
+        for k, v in (shardings or {}).items():
+            if v is not None and not isinstance(v, NamedSharding):
+                raise TypeError(f"shardings[{k!r}] must be a NamedSharding "
+                                f"on a DeviceMesh, got {v!r}")
         self.device = resolve_device(device)
         self.cfg = cfg
         n_nodes = 1 + cfg.n_storage_nodes
@@ -312,7 +370,10 @@ class BalboaIngest:
             self._node_qps.append(mine)
         self.shard_fn = shard_fn
         self.decode_fn = decode_fn
+        self.shardings = shardings
         self.tile_to_batch = tile_to_batch
+        self.tiles_decoded = 0
+        self.tiles_skipped = 0
         self.refetches = 0
         self.recorder = None
         self._qp_epoch: Dict[int, int] = {}    # qpn_l -> failover epoch
@@ -420,16 +481,19 @@ class BalboaIngest:
 
     def stream_shard(self, index: int,
                      consume_tile: Optional[Callable] = None,
-                     on_tick: Optional[Callable[[int], None]] = None
+                     on_tick: Optional[Callable[[int], None]] = None,
+                     wants_tile: Optional[Callable] = None
                      ) -> StreamReport:
         """Striped, incremental fetch of shard ``index``.
 
         ``consume_tile(stripe, tile_idx, dev_tile, n_valid_pkts)`` fires
         the moment a tile's bytes are contiguously acknowledged —
         ``dev_tile`` is the fixed-shape ``(tile_pkts, MTU)`` uint8 tensor
-        copied to the device straight from the registered buffer.
-        ``on_tick`` is a test/fault-injection hook called once per
-        network tick."""
+        copied to the device straight from the registered buffer —
+        unless ``wants_tile(first_pkt, n_valid_pkts)`` says this rank
+        holds none of it (then the tile is neither copied nor consumed,
+        and counts in ``tiles_skipped``).  ``on_tick`` is a
+        test/fault-injection hook called once per network tick."""
         cfg = self.cfg
         mtu = self.trainer.mtu
         tile_bytes = cfg.tile_pkts * mtu
@@ -505,7 +569,12 @@ class BalboaIngest:
                     hi = min(lo + tile_bytes, stripe.nbytes)
                     if stripe.watermark < hi:
                         break
-                    if consume_tile is not None:
+                    n_valid = -(-(hi - lo) // mtu)
+                    if consume_tile is not None and wants_tile is not None \
+                            and not wants_tile(
+                                stripe.pkt_start + lo // mtu, n_valid):
+                        self.tiles_skipped += 1
+                    elif consume_tile is not None:
                         buf = self.trainer._qp_buffer[qp.qpn_l][1]
                         # the one and only payload movement: registered
                         # buffer -> device, fixed tile shape, no host
@@ -520,7 +589,7 @@ class BalboaIngest:
                                                               mtu),
                             self.device)
                         consume_tile(stripe, stripe.tiles_emitted, dev,
-                                     -(-(hi - lo) // mtu))
+                                     n_valid)
                     events.append(("tile", rel(), stripe.sid,
                                    stripe.tiles_emitted))
                     self._rec("stream_tile", stripe.sid,
@@ -590,10 +659,10 @@ class BalboaIngest:
     def fetch_shard_streaming(self, index: int
                               ) -> Tuple[Dict[str, torch.Tensor],
                                          StreamReport]:
-        """Stream shard ``index`` straight into a device landing zone:
-        stripes fan out across all replicas/QPs, each tile is
-        transformed on the device the moment it lands, and the host
-        never touches a payload byte."""
+        """Stream shard ``index`` straight into a device landing zone
+        (sharded by ``shardings``): stripes fan out across all
+        replicas/QPs, each tile is transformed on the device the moment
+        it lands, and the host never touches a payload byte."""
         if self.tile_to_batch is None:
             raise ValueError("streaming fetch needs tile_to_batch "
                              "(e.g. make_dlrm_tile_decoder)")
@@ -605,17 +674,23 @@ class BalboaIngest:
         zone = DeviceLandingZone(
             {k: ((n_pkts_total * self._rows_per_pkt[k],) + tail, dt)
              for k, (tail, dt) in self._tile_dtypes.items()},
-            device=self.device)
+            self.shardings, device=self.device)
+        rpp = self._rows_per_pkt
+
+        def mine(pkt0: int, n_valid_pkts: int) -> bool:
+            return any(zone.wants(k, pkt0 * r, n_valid_pkts * r)
+                       for k, r in rpp.items())
 
         def consume(stripe: Stripe, tidx: int, dev_tile: torch.Tensor,
                     n_valid_pkts: int):
+            self.tiles_decoded += 1
             out = self.tile_to_batch(dev_tile)
             pkt0 = stripe.pkt_start + tidx * self.cfg.tile_pkts
             for k, arr in out.items():
-                rpp = self._rows_per_pkt[k]
-                zone.place(k, arr[:n_valid_pkts * rpp], pkt0 * rpp)
+                zone.place(k, arr[:n_valid_pkts * rpp[k]], pkt0 * rpp[k])
 
-        report = self.stream_shard(index, consume)
+        report = self.stream_shard(
+            index, consume, wants_tile=mine if zone.shardings else None)
         return zone.arrays(), report
 
     def stream_batches(self, n: int, start: int = 0
@@ -661,7 +736,13 @@ class BalboaIngest:
 
     def _to_device(self, host_batch: Dict[str, np.ndarray]
                    ) -> Dict[str, torch.Tensor]:
-        return {k: to_device(v, self.device) for k, v in host_batch.items()}
+        """Each key onto the device: under its sharding, this rank's
+        block as a ``DTensor``."""
+        shardings = self.shardings or {}
+        return {k: (shardings[k].distribute(
+            torch.from_numpy(np.ascontiguousarray(v)), self.device)
+            if shardings.get(k) is not None else to_device(v, self.device))
+            for k, v in host_batch.items()}
 
     def batches(self, n: int, start: int = 0) -> Iterator[Dict]:
         """Double-buffered iterator over the synchronous plane: shard

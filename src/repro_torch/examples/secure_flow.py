@@ -2,8 +2,8 @@
 on its TX path, the receiver decrypts on-path and runs ML-DPI on the
 parallel path; the traffic sniffer (paper §4.7) captures the ciphertext
 wire traffic into a PCAP you can open in Wireshark.  The DPI model is
-the committed fixture (the reference's ``train_dpi_params`` on
-``make_dataset(2048, seed=0)``, 200 steps).
+trained first, on the same device, as the reference's example trains
+it (``train_dpi_params`` on ``make_dataset(2048, seed=0)``, 200 steps).
 
   python -m repro_torch.examples.secure_flow [--cpu] [PCAP]
 """
@@ -20,9 +20,10 @@ from repro_torch.core.netsim import LinkConfig, Network
 from repro_torch.core.rdma import RdmaNode, run_network
 from repro_torch.core.services import AesService, DpiService, ServiceChain
 from repro_torch.core.sniffer import TrafficSniffer
-from repro_torch.data import load_dpi_params_seed0
-from repro_torch.data.dpi_dataset import payload_with_embedded_malware
+from repro_torch.data.dpi_dataset import (make_dataset,
+                                          payload_with_embedded_malware)
 from repro_torch.device import DeviceLike, resolve_device, to_device
+from repro_torch.kernels.dpi_mlp import train_dpi_params
 
 KEY = np.arange(16, dtype=np.uint8)
 
@@ -34,7 +35,9 @@ def main(device: DeviceLike = None, pcap: Optional[str] = None) -> Dict:
     Returns the per-flow DPI flags and the packets captured."""
     dev = resolve_device(device)
     pcap = pcap or os.path.join(tempfile.gettempdir(), "balboa_flow.pcap")
-    dpi_params = load_dpi_params_seed0()
+    # train the DPI model (paper: CSV/PNG/TXT vs executables)
+    x, y = make_dataset(2048, seed=0)
+    dpi_params = train_dpi_params(x, y, steps=200, device=dev)
 
     rng = np.random.default_rng(0)
     benign = payload_with_embedded_malware(65536, 0.0, rng)  # text/CSV/PNG

@@ -11,9 +11,12 @@ weights as one image in the order the tensor cores read them
 (``weight_image``), built once per weight set.  ``dpi_scores_ref`` is the
 plain PyTorch version from ``ref.py``.
 
-Training and ternarization stay in the reference package for now: the
-port takes the reference's ternary parameters through
-``dpi_params_from_numpy``.
+``train_dpi_params`` trains the float model on synthetic "big-data
+payloads vs. executables" (``repro_torch.data.dpi_dataset``) with
+full-batch SGD and ternarizes it (``ternarize``, on the host, into the
+format ``dpi_params_from_numpy`` takes), as the reference does.  The
+three products of that training are ``torch.matmul`` under autograd:
+the reference computes them in jnp too, outside any Pallas kernel.
 
 ``dpi_scores_cuda.launches`` counts the kernel launches of this process.
 """
@@ -168,3 +171,99 @@ def dpi_scores_cuda(payload: torch.Tensor, params: Dict) -> torch.Tensor:
 dpi_scores_cuda.launches = 0
 
 dpi_scores_ref = R.dpi_scores_ref
+
+
+# ---------------------------------------------------------------------------
+# Training + ternarization
+# ---------------------------------------------------------------------------
+
+_FLOAT_KEYS = ("w1", "b1", "w2", "b2", "w3")
+
+
+def init_dpi_params(seed: int = 0, device: DeviceLike = None
+                    ) -> Dict[str, torch.Tensor]:
+    """The float model's initial parameters: normal weights times 0.2,
+    zero biases, unit scales — the reference's rule, drawn on a CPU
+    ``torch.Generator`` seeded with ``seed`` (the same weights on every
+    device; they cannot equal JAX's threefry draws), then moved to
+    ``device`` (default the card)."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    p = {"w1": torch.randn((D_IN, D_H1), generator=gen) * 0.2,
+         "b1": torch.zeros(D_H1),
+         "w2": torch.randn((D_H1, D_H2), generator=gen) * 0.2,
+         "b2": torch.zeros(D_H2),
+         "w3": torch.randn((D_H2, 1), generator=gen) * 0.2,
+         "s1": torch.tensor(1.0), "s2": torch.tensor(1.0),
+         "s3": torch.tensor(1.0)}
+    return {k: v.to(dev) for k, v in p.items()}
+
+
+def _float_forward(p: Dict[str, torch.Tensor], x: torch.Tensor
+                   ) -> torch.Tensor:
+    h = torch.relu(x @ p["w1"] + p["b1"])
+    h = torch.relu(h @ p["w2"] + p["b2"])
+    return (h @ p["w3"])[:, 0]
+
+
+def ternarize(params: Dict) -> Dict[str, np.ndarray]:
+    """Magnitude-threshold ternarization with per-layer scale (TWN rule:
+    threshold = 0.7 * mean|w|, scale = mean|w| over kept entries), on
+    the host in numpy as the reference computes it.  Returns ``w*`` int8,
+    ``s*`` and ``b*`` float32 (the fixture's format)."""
+    def host(v):
+        return (v.detach().to("cpu").numpy() if torch.is_tensor(v)
+                else np.asarray(v))
+    out = {}
+    for i, w_name in enumerate(("w1", "w2", "w3"), 1):
+        w = host(params[w_name])
+        thr = 0.7 * np.abs(w).mean()
+        tern = np.sign(w) * (np.abs(w) > thr)
+        kept = np.abs(w[np.abs(w) > thr])
+        scale = float(kept.mean()) if kept.size else 1.0
+        out[w_name] = np.asarray(tern, np.int8)
+        out[f"s{i}"] = np.asarray(scale, np.float32)
+    out["b1"] = np.asarray(host(params["b1"]), np.float32)
+    out["b2"] = np.asarray(host(params["b2"]), np.float32)
+    return out
+
+
+def train_float_dpi_params(params: Dict, beats: np.ndarray,
+                           labels: np.ndarray, steps: int = 300,
+                           lr: float = 3e-3, device: DeviceLike = None
+                           ) -> Dict[str, torch.Tensor]:
+    """Full-batch SGD of the float model from ``params`` (tensors or
+    numpy arrays: ``w1, b1, w2, b2, w3``) on ``beats`` (M, 64) uint8 and
+    ``labels`` (M,) {0, 1}, on ``device`` (default the card): ``x =
+    beats / 128 - 1`` in float32 and the reference's numerically stable
+    logistic loss, ``max(l, 0) - l * y + log1p(exp(-|l|))``, averaged.
+    Returns the trained float weights and biases."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(np.asarray(beats)).to(dev, torch.float32) \
+        / 128.0 - 1.0
+    y = torch.as_tensor(np.asarray(labels)).to(dev, torch.float32)
+    p = {k: (params[k] if torch.is_tensor(params[k])
+             else torch.from_numpy(np.array(params[k], np.float32)))
+         .to(dev, torch.float32, copy=True).requires_grad_(True)
+         for k in _FLOAT_KEYS}
+    for _ in range(steps):
+        logits = _float_forward(p, x)
+        loss = torch.mean(torch.maximum(logits, torch.zeros_like(logits))
+                          - logits * y
+                          + torch.log1p(torch.exp(-torch.abs(logits))))
+        grads = torch.autograd.grad(loss, [p[k] for k in _FLOAT_KEYS])
+        with torch.no_grad():
+            p = {k: (p[k] - lr * g).requires_grad_(True)
+                 for k, g in zip(_FLOAT_KEYS, grads)}
+    return {k: v.detach() for k, v in p.items()}
+
+
+def train_dpi_params(beats: np.ndarray, labels: np.ndarray,
+                     steps: int = 300, lr: float = 3e-3, seed: int = 0,
+                     device: DeviceLike = None) -> Dict[str, np.ndarray]:
+    """beats (M, 64) uint8, labels (M,) {0,1}: train the float model from
+    ``init_dpi_params(seed)`` on ``device`` (default the card) and
+    return its ternary parameters (``ternarize``)."""
+    p0 = init_dpi_params(seed, device)
+    return ternarize(train_float_dpi_params(p0, beats, labels, steps, lr,
+                                            device))

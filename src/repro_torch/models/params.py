@@ -101,6 +101,12 @@ def shapes(tree, param_dtype: str):
         tree)
 
 
+def axes(tree):
+    """The tree's logical axes tuple at every leaf (for
+    ``sharding.tree_shardings``)."""
+    return _map(lambda s: s.axes, tree)
+
+
 def _fan_in(spec: Spec) -> int:
     """Axes-aware fan-in (the reference's rule): leading batch-like dims
     (scan stacking, expert dims) do not count; the output side is the

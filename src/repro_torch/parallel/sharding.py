@@ -169,6 +169,69 @@ class NamedSharding:
                 x = x.narrow(dim, self.mesh.get_local_rank(a) * size, size)
         return x
 
+    def block_bounds(self, global_shape: Sequence[int]
+                     ) -> Tuple[Tuple[int, int], ...]:
+        """``(start, size)`` of this rank's block in each dimension of a
+        tensor of ``global_shape`` (the ranges ``local_block`` cuts).
+        A dimension that its axes do not divide raises, as the
+        reference's ``device_put`` under a ``NamedSharding`` does."""
+        sizes = _axis_sizes(self.mesh)
+        out = []
+        for dim, n in enumerate(global_shape):
+            e = self.spec[dim] if dim < len(self.spec) else None
+            start = 0
+            for a in entry_axes(e):
+                if n % sizes[a]:
+                    raise ValueError(
+                        f"{self!r}: dimension {dim} of shape "
+                        f"{tuple(global_shape)} is not divisible by the "
+                        f"{sizes[a]} shards of mesh axis {a!r}")
+                n //= sizes[a]
+                start += self.mesh.get_local_rank(a) * n
+            out.append((start, n))
+        return tuple(out)
+
+    def dtensor(self, block: torch.Tensor, global_shape: Sequence[int]):
+        """This rank's ``block`` of a ``global_shape`` tensor as a
+        ``DTensor`` on the mesh (the counterpart of a sharded
+        ``jax.Array``).  A dimension split over several mesh axes must
+        name them in the mesh's order (major first), the one order a
+        DTensor placement list can express."""
+        from torch.distributed.tensor import DTensor
+        names = list(self.mesh.mesh_dim_names)
+        for e in self.spec:
+            order = [names.index(a) for a in entry_axes(e)]
+            if order != sorted(order):
+                raise ValueError(f"{self!r}: axes {e} are not in the "
+                                 f"mesh's order {tuple(names)}")
+        stride, acc = [], 1
+        for n in reversed(tuple(global_shape)):
+            stride.insert(0, acc)
+            acc *= n
+        return DTensor.from_local(block, self.mesh, self.placements(),
+                                  run_check=False,
+                                  shape=torch.Size(global_shape),
+                                  stride=tuple(stride))
+
+    def check_device(self, device: torch.device):
+        """A block lives on a device of the mesh's type: no silent
+        fallback to another."""
+        if self.mesh.device_type != device.type:
+            raise ValueError(f"{self!r} is on a {self.mesh.device_type!r} "
+                             f"mesh, not on {device}")
+
+    def distribute(self, x: torch.Tensor, device: torch.device,
+                   dtype: Optional[torch.dtype] = None):
+        """This rank's block of the whole tensor ``x`` (on the host),
+        copied to ``device`` (cast to ``dtype``), as a ``DTensor`` of
+        ``x``'s shape."""
+        self.check_device(device)
+        block = x
+        for d, (start, n) in enumerate(self.block_bounds(x.shape)):
+            block = block.narrow(d, start, n)
+        block = block.to(device=device, dtype=dtype or x.dtype, copy=True)
+        return self.dtensor(block.contiguous(), x.shape)
+
     def local_bytes(self, global_shape: Sequence[int],
                     dtype: torch.dtype) -> int:
         """The bytes of one device's block of a ``dtype`` tensor."""

@@ -38,6 +38,12 @@ one AdamW update (granite-3-2b) and one Adafactor update (deepseek-v3-
 ``Trainer`` crashes at step 6 and resumes from step 4 on the card, its
 losses those of an uninterrupted run; and granite-3-2b's losses over 4
 steps from the same CPU-generator weights within 1e-4 of the CPU's.
+DPI training: ``train_dpi_params``' float loop on the card within 1e-5
+of the CPU's (of each leaf's largest magnitude), any ternary entry that
+differs within that of the threshold, and the card's weights above the
+0.85 accuracy bar through the DPI kernel.  The sharded landing zone: a
+shard streamed into a zone sharded over "data" of an NCCL mesh of one
+(in a subprocess) equals the unsharded zone bit for bit.
 """
 import itertools
 import zlib
@@ -1055,3 +1061,109 @@ def test_cuda_train_losses_equal_the_cpu(no_tf32, tmp_path):
     assert len(lc) == len(lh) == 4
     assert loss_err < LM_CARD_ATOL
     assert elem < 2.5
+
+
+# ---------------------------------------------------------------------------
+# DPI training, and the sharded landing zone on a mesh of one
+# ---------------------------------------------------------------------------
+
+DPI_TRAIN_RTOL = 1e-5   # card vs CPU float weights, of each leaf's max |w|
+
+
+@pytest.mark.cuda
+def test_cuda_train_dpi_params_equals_the_cpu(no_tf32):
+    """``train_dpi_params``' float loop (200 steps on ``make_dataset(2048,
+    seed=0)`` from the same CPU-generator weights) on the card within
+    ``DPI_TRAIN_RTOL`` of the CPU's, relative to each leaf's largest
+    magnitude; a ternary entry that differs must lie within that
+    tolerance of the threshold; the card's ternary weights score
+    ``make_dataset(512, seed=2)`` through the DPI kernel above the
+    reference's 0.85 bar."""
+    from repro_torch.data.dpi_dataset import make_dataset
+    from repro_torch.kernels import dpi_mlp
+    x, y = make_dataset(2048, seed=0)
+    floats = {}
+    for name, dev in (("card", no_tf32), ("cpu", torch.device("cpu"))):
+        p0 = dpi_mlp.init_dpi_params(0, dev)
+        floats[name] = {k: v.cpu().numpy() for k, v in
+                        dpi_mlp.train_float_dpi_params(
+                            p0, x, y, 200, device=dev).items()}
+    card, cpu = floats["card"], floats["cpu"]
+    errs = {k: float(np.abs(card[k] - cpu[k]).max() / np.abs(cpu[k]).max())
+            for k in cpu}
+    tc, th = dpi_mlp.ternarize(card), dpi_mlp.ternarize(cpu)
+    flips = []
+    for k in ("w1", "w2", "w3"):
+        thr = 0.7 * np.abs(cpu[k]).mean()
+        bound = DPI_TRAIN_RTOL * float(np.abs(cpu[k]).max())
+        flips += [(k, idx, float(abs(abs(cpu[k][idx]) - thr)), bound)
+                  for idx in zip(*np.nonzero(tc[k] != th[k]))]
+    print(f"card vs CPU float error: {errs}; ternary flips {flips}")
+    assert max(errs.values()) < DPI_TRAIN_RTOL
+    assert all(d < b for _, _, d, b in flips), flips
+    assert all(tc[k].tobytes() == dpi_mlp.train_dpi_params(
+        x, y, 200, device=no_tf32)[k].tobytes() for k in tc)
+    xt, yt = make_dataset(512, seed=2)
+    before = ops.launches()["dpi_mlp"]
+    scores = ops.dpi_scores(_t(xt.reshape(len(xt), 64)).to(no_tf32),
+                            dpi_params_from_numpy(tc, no_tf32))[:, 0]
+    assert ops.launches()["dpi_mlp"] == before + 1
+    acc = float(((scores.cpu().numpy() > 0) == (yt > 0.5)).mean())
+    print(f"card-trained ternary DPI accuracy {acc:.4f}")
+    assert acc > 0.85
+
+
+_LANDING = r"""
+import sys
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+from repro_torch.core.ingest import (BalboaIngest, IngestConfig,
+                                     make_dlrm_tile_decoder)
+from repro_torch.data import synthetic as syn
+from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.parallel.sharding import NamedSharding, PartitionSpec
+mesh = make_host_mesh()
+assert dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1)
+rows = NamedSharding(mesh, PartitionSpec("data", None))
+n_pkts = 20
+def fetch(shardings):
+    ing = BalboaIngest(
+        IngestConfig(batch_bytes=n_pkts * 4096, n_storage_nodes=4,
+                     qps_per_node=2, tile_pkts=2, link_bw_pkts_per_tick=1),
+        None, lambda i: syn.encode_dlrm_packets(
+            syn.dlrm_shard(i, 26 * n_pkts, 13, 26)), shardings=shardings,
+        tile_to_batch=make_dlrm_tile_decoder(13, 26, 100_000))
+    return ing, ing.fetch_shard_streaming(0)
+_, (whole, wrep) = fetch(None)
+ops.reset_launches()
+ing, (got, rep) = fetch({"dense": rows, "sparse": rows})
+assert ops.launches()["preproc"] > 0
+assert rep.events == wrep.events
+for k in ("dense", "sparse"):
+    assert isinstance(got[k], DTensor) and got[k].to_local().is_cuda
+    assert torch.equal(got[k].full_tensor().view(torch.int32),
+                       whole[k].view(torch.int32)), k
+assert ing.tiles_decoded == rep.tiles and ing.tiles_skipped == 0
+dist.destroy_process_group()
+print("LANDING_OK", ing.tiles_decoded, rep.tiles)
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_landing_zone_on_a_mesh_of_one(cuda):
+    """A 20-packet shard streamed (preprocessing kernel) into a zone
+    sharded ("data", None) on an NCCL mesh of one equals the unsharded
+    zone bit for bit.  The world of one lives in a subprocess."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    out = subprocess.run([sys.executable, "-c", _LANDING], env=env,
+                         cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LANDING_OK" in out.stdout, out.stdout

@@ -376,7 +376,7 @@ def test_fused_epochs_shardings_and_the_card_rule(monkeypatch):
     with pytest.raises(ValueError, match="epoch_mode"):
         ting.BalboaIngest(ting.IngestConfig(epoch_mode="epoch"), None,
                           _shard_fn(4), device="cpu")
-    with pytest.raises(NotImplementedError, match="shardings"):
+    with pytest.raises(TypeError, match="shardings"):
         ting.BalboaIngest(cfg, None, _shard_fn(4), shardings={"dense": 0},
                           device="cpu")
     with pytest.raises(ValueError, match="tile_to_batch"):

@@ -2,10 +2,11 @@
 
 * ``examples/secure_flow.py`` as written (2 x 64 KiB over a lossy link,
   sender-side AES, receiver-side decrypt + DPI, a sniffer on the
-  sender), run in-process with the committed DPI fixture in place of
-  the model it trains, against ``repro_torch.examples.secure_flow.main``
-  on the CPU: ticks, every node snapshot, the engine counters, the
-  delivered bytes, ``dpi_flagged`` and the PCAP bytes must be equal.
+  sender), run in-process against
+  ``repro_torch.examples.secure_flow.main`` on the CPU, each with the
+  committed DPI fixture in place of the model it trains: ticks, every
+  node snapshot, the engine counters, the delivered bytes,
+  ``dpi_flagged`` and the PCAP bytes must be equal.
 * The port reproduces the committed tick baselines of
   ``BENCH_fig6_multipath.json`` exactly: the incast rows (8:1
   ack-clocked on the DCQCN-marking fabric named on its own) and the
@@ -96,7 +97,14 @@ def _secure_flow_reference(monkeypatch, pcap: Path, params):
 
 
 def _secure_flow_port(monkeypatch, pcap: Path, engine="batched"):
-    """``repro_torch.examples.secure_flow.main(device="cpu")``."""
+    """``repro_torch.examples.secure_flow.main(device="cpu")``, with the
+    committed DPI fixture in place of the model it trains (the port's
+    own training is held to the reference's in
+    ``test_torch_placement_dpi.py``), so that both examples run on the
+    same weights."""
+    params = load_dpi_params_seed0()
+    monkeypatch.setattr(secure_flow, "train_dpi_params",
+                        lambda *a, **k: dict(params))
     return _run_secure_flow(secure_flow, monkeypatch, pcap, engine,
                             device="cpu", pcap=str(pcap))
 
