@@ -139,10 +139,13 @@ elastic checkpoint restore.
  14. mesh     the mesh layer (no hand-written kernel on this path): (a)
               ``python -m repro_torch.launch.dryrun --arch gemma2-2b
               --shape train_4k`` in a subprocess (its ``fake`` world of
-              512 ranks must not meet this process's NCCL one): ``ok``,
-              the reference's per-device argument bytes (384,748,552,
-              committed: the card machine has no JAX) and its two
-              fallbacks; the H100 roofline terms printed; (b) a one-rank
+              512 ranks must not meet this process's NCCL one), one
+              rank's share of the step walked as DTensors: ``ok``, the
+              reference's per-device argument bytes (384,748,552) and
+              alias bytes (384,224,260) exactly, its two fallbacks, its
+              partition's dot FLOPs within 10 % and collective traffic
+              within 2x (committed: the card machine has no JAX); the
+              three H100 roofline terms printed; (b) a one-rank
               NCCL world (``make_host_mesh()``): the shard_map MoE
               (``expert_sharding="ep_sm"``, deepseek-v3 smoke, float32,
               4 x 4096 tokens) forward and gradients against the card's
@@ -2996,6 +2999,27 @@ def phase_train_full_width(dev, smi: str) -> dict:
 DRYRUN_ARG_BYTES = 384_748_552
 DRYRUN_FALLBACKS = ("kv_heads=4 !-> ('model',) (indivisible)",
                     "heads=8 !-> ('model',) (indivisible)")
+# ... and one SPMD partition of that cell in the reference's HLO (its
+# hlo_analysis; the dot FLOPs with while bodies times their trip count),
+# which the port's DTensor walk is held to: alias bytes exactly, dot
+# FLOPs within DRYRUN_DOT_RTOL, collective traffic within a factor
+# DRYRUN_COLL_FACTOR (the reference's CPU compile carries its dots'
+# results, and so their collectives, in float32; the port's are bf16),
+# and the elements each kind of collective moves within
+# DRYRUN_ELEMENTS_RTOL, a kind the reference lacks under
+# DRYRUN_EXTRA_SHARE of the port's elements
+DRYRUN_REF = {"alias_bytes": 384_224_260, "output_bytes": 384_224_904,
+              "dot_flops": 445_203_425_001_472,
+              "flops": 449_907_023_205_441, "bytes": 14_411_385_345_458,
+              "coll_traffic": 126_633_775_156,
+              "coll_elements": {"all-reduce(g=16)": 16_206_147_864,
+                                "all-gather(g=16)": 981_041_152,
+                                "all-to-all(g=16)": 301_989_888,
+                                "collective-permute(g=256)": 69_074_944}}
+DRYRUN_DOT_RTOL = 0.10
+DRYRUN_COLL_FACTOR = 2.0
+DRYRUN_ELEMENTS_RTOL = 0.01
+DRYRUN_EXTRA_SHARE = 1e-3
 MESH_ATOL = 1e-5        # ep_sm vs no mesh: forward (abs), grads (rel)
 MESH_TRAIN_ATOL = 1e-5  # launch.train's losses, mesh vs no mesh
 
@@ -3046,7 +3070,7 @@ def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch import train as tlaunch
     from repro_torch.launch.dryrun import argument_bytes
-    from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
+    from repro_torch.launch.mesh import (HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16,
                                          make_host_mesh)
     from repro_torch.models import moe
     from repro_torch.models import params as P
@@ -3066,15 +3090,40 @@ def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
     assert cell["memory"]["argument_bytes"] == DRYRUN_ARG_BYTES, cell
     for line in DRYRUN_FALLBACKS:
         assert f"[gemma2-2b/train_4k] {line}" in cell["sharding_fallbacks"]
+    assert cell["memory"]["alias_bytes"] == DRYRUN_REF["alias_bytes"], cell
+    dot = cell["dot_flops_per_device"] / DRYRUN_REF["dot_flops"]
+    coll = cell["coll_traffic_per_device"] / DRYRUN_REF["coll_traffic"]
+    assert abs(dot - 1) <= DRYRUN_DOT_RTOL, (dot, cell)
+    assert 1 / DRYRUN_COLL_FACTOR <= coll <= DRYRUN_COLL_FACTOR, (coll, cell)
+    ge, we = cell["coll_elements"], DRYRUN_REF["coll_elements"]
+    kinds = {k: ge.get(k, 0) / n for k, n in we.items()}
+    assert all(abs(r - 1) <= DRYRUN_ELEMENTS_RTOL for r in kinds.values()), \
+        (kinds, ge)
+    extra = sum(v for k, v in ge.items() if k not in we)
+    assert extra <= DRYRUN_EXTRA_SHARE * sum(ge.values()), ge
     t = cell["terms"]
-    print(f"[mesh] (a) dry run gemma2-2b x train_4k on the 16x16 mesh (a "
-          f"fake world of 512 ranks, on the host): ok in {cell['step_s']} "
-          f"s walk; argument bytes per device {DRYRUN_ARG_BYTES:,} (the "
-          f"reference's); fallbacks {list(DRYRUN_FALLBACKS)}; H100 "
-          f"data-sheet roofline of the even split: compute "
+    assert t["collective_s"] is not None and t["collective_s"] > 0, t
+    print(f"[mesh] (a) dry run gemma2-2b x train_4k on the 16x16 mesh (one "
+          f"rank's share of the step as DTensors on a fake world of 512 "
+          f"ranks, on the host): ok in {cell['step_s']} s walk; argument "
+          f"bytes per device {DRYRUN_ARG_BYTES:,} and alias bytes "
+          f"{cell['memory']['alias_bytes']:,} (the reference's); output "
+          f"bytes {cell['memory']['output_bytes']:,} (reference "
+          f"{DRYRUN_REF['output_bytes']:,}); fallbacks "
+          f"{list(DRYRUN_FALLBACKS)}; per device: dot FLOPs "
+          f"{cell['dot_flops_per_device']:.4e} ({dot:.4f} x the reference "
+          f"partition's), FLOPs {cell['flops_per_device']:.4e} (ref "
+          f"{DRYRUN_REF['flops']:.4e}), bytes {cell['bytes_per_device']:.4e}"
+          f" (eager, unfused; ref {DRYRUN_REF['bytes']:.4e} fused), "
+          f"collective traffic {cell['coll_traffic_per_device']:.4e} B "
+          f"({coll:.4f} x the reference's) {cell['coll_breakdown']}, "
+          f"elements by kind x the reference's "
+          f"{ {k: round(r, 4) for k, r in kinds.items()} }; "
+          f"roofline terms from the H100 data sheet: compute "
           f"{t['compute_s'] * 1e3:.2f} ms ({PEAK_FLOPS_BF16:.3g} FLOP/s "
-          f"bf16), memory {t['memory_s'] * 1e3:.2f} ms ({HBM_BW:.3g} B/s, "
-          f"unfused upper bound), collectives not counted")
+          f"bf16), memory {t['memory_s'] * 1e3:.2f} ms ({HBM_BW:.3g} B/s), "
+          f"collective {t['collective_s'] * 1e3:.2f} ms ({NVLINK_BW:.3g} "
+          f"B/s) -> {cell['bottleneck']}")
 
     # (b) a one-rank NCCL world on the card
     mesh = make_host_mesh()

@@ -1,34 +1,58 @@
 """Step cost counter for the dry run — the port's counterpart of the
 reference's ``repro.launch.hlo_analysis``.
 
-The reference parses the compiled, post-SPMD HLO text of a step.  The
-port compiles no HLO and has no SPMD partitioner: its step is eager
-PyTorch.  So ``count_step`` walks one step on ``meta`` tensors (shapes,
-no storage, no arithmetic) under a ``TorchDispatchMode`` that sees every
-aten op the step runs, forward and backward, and counts:
+The reference parses the compiled HLO of one SPMD partition.  The port
+compiles no HLO: its step is eager PyTorch.  The dry run places every
+argument of the step as a ``DTensor`` of ``meta`` blocks on the
+production mesh, so DTensor's own sharding propagation partitions the
+step, and ``count_step`` walks it under a ``TorchDispatchMode`` that sees
+one rank's share: the local ops DTensor runs on its blocks, forward and
+backward, and the collectives it issues to redistribute them.  It
+counts:
 
   * flops — dot ops by ``torch.utils.flop_counter``'s formulas (2*M*N*K,
-    the reference's ``_dot_flops``), one FLOP per output element for the
-    counterparts of the reference's ``ELEMENTWISE`` set, and one per
-    operand element for reductions;
+    the reference's ``_dot_flops``; also kept apart as ``dot_flops``),
+    one FLOP per output element for the counterparts of the reference's
+    ``ELEMENTWISE`` set, and one per operand element for reductions;
   * bytes — operand + result bytes of every op that moves data.  Eager
     runs no fusion, so this is an upper bound on the reference's
     post-fusion bytes;
-  * collectives — the ones the port itself calls (``_c10d_functional``
-    ops: the shard_map MoE's all-to-alls, all-reduce and all-gathers),
-    by kind and group size, priced by the reference's ring model.
+  * collectives — every ``_c10d_functional`` op and DTensor's own
+    all-to-all (DTensor's and the port's: the shard_map MoE's), bytes
+    and elements by kind and group size, priced by the reference's ring
+    model.  An all-reduce of an all-reduce's result (DTensor reduces a
+    tensor partial over several mesh axes one axis at a time) counts as
+    one all-reduce over the product group, as GSPMD emits it; an
+    all-to-all that sends its whole block to one rank is a
+    collective-permute.
 
-The step is the whole program, not one device's partition: the dry run
-labels its per-device numbers as an even split.
+Under ``sharding.gspmd_partitioning`` a DTensor op may also be
+partitioned as the reference's partitioner does it
+(``sharding.weight_grad_slab``, ``sharding.reduced_product``).
+
+Not counted: the ops DTensor's propagation runs once per new op at the
+global shape to learn its output's shape (``_propagate_tensor_meta``).
+An op DTensor has no sharding strategy for (or cannot redistribute
+for: torch 2.11 on some nested shardings) runs on its inputs gathered to
+``Replicate()``, and a view that cannot split a dimension it unflattens
+(4 heads over 16 ranks) on its input gathered from that dimension on:
+the gathers are counted and the op is named in ``replicated_ops``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, List, Sequence
+import functools
+import threading
+import traceback
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
+
+from repro_torch.parallel import sharding as sh
 
 DTYPE_BYTES = {
     "pred": 1, "s4": 1, "u4": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2,
@@ -67,7 +91,13 @@ NO_TRAFFIC = {
 COLLECTIVES = {"all_reduce": "all-reduce",
                "all_gather_into_tensor": "all-gather",
                "reduce_scatter_tensor": "reduce-scatter",
-               "all_to_all_single": "all-to-all"}
+               "all_to_all_single": "all-to-all",
+               "shard_dim_alltoall": "all-to-all"}    # DTensor's own
+
+
+# the dot ops: the reference's ``dot`` and ``convolution`` HLO opcodes
+DOT_OPS = {"mm", "bmm", "addmm", "baddbmm", "convolution",
+           "convolution_backward"}
 
 
 @dataclasses.dataclass
@@ -76,13 +106,33 @@ class Cost:
     bytes: float = 0.0
     coll_bytes: Dict[str, float] = dataclasses.field(default_factory=dict)
     coll_traffic: float = 0.0      # ring-model per-device traffic
+    dot_flops: float = 0.0         # the share of ``flops`` in dot ops
+    # ops with no DTensor sharding strategy, run replicated: name -> runs
+    replicated_ops: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # the elements beside the bytes of ``coll_bytes``, key by key: the
+    # data moved, whatever its dtype
+    coll_elements: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     def add(self, other: "Cost", mult: float = 1.0):
         self.flops += other.flops * mult
+        self.dot_flops += other.dot_flops * mult
         self.bytes += other.bytes * mult
         self.coll_traffic += other.coll_traffic * mult
         for k, v in other.coll_bytes.items():
             self.coll_bytes[k] = self.coll_bytes.get(k, 0.0) + v * mult
+        for k, v in other.coll_elements.items():
+            self.coll_elements[k] = self.coll_elements.get(k, 0.0) + v * mult
+
+    def add_collective(self, kind: str, g: int, result_bytes: float,
+                       elements: float, w: float = 1.0):
+        key = f"{kind}(g={g})"
+        self.coll_bytes[key] = self.coll_bytes.get(key, 0.0) \
+            + w * result_bytes
+        self.coll_elements[key] = self.coll_elements.get(key, 0.0) \
+            + w * elements
+        self.coll_traffic += w * _collective_traffic(kind, result_bytes, g)
+        if not self.coll_bytes[key]:
+            del self.coll_bytes[key], self.coll_elements[key]
 
 
 def _collective_traffic(kind: str, result_bytes: float, g: int) -> float:
@@ -123,48 +173,219 @@ def _group_size(args) -> int:
     return c10d._resolve_process_group(name).size()
 
 
+class _Quiet(threading.local):
+    depth = 0
+
+
+_QUIET = _Quiet()
+
+
+def _quiet(fn):
+    """``fn`` with counting off: DTensor's propagation runs each new op
+    once at the global shape to learn its output's shape; that run is
+    no rank's work."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        _QUIET.depth += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _QUIET.depth -= 1
+    run.quiet_of = fn
+    return run
+
+
+def _propagator():
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    return ShardingPropagator
+
+
 class CostMode(TorchDispatchMode):
     """Counts every aten op run under it into ``self.cost``, each weighted
     by ``self.weight`` (``count_as`` raises it for one step of a scan
-    that stands for many)."""
+    that stands for many).  An op on DTensors is left to DTensor's
+    dispatch, whose local ops and collectives come back here."""
 
     def __init__(self):
         super().__init__()
         self.cost = Cost()
         self.weight = 1.0
         self.stack: List[float] = []
+        self._pass: Optional[Callable] = None
+        self._reduced = None      # (result, g, bytes, elements, weight)
+        #                           all-reduce, for chaining
 
     def __enter__(self):
         _MODES.append(self)
+        prop = _propagator()
+        if len(_MODES) == 1:
+            prop._propagate_tensor_meta_non_cached = _quiet(
+                prop._propagate_tensor_meta_non_cached)
         return super().__enter__()
 
     def __exit__(self, *exc):
         _MODES.remove(self)
+        prop = _propagator()
+        if not _MODES:
+            prop._propagate_tensor_meta_non_cached = \
+                prop._propagate_tensor_meta_non_cached.quiet_of
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if _QUIET.depth:
+            return func(*args, **kwargs)
+        if any(issubclass(t, DTensor) for t in types):
+            if self._pass is func:
+                self._pass = None
+                return NotImplemented
+            return self._dtensor_op(func, args, kwargs)
         out = func(*args, **kwargs)
+        self._count(func, args, kwargs, out)
+        return out
+
+    def _dtensor_op(self, func, args, kwargs):
+        """DTensor's dispatch of ``func`` (or, under
+        ``sharding.gspmd_partitioning``, a weight gradient's slab), with
+        this mode active again so that its local ops and collectives are
+        counted; a product's partial sums reduced where it makes them
+        (``sharding.reduced_product``)."""
+        with _reentered(self):
+            out = sh.weight_grad_slab(func, args)
+        if out is None:
+            out = self._dispatched(func, args, kwargs)
+        with _reentered(self):
+            return sh.reduced_product(func, out)
+
+    def _dispatched(self, func, args, kwargs):
+        """DTensor's dispatch of ``func``; an op it has no sharding
+        strategy for runs replicated, and a view that cannot split a
+        dimension it unflattens runs on its input gathered there."""
+        self._pass = func
+        with _reentered(self):
+            try:
+                return func(*args, **kwargs)
+            except NotImplementedError as e:
+                if "sharding strategy" not in str(e):
+                    raise
+                self._pass = None
+                return self._replicated(func, args, kwargs)
+            except IndexError as e:
+                # torch 2.11's redistribution planner fails on some
+                # nested shardings: the op runs replicated
+                if not traceback.extract_tb(e.__traceback__)[-1] \
+                        .filename.endswith("_redistribute.py"):
+                    raise
+                self._pass = None
+                return self._replicated(func, args, kwargs)
+            except RuntimeError as e:
+                if not any(m in str(e) for m in _UNSPLIT_VIEW):
+                    raise
+                self._pass = None
+                x, shape = args[0], args[1]
+                first = next((i for i, (a, b) in enumerate(zip(
+                    x.shape, shape)) if a != b), min(len(shape), x.ndim))
+                want = [Replicate() if q.is_shard() and q.dim >= first
+                        else q for q in x.placements]
+                self._note_replicated(func)
+                self._pass = func
+                return func(x.redistribute(x.device_mesh, want),
+                            *args[1:], **kwargs)
+
+    def _note_replicated(self, func):
+        rep, name = self.cost.replicated_ops, func.overloadpacket.__name__
+        rep[name] = rep.get(name, 0) + 1
+
+    def _replicated(self, func, args, kwargs):
+        """``func`` on its DTensor inputs gathered to ``Replicate()`` (the
+        collectives counted), its result replicated."""
+        from torch.utils._pytree import tree_map
+        if func is torch.ops.aten.detach_.default:
+            # moves nothing (torch 2.11 has no strategy for it)
+            func(args[0].to_local())
+            return args[0]
+        if func._schema.is_mutable:
+            raise NotImplementedError(
+                f"{func}: an in-place op with no sharding strategy")
+        mesh = next(a.device_mesh for a in _tensors(list(args)
+                    + list(kwargs.values())) if isinstance(a, DTensor))
+        repl = [Replicate()] * mesh.ndim
+
+        def whole(a):
+            return (a.redistribute(mesh, repl).to_local()
+                    if isinstance(a, DTensor) else a)
+
+        out = func(*tree_map(whole, args), **tree_map(whole, kwargs))
+        self._note_replicated(func)
+        return tree_map(lambda t: DTensor.from_local(
+            t, mesh, repl, run_check=False)
+            if isinstance(t, torch.Tensor) else t, out)
+
+    def _count(self, func, args, kwargs, out):
         packet = func.overloadpacket
         name = packet.__name__.rstrip("_")
         c, w = self.cost, self.weight
         ins, outs = _tensors(list(args) + list(kwargs.values())), _tensors(out)
         if packet in flop_registry:
-            c.flops += w * flop_registry[packet](*args, **kwargs, out_val=out)
+            f = w * flop_registry[packet](*args, **kwargs, out_val=out)
+            c.flops += f
+            if name in DOT_OPS:
+                c.dot_flops += f
         elif name in ELEMENTWISE:
             c.flops += w * sum(t.numel() for t in outs)
         elif name in REDUCTIONS and ins:
             c.flops += w * ins[0].numel()
-        if func.namespace == "_c10d_functional" and name in COLLECTIVES:
-            kind = COLLECTIVES[name]
-            g = _group_size(args)
-            rb = _nbytes(outs)
-            key = f"{kind}(g={g})"
-            c.coll_bytes[key] = c.coll_bytes.get(key, 0.0) + w * rb
-            c.coll_traffic += w * _collective_traffic(kind, rb, g)
+        if func.namespace == "_c10d_functional" \
+                or func.namespace == "_dtensor" and name in COLLECTIVES:
+            self._collective(name, args, outs)
         if name not in NO_TRAFFIC:
             c.bytes += w * (_nbytes(ins) + _nbytes(outs))
-        return out
+
+    def _collective(self, name, args, outs):
+        c, w = self.cost, self.weight
+        last = self._reduced
+        if name not in COLLECTIVES:
+            # a wait or a wrap of the last all-reduce's result is that
+            # result
+            if last is not None and outs and _unwrap(args[0]) is last[0]:
+                self._reduced = (outs[0],) + last[1:]
+            return
+        kind, g, rb = COLLECTIVES[name], _group_size(args), _nbytes(outs)
+        ne = sum(t.numel() for t in outs)
+        if name == "all_to_all_single" and sum(map(bool, args[2])) == 1:
+            kind = "collective-permute"     # its whole block to one rank
+        self._reduced = None
+        if kind == "all-reduce":
+            if last is not None and _unwrap(args[0]) is last[0] \
+                    and last[4] == w:
+                # one reduction over several mesh axes: one collective
+                c.add_collective(kind, last[1], -last[2], -last[3], w)
+                g *= last[1]
+            self._reduced = (outs[0], g, rb, ne, w)
+        c.add_collective(kind, g, rb, ne, w)
+
+
+# DTensor's refusals to view a split dimension as several (torch 2.13's
+# wording, then 2.11's)
+_UNSPLIT_VIEW = ("unevenly sharded",
+                 "split the sharded dimension")
+
+
+@contextlib.contextmanager
+def _reentered(mode: TorchDispatchMode):
+    """``mode`` pushed again inside its own ``__torch_dispatch__``."""
+    from torch.utils._python_dispatch import _pop_mode, _push_mode
+    _push_mode(mode)
+    try:
+        yield
+    finally:
+        _pop_mode()
+
+
+def _unwrap(t):
+    """A functional collective's result may come wrapped (an
+    ``AsyncCollectiveTensor``) into the op that uses it."""
+    return getattr(t, "elem", t)
 
 
 _MODES: List[CostMode] = []

@@ -9,24 +9,33 @@
 Each (arch x shape x mesh) cell resolves every parameter, optimizer-state
 (train), cache (serve) and input leaf on the production mesh
 (``make_production_mesh``: the 16x16 or 2x16x16 mesh over a one-process
-``fake`` world of 512 ranks), and walks the step once on ``meta``
-tensors under that mesh's rules.  It runs on the CPU and allocates no
-tensor of the full-size configs.  Per cell it reports:
+``fake`` world of 512 ranks), places each as a ``DTensor`` of ``meta``
+blocks by its spec, and walks one rank's share of the step: DTensor's
+sharding propagation partitions each op, held to GSPMD's choices
+(``sharding.gspmd_partitioning``), and
+``repro_torch.launch.cost_analysis`` counts what the rank runs — the
+reference reads one SPMD partition's HLO.  It runs on the CPU and
+allocates no tensor of the full-size configs.  Per cell, per device:
 
   * ``memory.argument_bytes`` — exact: the sum of every argument leaf's
-    local shard bytes on one device (plus the 4-byte step or index
-    scalar of the train and decode steps), which is what the
-    reference's ``memory_analysis().argument_size_in_bytes`` counts;
-    split by tree in ``memory.argument_bytes_by_tree``;
+    local shard bytes (plus the 4-byte step or index scalar of the train
+    and decode steps), the reference's
+    ``memory_analysis().argument_size_in_bytes``; split by tree in
+    ``memory.argument_bytes_by_tree``; ``memory.output_bytes``, the
+    local bytes of every output leaf, and ``memory.alias_bytes``, those
+    of the donated trees the step returns (parameters and optimizer
+    state for train, the cache for prefill and decode);
   * ``sharding_fallbacks`` — the reference's text, from the same rules;
-  * ``flops_global`` / ``bytes_global`` — the whole step's, counted by
-    ``repro_torch.launch.cost_analysis`` (eager, unfused: the bytes are
-    an upper bound), and ``*_per_device_even_split``, those divided by
-    the mesh's size.  They are not XLA's per-partition counts;
-  * ``terms`` — roofline seconds from the even split and the H100
-    data-sheet constants of ``launch.mesh``; ``collective_s`` is null:
-    the collectives GSPMD would insert are not counted (see
-    ``collective_s_reason``).
+  * ``flops_per_device``, ``dot_flops_per_device``, ``bytes_per_device``
+    (eager, unfused: an upper bound on the reference's fused bytes),
+    ``coll_traffic_per_device`` (the ring model), ``coll_breakdown``
+    (the 12 largest, bytes by kind and group) and ``coll_elements`` (the
+    elements each moves, whatever its dtype); ``replicated_ops``, the
+    ops DTensor could not shard as placed, run on gathered inputs;
+  * ``terms`` — roofline seconds from the H100 data-sheet constants of
+    ``launch.mesh``: compute, memory and collective (traffic over one
+    NVLink bandwidth, the reference's one-bandwidth model), and the
+    ``bottleneck`` among the three.
 
 A cell that raises reports ``FAIL`` with its error.  ``--smoke`` runs
 the reduced configs at the same shapes.
@@ -40,6 +49,8 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.common.config import (LM_SHAPES, SHAPES_BY_NAME, ModelConfig,
                                        ShapeConfig, TrainConfig)
@@ -53,13 +64,6 @@ from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.parallel import sharding as sh
 from repro_torch.train.step import (make_decode_step, make_prefill_step,
                                     make_train_step)
-
-COLLECTIVE_S_REASON = (
-    "not counted: the port has no SPMD partitioner to insert the "
-    "collectives the rules imply, and DTensor propagation fails on the "
-    "model; only collectives the port calls itself are counted "
-    "(port_collectives)")
-
 
 def _rules_of(shape: ShapeConfig):
     return sh.make_rules("train" if shape.kind == "train" else "serve",
@@ -136,31 +140,67 @@ def _split_override(cfg: ModelConfig, opt_override):
     return cfg, tc_kw
 
 
+def _local_bytes(tree) -> int:
+    """One device's bytes of every tensor leaf of ``tree`` (a DTensor's
+    block, a plain tensor whole)."""
+    if isinstance(tree, dict):
+        return sum(_local_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_local_bytes(v) for v in tree)
+    if isinstance(tree, DTensor):
+        tree = tree.to_local()
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return 0
+
+
 def walk_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
               opt_override: Optional[Dict[str, Any]] = None):
-    """Resolve every argument leaf of the cell's step on ``mesh``, then
-    walk the step once on ``meta`` tensors under the mesh's rules.
-    Returns (argument bytes by tree, the step's Cost)."""
+    """Resolve every argument leaf of the cell's step on ``mesh``, place
+    the parameters, the optimizer state (train), the inputs and the
+    cache (serve) as DTensors of ``meta`` blocks by their specs, and walk
+    the step once under the mesh's rules, as one rank's share.  Tensors
+    the step makes itself (positions, masks, zeros) are plain and join
+    the DTensors as replicated (``implicit_replication``).  Returns
+    (argument bytes by tree, the step's Cost, output and alias bytes)."""
     cfg, tc_kw = _split_override(cfg, opt_override)
     by_tree = argument_bytes(cfg, shape, mesh)
+    rules, ctx = _rules_of(shape), f"{cfg.name}/{shape.name}"
     model = Model(cfg, device="meta")
-    ispecs, _ = input_specs(cfg, shape)
-    with sh.activate(mesh, _rules_of(shape), f"{cfg.name}/{shape.name}"):
+    ispecs, iaxes = input_specs(cfg, shape)
+    with sh.activate(mesh, rules, ctx), implicit_replication(), \
+            sh.gspmd_partitioning():
+        sh.place_meta(model, model.param_spec(), mesh, rules, ctx)
+        inputs = sh.place_meta(ispecs, {k: P.Spec(tuple(v.shape), iaxes[k])
+                                        for k, v in ispecs.items()},
+                               mesh, rules, ctx)
+        out: List[Any] = []
         if shape.kind == "train":
             step_fn, opt = make_train_step(model, TrainConfig(**tc_kw))
-            ostate = P.shapes(opt.state_spec(model.param_spec()), "float32")
-            cost = count_step(lambda: step_fn(ostate, ispecs, 0))
+            ospec = opt.state_spec(model.param_spec())
+            donated = sh.place_meta(P.shapes(ospec, "float32"), ospec,
+                                    mesh, rules, ctx)
+            cost = count_step(lambda: out.extend(
+                step_fn(donated, inputs, 0)))
+            donated = [list(model.parameters()), donated]
+            out.append(list(model.parameters()))
         else:
-            cache = model.init_cache(shape.global_batch, shape.seq_len,
-                                     _enc_len(cfg, shape))
+            enc = _enc_len(cfg, shape)
+            donated = sh.place_meta(
+                model.init_cache(shape.global_batch, shape.seq_len, enc),
+                model.cache_spec(shape.global_batch, shape.seq_len, enc),
+                mesh, rules, ctx)
             if shape.kind == "prefill":
                 step_fn = make_prefill_step(model)
-                cost = count_step(lambda: step_fn(ispecs, cache))
+                cost = count_step(lambda: out.extend(
+                    step_fn(inputs, donated)))
             else:
                 step_fn = make_decode_step(model)
-                cost = count_step(lambda: step_fn(
-                    cache, ispecs["tokens"], shape.seq_len - 1))
-    return by_tree, cost
+                cost = count_step(lambda: out.extend(step_fn(
+                    donated, inputs["tokens"], shape.seq_len - 1)))
+    memory = {"output_bytes": _local_bytes(out),
+              "alias_bytes": _local_bytes(donated)}
+    return by_tree, cost, memory
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -184,7 +224,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     sh.clear_fallback_log()
     t0 = time.time()
     try:
-        by_tree, cost = walk_cell(cfg, shape, mesh, opt_override)
+        by_tree, cost, memory = walk_cell(cfg, shape, mesh, opt_override)
     except Exception as e:  # a failing cell is a bug in the system
         result["status"] = "FAIL"
         result["error"] = f"{type(e).__name__}: {e}"[:500]
@@ -195,41 +235,47 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     t_step = time.time() - t0
 
     arg_bytes = sum(by_tree.values())
-    flops_dev, bytes_dev = cost.flops / chips, cost.bytes / chips
     result.update({
         "status": "ok",
         "step_s": round(t_step, 1),
         "chips": chips,
-        "flops_global": cost.flops,
-        "bytes_global": cost.bytes,
-        "flops_per_device_even_split": flops_dev,
-        "bytes_per_device_even_split": bytes_dev,
-        "port_collectives": {"coll_breakdown": dict(cost.coll_bytes),
-                             "coll_traffic": cost.coll_traffic},
+        "flops_per_device": cost.flops,
+        "dot_flops_per_device": cost.dot_flops,
+        "bytes_per_device": cost.bytes,
+        "coll_traffic_per_device": cost.coll_traffic,
+        "coll_breakdown": {k: v for k, v in sorted(
+            cost.coll_bytes.items(), key=lambda kv: -kv[1])[:12]},
+        "coll_elements": dict(sorted(cost.coll_elements.items(),
+                                     key=lambda kv: -kv[1])),
+        "replicated_ops": dict(sorted(cost.replicated_ops.items())),
         "memory": {"argument_bytes": arg_bytes,
-                   "argument_bytes_by_tree": by_tree},
+                   "argument_bytes_by_tree": by_tree, **memory},
         "sharding_fallbacks": sh.fallback_summary(),
     })
+    # roofline terms (seconds) per device, the reference's one-bandwidth
+    # model with the H100's data-sheet constants
     result["terms"] = {
-        "compute_s": flops_dev / mesh_lib.PEAK_FLOPS_BF16,
-        "memory_s": bytes_dev / mesh_lib.HBM_BW,
-        "collective_s": None,
+        "compute_s": cost.flops / mesh_lib.PEAK_FLOPS_BF16,
+        "memory_s": cost.bytes / mesh_lib.HBM_BW,
+        "collective_s": cost.coll_traffic / mesh_lib.NVLINK_BW,
     }
-    result["collective_s_reason"] = COLLECTIVE_S_REASON
-    terms = {k: v for k, v in result["terms"].items() if v is not None}
-    result["bottleneck"] = max(terms, key=terms.get)
+    result["bottleneck"] = max(result["terms"], key=result["terms"].get)
     if verbose:
         t = result["terms"]
         print(f"[dryrun] {arch} x {shape_name} ({result['mesh']}): OK "
               f"step walk={t_step:.1f}s "
               f"compute={t['compute_s'] * 1e3:.2f}ms "
-              f"memory={t['memory_s'] * 1e3:.2f}ms (even split, H100 "
-              f"data sheet) coll=not counted -> {result['bottleneck']}",
-              flush=True)
+              f"memory={t['memory_s'] * 1e3:.2f}ms "
+              f"coll={t['collective_s'] * 1e3:.2f}ms (one device, H100 "
+              f"data sheet) -> {result['bottleneck']}", flush=True)
         print(f"  argument bytes per device: {arg_bytes:,} "
               f"({arg_bytes / 2**30:.2f} GiB; "
-              + ", ".join(f"{k} {v:,}" for k, v in by_tree.items()) + ")",
-              flush=True)
+              + ", ".join(f"{k} {v:,}" for k, v in by_tree.items())
+              + f"); output {memory['output_bytes']:,}, alias "
+              f"{memory['alias_bytes']:,}", flush=True)
+        if cost.replicated_ops:
+            print(f"  ops with no DTensor strategy, run replicated: "
+                  f"{result['replicated_ops']}", flush=True)
     return result
 
 
@@ -247,20 +293,17 @@ def main(argv=None):
     ap.add_argument("--json", default=None, help="write results to file")
     args = ap.parse_args(argv)
 
-    results = []
     if args.all:
-        for arch in ALL_ARCHS:
-            for shape in LM_SHAPES:
-                for mp in (False, True):
-                    results.append(run_cell(arch, shape.name, mp,
-                                            smoke=args.smoke))
+        cells = [(arch, shape.name, mp) for arch in ALL_ARCHS
+                 for shape in LM_SHAPES for mp in (False, True)]
     else:
         if not args.arch or not args.shape:
             ap.error("--arch and --shape required (or --all)")
         meshes = (False, True) if args.both_meshes else (args.multi_pod,)
-        for mp in meshes:
-            results.append(run_cell(args.arch, args.shape, mp,
-                                    smoke=args.smoke))
+        cells = [(args.arch, args.shape, mp) for mp in meshes]
+    with sh.gspmd_partitioning():      # the cells share DTensor's decisions
+        results = [run_cell(arch, shape, mp, smoke=args.smoke)
+                   for arch, shape, mp in cells]
 
     n_fail = sum(1 for r in results if r.get("status") == "FAIL")
     if args.json:

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch.common.config import ModelConfig
 from repro_torch.models.layers import apply_mrope, apply_rope, rms_norm, softcap
 from repro_torch.models.params import Spec
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, set_slot
 
 NEG_INF = -2.3819763e38  # large negative for bf16-safe masking
 
@@ -325,21 +325,22 @@ def self_attention(
     else:
         # decode: write the new KV into its ring slot, in place
         slot = int(cache_index) % cache["k"].shape[1]
-        at = slice(slot, slot + 1)
         if cfg.kv_cache_quant:
             kq, ks = _quant_kv(k)
             vq, vs = _quant_kv(v)
-            cache["k"][:, at], cache["v"][:, at] = kq, vq
-            cache["k_scale"][:, at], cache["v_scale"][:, at] = ks, vs
+            for name, t in (("k", kq), ("v", vq), ("k_scale", ks),
+                            ("v_scale", vs)):
+                set_slot(cache[name], 1, slot, t)
             k_att = _dequant_kv(cache["k"], cache["k_scale"], k.dtype)
             v_att = _dequant_kv(cache["v"], cache["v_scale"], v.dtype)
         else:
-            cache["k"][:, at], cache["v"][:, at] = k, v
+            set_slot(cache["k"], 1, slot, k)
+            set_slot(cache["v"], 1, slot, v)
             for name in ("k", "v"):
                 constrain(cache[name], "batch", "cache_seq", "kv_heads",
                           "head_dim")
             k_att, v_att = cache["k"], cache["v"]
-        cache["pos"][:, at] = pos2d.to(torch.int32)
+        set_slot(cache["pos"], 1, slot, pos2d.to(torch.int32))
         new_cache = cache
         mask = _build_mask(pos2d, cache["pos"], causal, window)
 
@@ -423,8 +424,8 @@ def mla_attention(
         # ---- absorbed decode on the compressed latent cache, in place ----
         length = cache["ckv"].shape[1]
         idx = int(cache_index)
-        cache["ckv"][:, idx:idx + 1] = ckv
-        cache["kpe"][:, idx:idx + 1] = k_pe
+        set_slot(cache["ckv"], 1, idx, ckv)
+        set_slot(cache["kpe"], 1, idx, k_pe)
         constrain(cache["ckv"], "batch", "cache_seq", None)
         constrain(cache["kpe"], "batch", "cache_seq", None)
         new_cache = cache

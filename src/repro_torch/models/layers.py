@@ -79,7 +79,9 @@ def embedding_spec(vocab: int, d_model: int):
 
 def embed(params, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
     # gather, then cast: the rows the reference takes from its cast table
-    y = params["table"][tokens.long()].to(compute_dtype)
+    # (on a vocab-sharded DTensor table, each rank takes its rows, the
+    # others masked, and the sum is all-reduced: DTensor's embedding)
+    y = F.embedding(tokens.long(), params["table"]).to(compute_dtype)
     return constrain(y, "batch", "seq", "d_model")
 
 

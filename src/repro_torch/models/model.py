@@ -45,7 +45,11 @@ def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
         valid = valid & (mask > 0)
     t = torch.clamp_min(targets, 0).long()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, t[..., None])[..., 0]
+    # the gathered logit settled before the select: on vocab-sharded
+    # DTensor logits it is partial over the vocab's axis, masked by the
+    # gather's shape
+    gold = constrain(torch.gather(logits, -1, t[..., None]),
+                     "batch", "seq", None)[..., 0]
     nll = (lse - gold) * valid
     return torch.sum(nll) / torch.clamp_min(torch.sum(valid), 1)
 

@@ -24,6 +24,10 @@ all-gathers the rows (``out_specs=P("data")``).  Each collective's
 backward is written so that every rank ends with the whole gradient of
 every global input, the no-mesh path's.  Without a mesh the reference
 takes ``_moe_chunked``, and so does the port.
+
+On a ``DTensor`` (the dry run's step, placed on the production mesh)
+every expert sharding takes ``_moe_spmd``: one rank's share of the
+reference's partition, with its collectives written out.
 """
 from __future__ import annotations
 
@@ -40,8 +44,8 @@ from repro_torch.common.config import ModelConfig
 from repro_torch.models.layers import ffn, ffn_spec
 from repro_torch.models.params import Spec
 from repro_torch.parallel.sharding import (NamedSharding, PartitionSpec,
-                                          active_mesh, constrain,
-                                          entry_axes)
+                                          active_mesh, at_use, constrain,
+                                          entry_axes, is_distributed)
 
 ROW_LEN = 4096          # tokens per dispatch row (<= one sequence)
 ROWS_PER_CHUNK = 16     # rows processed per step (1 per data shard)
@@ -196,7 +200,9 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor,
 
     Returns (y, aux_loss, expert_load)."""
     b, s, d = x.shape
-    if b * s <= FLAT_PATH_MAX_TOKENS:
+    if is_distributed(x):
+        y, aux, load = _moe_spmd(cfg, p, x, compute_dtype)
+    elif b * s <= FLAT_PATH_MAX_TOKENS:
         y, aux, load = _moe_flat(cfg, p, x, compute_dtype)
     elif cfg.expert_sharding == "ep_sm" and active_mesh() is not None:
         y, aux, load = _moe_chunked_shardmap(cfg, p, x, compute_dtype)
@@ -339,41 +345,51 @@ class _GatherRows(torch.autograd.Function):
         return ctx.rows.local_block(g), None
 
 
-def _expert_shard_map_fn(cfg, mesh, row_len: int):
-    """Per-rank body of the shard_map MoE (``expert_sharding="ep_sm"``):
-    run the expert FFN on f-shards and combine the per-shard partials
-    into the token tensor before a single all-reduce over "model",
-    instead of all-reducing the dispatched (tokens x k x capacity)
-    buffer.
+def _expert_shard_map_fn(cfg, row_len: int, ep=(), tp=(),
+                         reduce_tokens: bool = True):
+    """Per-rank body of the shard_map MoE: the expert FFN on this rank's
+    expert and f shards, a tiled all-to-all over each group of ``ep``
+    (the axes the experts are split on) to bring every expert its
+    tokens and its inverse to take them back, and the partials of the
+    f shards all-reduced over each group of ``tp`` — with
+    ``reduce_tokens`` (``expert_sharding="ep_sm"``) once the token
+    tensor is combined, instead of all-reducing the dispatched
+    (tokens x k x capacity) buffer.
 
-    Per-rank inputs (``_ShardIn`` slices them):
+    Per-rank inputs:
       x_pad   (r_loc, L+1, d)   rows of this data shard (+ zero sentinel)
       buf_tok (r_loc, E, C)     dispatch buckets for those rows
       buf_w   (r_loc, E, C)
       w1/w3   (E_loc, d, f_loc) this rank's expert/f shards
       w2      (E_loc, f_loc, d)
-    Output: y (r_loc, L, d) — fully reduced over "model"."""
-    g_data, g_model = mesh.get_group("data"), mesh.get_group("model")
+    Output: y (r_loc, L, d) — fully reduced over ``tp``."""
 
     def body(x_pad, buf_tok, buf_w, w1, w3, w2):
         r_loc = x_pad.shape[0]
         rows = torch.arange(r_loc, device=x_pad.device)[:, None, None]
         x_e = x_pad[rows, buf_tok]                        # (r, E, C, d)
-        # EP all-to-all over "data": split experts, concat rows ->
-        # (r_loc * n_data, E_loc, C, d): every row shard's tokens for the
-        # experts that live on this data shard
-        x_e = _AllToAll.apply(x_e, g_data, 1, 0)
+        # EP all-to-all: split experts, concat rows -> (r_loc * n_ep,
+        # E_loc, C, d): every row shard's tokens for this rank's experts
+        for g in ep:
+            x_e = _AllToAll.apply(x_e, g, 1, 0)
         h1 = torch.einsum("recd,edf->recf", x_e, w1)
         h3 = torch.einsum("recd,edf->recf", x_e, w3)
         y_e = torch.einsum("recf,efd->recd", F.silu(h1) * h3, w2)
-        # partial over "model" (f contracted locally); the inverse
-        # all-to-all sends expert outputs back to their row shards
-        y_e = _AllToAll.apply(y_e, g_data, 0, 1)          # (r_loc, E, C, d)
-        # combine to tokens while still partial over "model" ...
+        # partial over tp (f contracted locally); the inverse all-to-all
+        # sends expert outputs back to their row shards
+        for g in reversed(ep):
+            y_e = _AllToAll.apply(y_e, g, 0, 1)           # (r_loc, E, C, d)
+        if not reduce_tokens:
+            for g in tp:
+                y_e = _SumReplicas.apply(y_e, g)
+        # combine to tokens (with reduce_tokens still partial over tp) ...
         y = torch.stack([_combine_row(buf_tok[i], buf_w[i], y_e[i], row_len,
                                       cfg.top_k) for i in range(r_loc)])
         # ... then one reduction of the token tensor
-        return _SumReplicas.apply(y, g_model)
+        if reduce_tokens:
+            for g in tp:
+                y = _SumReplicas.apply(y, g)
+        return y
     return body
 
 
@@ -405,7 +421,8 @@ def _moe_chunked_shardmap(cfg, p, x, compute_dtype):
     w3 = _ShardIn.apply(p["w3"].to(compute_dtype), w13, ())
     w2 = _ShardIn.apply(p["w2"].to(compute_dtype), NamedSharding(
         mesh, PartitionSpec("data", "model", None)), ())
-    body = _expert_shard_map_fn(cfg, mesh, row_len)
+    body = _expert_shard_map_fn(cfg, row_len, [mesh.get_group("data")],
+                                [mesh.get_group("model")])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     load = torch.zeros((e,), dtype=torch.float32, device=x.device)
     ys = []
@@ -427,6 +444,66 @@ def _moe_chunked_shardmap(cfg, p, x, compute_dtype):
         ys.append(_GatherRows.apply(y_c, rows))            # (r, L, d)
     y = torch.stack(ys, dim=1).reshape(b, s, d)
     return y.to(x.dtype), aux / nc, load / nc
+
+
+def _moe_spmd(cfg, p, x, compute_dtype):
+    """``moe_ffn`` on a ``DTensor`` ``x`` as one rank's share of the
+    reference's partition, its collectives written out: routing, the
+    dispatch tables and the combine run on this rank's tokens (rows
+    follow the batch's split, as "expert_rows" does), and the shard_map
+    body (``_expert_shard_map_fn``) on this rank's blocks of w1/w3/w2,
+    its all-to-alls over the mesh axes the experts are split on, its
+    all-reduces over those ``expert_ff`` is split on.  The aux loss and
+    the load are averaged over the token shards."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh, names = x.device_mesh, x.device_mesh.mesh_dim_names
+    tokens_split = [q.is_shard() for q in x.placements]
+
+    def block(t):
+        """This rank's block of a parameter as ops use it (``at_use``);
+        its gradient is partial over the axes the tokens are split on and
+        it is not."""
+        t = at_use(t)
+        grad = [Partial() if q.is_replicate() and split else q
+                for q, split in zip(t.placements, tokens_split)]
+        return t.to_local(grad_placements=grad)
+
+    def whole(t):
+        return DTensor.from_local(t, mesh, [Partial("avg") if split else
+                                            Replicate()
+                                            for split in tokens_split],
+                                  run_check=False).redistribute(
+            mesh, [Replicate()] * mesh.ndim)
+
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    x_loc = x.to_local()
+    n = x_loc.shape[0] * s
+    if b * s <= FLAT_PATH_MAX_TOKENS:           # decode: one row
+        row_len = n
+        cap = max(math.ceil(CAPACITY_FACTOR * n * k / e), min(n, 16))
+    else:
+        row_len = min(s, ROW_LEN)
+        cap = max(1, math.ceil(CAPACITY_FACTOR * row_len * k / e))
+    xr = x_loc.reshape(n // row_len, row_len, d)
+    r = xr.shape[0]
+    router = {key: block(p[key]) for key in ("w_router", "gate_bias")
+              if key in p}
+    buf_tok, buf_w, aux, load = _route_rows(cfg, router, xr, cap)
+    w1, w3, w2 = (block(p[key]).to(compute_dtype)
+                  for key in ("w1", "w3", "w2"))
+    split = p["w1"].placements
+    body = _expert_shard_map_fn(
+        cfg, row_len,
+        [mesh.get_group(a) for a, q in zip(names, split) if q.is_shard(0)],
+        [mesh.get_group(a) for a, q in zip(names, split) if q.is_shard(2)],
+        reduce_tokens=cfg.expert_sharding == "ep_sm")
+    x_pad = torch.cat([xr.to(compute_dtype),
+                       xr.new_zeros((r, 1, d), dtype=compute_dtype)], dim=1)
+    y = body(x_pad, buf_tok, buf_w.to(compute_dtype), w1, w3, w2)
+    y = DTensor.from_local(y.reshape(x_loc.shape).to(x.dtype), mesh,
+                           x.placements, run_check=False)
+    return y, whole(aux), whole(load)
 
 
 def _moe_chunked(cfg, p, x, compute_dtype):

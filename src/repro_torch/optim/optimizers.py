@@ -24,6 +24,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch.models.params import Spec, tree_items
+from repro_torch.parallel.sharding import is_distributed
 
 Tree = Dict[str, Any]
 
@@ -72,7 +73,27 @@ def cosine_schedule(lr: float, warmup: int, total: int) -> Callable:
 def global_norm(tree: Tree) -> torch.Tensor:
     leaves = [sum(torch.sum(torch.square(t.float())) for t in _parts(v))
               for v in tree.values()]
+    if is_distributed(leaves[0]):
+        return torch.sqrt(_sum_over_mesh(leaves))
     return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+def _sum_over_mesh(scalars) -> torch.Tensor:
+    """The sum of scalar DTensors (each replicated or partial over each
+    mesh axis) in one all-reduce, the reference's combined one: each
+    rank adds its parts (a replicated value divided by its copies) and
+    the total is left partial over the whole mesh."""
+    from torch.distributed.tensor import DTensor, Partial
+    mesh = scalars[0].device_mesh
+    local = 0.0
+    for x in scalars:
+        copies = 1
+        for m, q in enumerate(x.placements):
+            if q.is_replicate():
+                copies *= mesh.size(m)
+        local = local + x.to_local() / copies
+    return DTensor.from_local(local, mesh, [Partial()] * mesh.ndim,
+                              run_check=False)
 
 
 def clip_by_global_norm(tree: Tree, max_norm: float

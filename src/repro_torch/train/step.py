@@ -131,6 +131,10 @@ def make_decode_step(model: Model) -> Callable:
         logits, new_cache = model.decode_step(cache, tokens, index)
         # greedy next token (serving returns tokens, not logits, to keep
         # the host <-> device traffic at O(batch))
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        # taken along dim 0 of the transpose: on vocab-sharded DTensor
+        # logits, DTensor gathers each rank's max and its index, and its
+        # gather of a (B, 1) block along dim 1 fails; the first maximal
+        # index either way
+        next_tok = torch.argmax(logits[:, -1, :].t(), dim=0).to(torch.int32)
         return next_tok[:, None], new_cache
     return decode_step

@@ -1,10 +1,18 @@
-"""Every (arch x shape) cell of the port's dry run at smoke size, on the
-16x16 production mesh, on the CPU: ``run_cell(..., smoke=True)`` walks
-each cell's step (train, prefill or decode) on ``meta`` tensors at the
-cell's full shape with the reduced config.  35 cells must report
-``ok`` and the other 5 ``skip``, exactly where each config's
-``skip_shapes`` says; none may ``FAIL``.  The dry run makes a process
-group (the ``fake`` backend), so it runs in a subprocess of its own.
+"""Every (arch x shape) cell of the port's dry run at smoke size, on both
+production meshes (16x16 and 2x16x16), on the CPU: ``run_cell(...,
+smoke=True)`` walks one rank's share of each cell's step (train, prefill
+or decode) as DTensors of ``meta`` blocks at the cell's full shape with
+the reduced config.  On each mesh 35 cells must report ``ok`` and the
+other 5 ``skip``, exactly where each config's ``skip_shapes`` says; none
+may ``FAIL``.  Every ``ok`` cell splits something over the mesh, so its
+``collective_s`` is positive; the ops DTensor could not shard as placed
+are named in ``replicated_ops`` (their gathers counted) and printed.
+The dry run makes a process group (the ``fake`` backend), so the cells
+run in subprocesses, all at once: the 16x16 mesh's in one, the 2x16x16
+mesh's (whose walks take 2-4x longer: DTensor weighs strategies over
+three mesh axes) in three groups of archs, each subprocess walking its
+cells in one ``gspmd_partitioning`` (as the CLI's ``--all``) so that
+they share DTensor's sharding decisions.
 """
 import json
 import os
@@ -12,32 +20,77 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 from repro_torch.common.config import LM_SHAPES
 from repro_torch.configs import ALL_ARCHS, get_smoke_config
 
 ROOT = Path(__file__).resolve().parents[1]
+MESHES = {"16x16": False, "2x16x16": True}
 
 _SNIPPET = r"""
-import json
+import json, sys
 from repro_torch.common.config import LM_SHAPES
 from repro_torch.configs import ALL_ARCHS
 from repro_torch.launch.dryrun import run_cell
-out = {f"{a}/{s.name}": run_cell(a, s.name, False, verbose=False, smoke=True)
-       for a in ALL_ARCHS for s in LM_SHAPES}
+from repro_torch.parallel.sharding import gspmd_partitioning
+multi_pod, archs = sys.argv[1] == "1", sys.argv[2:]
+with gspmd_partitioning():      # the cells share DTensor's decisions
+    out = {f"{a}/{s.name}": run_cell(a, s.name, multi_pod, verbose=False,
+                                     smoke=True)
+           for a in archs for s in LM_SHAPES}
 print("RESULT " + json.dumps(out))
 """
 
+# the archs each subprocess walks on each mesh, of about equal walks
+GROUPS = {"16x16": (ALL_ARCHS,),
+          "2x16x16": (("gemma3-4b", "gemma2-27b", "gemma2-2b",
+                       "granite-3-2b"),
+                      ("deepseek-v3-671b", "deepseek-v2-236b",
+                       "whisper-base"),
+                      ("xlstm-125m", "recurrentgemma-9b", "qwen2-vl-72b"))}
 
-def test_every_smoke_cell_walks_on_the_16x16_mesh():
+
+@pytest.fixture(scope="module")
+def walks():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
-    proc = subprocess.run([sys.executable, "-c", _SNIPPET],
-                          capture_output=True, text=True, timeout=400,
-                          env=env, cwd=ROOT)
-    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
-    assert line, proc.stderr[-2000:]
-    got = json.loads(line[0][len("RESULT "):])
-    status = {}
+    for groups in GROUPS.values():
+        assert sorted(sum(groups, ())) == sorted(ALL_ARCHS)
+    procs = {(name, group): subprocess.Popen(
+        [sys.executable, "-c", _SNIPPET, "1" if mp else "0", *group],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT) for name, mp in MESHES.items() for group in GROUPS[name]}
+    out = {name: {} for name in MESHES}
+    try:
+        for (name, _), proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=900)
+            line = [ln for ln in stdout.splitlines()
+                    if ln.startswith("RESULT ")]
+            if not line:
+                out[name] = stderr[-2000:]
+            elif isinstance(out[name], dict):
+                out[name].update(json.loads(line[0][len("RESULT "):]))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out
+
+
+def test_every_smoke_cell_walks_on_the_16x16_mesh(walks):
+    _check_walks(walks, "16x16")
+
+
+def test_every_smoke_cell_walks_on_the_2x16x16_mesh(walks):
+    _check_walks(walks, "2x16x16")
+
+
+def _check_walks(walks, mesh):
+    got = walks[mesh]
+    assert isinstance(got, dict), got
+    status, replicated = {}, {}
     for arch in ALL_ARCHS:
         skips = get_smoke_config(arch).skip_shapes
         for shape in LM_SHAPES:
@@ -46,11 +99,20 @@ def test_every_smoke_cell_walks_on_the_16x16_mesh():
             assert r["status"] == want, (arch, shape.name, r)
             status[want] = status.get(want, 0) + 1
             if want == "ok":
-                assert r["chips"] == 256 and r["flops_global"] > 0
+                assert r["mesh"] == mesh
+                assert r["chips"] == (512 if MESHES[mesh] else 256)
+                assert r["dot_flops_per_device"] > 0
+                assert r["flops_per_device"] >= r["dot_flops_per_device"]
                 assert r["memory"]["argument_bytes"] > 0
-                assert r["terms"]["collective_s"] is None
+                assert r["memory"]["alias_bytes"] > 0
+                assert r["terms"]["collective_s"] > 0, (arch, shape.name)
+                assert r["bottleneck"] == max(r["terms"],
+                                              key=r["terms"].get)
+                if r["replicated_ops"]:
+                    replicated[f"{arch}/{shape.name}"] = r["replicated_ops"]
     assert status == {"ok": 35, "skip": 5}, status
     walk = {k: r["step_s"] for k, r in got.items() if r["status"] == "ok"}
     slow = max(walk, key=walk.get)
-    print(f"35 smoke cells ok, 5 skipped; slowest walk {slow} "
-          f"{walk[slow]} s, all {sum(walk.values()):.1f} s")
+    print(f"{mesh}: 35 smoke cells ok, 5 skipped; slowest walk {slow} "
+          f"{walk[slow]} s, all {sum(walk.values()):.1f} s; run "
+          f"replicated or gathered before a view: {replicated}")
