@@ -3020,16 +3020,34 @@ DRYRUN_DOT_RTOL = 0.10
 DRYRUN_COLL_FACTOR = 2.0
 DRYRUN_ELEMENTS_RTOL = 0.01
 DRYRUN_EXTRA_SHARE = 1e-3
+# ... and of granite-3-2b x train_4k, whose 32 query heads over 8 KV
+# heads GSPMD splits over "model" cut into 8 x 2 (tests/_dryrun_ref.py
+# on the CPU; the port walks that cell on a mesh so cut and is held to
+# it as to DRYRUN_REF, each kind including the all-gathers over the 8
+# and the all-reduces over the 2, and with no op run replicated)
+DRYRUN_GQA_ARCH = "granite-3-2b"
+DRYRUN_GQA_REF = {"argument_bytes": 251_032_072, "alias_bytes": 250_507_780,
+                  "output_bytes": 250_508_112,
+                  "dot_flops": 154_345_605_693_440,
+                  "coll_traffic": 256_339_838_192.5,
+                  "coll_elements": {"all-reduce(g=16)": 32_377_047_823,
+                                    "all-gather(g=16)": 696_260_608,
+                                    "all-gather(g=8)": 2_684_354_560,
+                                    "all-reduce(g=2)": 335_544_320,
+                                    "collective-permute(g=256)": 40_896_000}}
+DRYRUN_GQA_FALLBACKS = ("kv_heads=8 !-> ('model',) (indivisible)",
+                        "vocab=49155 !-> ('model',) (indivisible)")
 MESH_ATOL = 1e-5        # ep_sm vs no mesh: forward (abs), grads (rel)
 MESH_TRAIN_ATOL = 1e-5  # launch.train's losses, mesh vs no mesh
 
 
-def start_dryrun(out: Path) -> subprocess.Popen:
-    """Phase 14a's dry run, started early in a process of its own."""
+def start_dryrun(out: Path, arch: str = "gemma2-2b") -> subprocess.Popen:
+    """Phase 14a's dry run of ``arch`` x train_4k, started early in a
+    process of its own."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "gemma2-2b", "--shape", "train_4k", "--json", str(out)],
+         arch, "--shape", "train_4k", "--json", str(out)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
         cwd=ROOT)
 
@@ -3057,8 +3075,57 @@ def _moe_grads(cfg, p0, x0, mesh):
                         "w3": p["w3"].grad}, counts
 
 
+def _dryrun_cell(proc: subprocess.Popen, path: Path) -> dict:
+    """The one cell a ``start_dryrun`` process wrote."""
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-3000:]
+    cell = json.loads(path.read_text())[0]
+    assert cell["status"] == "ok", cell
+    return cell
+
+
+def check_dryrun_gqa(proc: subprocess.Popen, path: Path) -> dict:
+    """Phase 14a's GQA cell against DRYRUN_GQA_REF: the same checks as
+    the gemma2-2b cell's, and no op run replicated on this torch."""
+    cell = _dryrun_cell(proc, path)
+    mem, ref = cell["memory"], DRYRUN_GQA_REF
+    assert mem["argument_bytes"] == ref["argument_bytes"], cell
+    assert mem["alias_bytes"] == ref["alias_bytes"], cell
+    assert 0 <= ref["output_bytes"] - mem["output_bytes"] <= 1024, cell
+    for line in DRYRUN_GQA_FALLBACKS:
+        assert f"[{DRYRUN_GQA_ARCH}/train_4k] {line}" \
+            in cell["sharding_fallbacks"], cell["sharding_fallbacks"]
+    dot = cell["dot_flops_per_device"] / ref["dot_flops"]
+    coll = cell["coll_traffic_per_device"] / ref["coll_traffic"]
+    assert abs(dot - 1) <= DRYRUN_DOT_RTOL, (dot, cell)
+    assert 1 / DRYRUN_COLL_FACTOR <= coll <= DRYRUN_COLL_FACTOR, (coll, cell)
+    ge, we = cell["coll_elements"], ref["coll_elements"]
+    kinds = {k: ge.get(k, 0) / n for k, n in we.items()}
+    assert all(abs(r - 1) <= DRYRUN_ELEMENTS_RTOL for r in kinds.values()), \
+        (kinds, ge)
+    extra = sum(v for k, v in ge.items() if k not in we)
+    assert extra <= DRYRUN_EXTRA_SHARE * sum(ge.values()), ge
+    assert cell["replicated_ops"] == {}, cell["replicated_ops"]
+    print(f"[mesh] (a) dry run {DRYRUN_GQA_ARCH} x train_4k on the 16x16 "
+          f"mesh, \"model\" cut into 8 x 2 for its KV heads: ok in "
+          f"{cell['step_s']} s walk; argument bytes {mem['argument_bytes']:,}"
+          f", alias {mem['alias_bytes']:,} (the reference's), output "
+          f"{mem['output_bytes']:,} (reference {ref['output_bytes']:,}); dot "
+          f"FLOPs {cell['dot_flops_per_device']:.4e} ({dot:.4f} x the "
+          f"reference partition's), collective traffic {coll:.4f} x, "
+          f"elements by kind x the reference's "
+          f"{ {k: round(r, 4) for k, r in kinds.items()} }, port only "
+          f"{extra:.0f}; replicated ops {cell['replicated_ops']}")
+    return cell
+
+
 def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
-               peak_13b: int) -> dict:
+               peak_13b: int, gqa: tuple) -> dict:
     """Phase 14: the mesh layer; (a) the dry run started by
     ``start_dryrun``, (b) a one-rank NCCL mesh on the card, (c) the dry
     run's argument bytes against phase 13b's peak memory."""
@@ -3078,15 +3145,7 @@ def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
     from repro_torch.train.loop import Trainer, lm_batch_iterator
     t0 = time.perf_counter()
     # (a) the dry run
-    try:
-        out, err = dryrun.communicate(timeout=300)
-    finally:
-        if dryrun.poll() is None:
-            dryrun.kill()
-            dryrun.communicate()
-    assert dryrun.returncode == 0, err[-3000:]
-    cell = json.loads(dry_json.read_text())[0]
-    assert cell["status"] == "ok", cell
+    cell = _dryrun_cell(dryrun, dry_json)
     assert cell["memory"]["argument_bytes"] == DRYRUN_ARG_BYTES, cell
     for line in DRYRUN_FALLBACKS:
         assert f"[gemma2-2b/train_4k] {line}" in cell["sharding_fallbacks"]
@@ -3123,7 +3182,9 @@ def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
           f"{t['compute_s'] * 1e3:.2f} ms ({PEAK_FLOPS_BF16:.3g} FLOP/s "
           f"bf16), memory {t['memory_s'] * 1e3:.2f} ms ({HBM_BW:.3g} B/s), "
           f"collective {t['collective_s'] * 1e3:.2f} ms ({NVLINK_BW:.3g} "
-          f"B/s) -> {cell['bottleneck']}")
+          f"B/s) -> {cell['bottleneck']}; replicated ops "
+          f"{cell['replicated_ops']}")
+    gqa_cell = check_dryrun_gqa(*gqa)
 
     # (b) a one-rank NCCL world on the card
     mesh = make_host_mesh()
@@ -3195,7 +3256,8 @@ def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
     dist.destroy_process_group()
     wall = time.perf_counter() - t0
     print(f"[mesh] phase 14 wall_s={wall:.1f}")
-    return {"dryrun": cell["terms"], "ep_sm_fwd_err": fwd,
+    return {"dryrun": cell["terms"], "dryrun_gqa": gqa_cell["terms"],
+            "ep_sm_fwd_err": fwd,
             "ep_sm_grad_rel": rel, "train_loss_err": err,
             "arg_bytes_13b": arg, "peak_13b": peak_13b, "wall_s": wall}
 
@@ -3844,6 +3906,9 @@ def main() -> int:
     dry_json = Path(tmp.name) / "dryrun.json"
     dryrun = start_dryrun(dry_json)
     atexit.register(lambda: dryrun.poll() is None and dryrun.kill())
+    gqa_json = Path(tmp.name) / "dryrun_gqa.json"
+    dryrun_gqa = start_dryrun(gqa_json, DRYRUN_GQA_ARCH)
+    atexit.register(lambda: dryrun_gqa.poll() is None and dryrun_gqa.kill())
     t12 = time.perf_counter()
     phase_lm_smoke(dev)
     phase_lm_full_width(dev, smi)
@@ -3853,7 +3918,8 @@ def main() -> int:
     full = phase_train_full_width(dev, smi)
     print(f"[train] phase 13 wall_s={time.perf_counter() - t13:.1f}")
     phase_mesh(dev, smi, dryrun, dry_json,
-               max(r["max_memory_allocated"] for r in full["steps"]))
+               max(r["max_memory_allocated"] for r in full["steps"]),
+               (dryrun_gqa, gqa_json))
     t15 = time.perf_counter()
     counts.update(phase_dpi_training(dev))
     counts.update(phase_placement(dev, smi))

@@ -22,9 +22,12 @@ counts:
     and elements by kind and group size, priced by the reference's ring
     model.  An all-reduce of an all-reduce's result (DTensor reduces a
     tensor partial over several mesh axes one axis at a time) counts as
-    one all-reduce over the product group, as GSPMD emits it; an
-    all-to-all that sends its whole block to one rank is a
-    collective-permute.
+    one all-reduce over the product group, as GSPMD emits it, and so,
+    on a mesh with an axis cut into factors, does a collective DTensor
+    issues over each factor in turn (``factor_batch``); an all-to-all
+    that sends its whole block to one rank is a collective-permute;
+  * reads — whether the step reads each argument's data
+    (``Cost.read_of``), the dry run's count of XLA's arguments.
 
 Under ``sharding.gspmd_partitioning`` a DTensor op may also be
 partitioned as the reference's partitioner does it
@@ -112,6 +115,17 @@ class Cost:
     # the elements beside the bytes of ``coll_bytes``, key by key: the
     # data moved, whatever its dtype
     coll_elements: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # (mesh axis, factors): the first view that needed that axis cut
+    # into factors (``sharding.split_factors``), run gathered here; the
+    # dry run walks the step again on a mesh so cut
+    axis_cut: Optional[tuple] = None
+    # the storages of the watched tensors (``CostMode.watch``) read
+    read: set = dataclasses.field(default_factory=set)
+
+    def read_of(self, t: torch.Tensor) -> bool:
+        """Whether the walk read the watched ``t``'s data (a DTensor's
+        block's, or a view's of it)."""
+        return storage_key(_block(t)) in self.read
 
     def add(self, other: "Cost", mult: float = 1.0):
         self.flops += other.flops * mult
@@ -168,9 +182,7 @@ def _nbytes(ts: Sequence[torch.Tensor]) -> int:
 
 def _group_size(args) -> int:
     import torch.distributed.distributed_c10d as c10d
-    name = next(a for a in args if isinstance(a, str)
-                and a not in ("sum", "avg", "max", "min"))
-    return c10d._resolve_process_group(name).size()
+    return c10d._resolve_process_group(_group_name(args)).size()
 
 
 class _Quiet(threading.local):
@@ -214,6 +226,21 @@ class CostMode(TorchDispatchMode):
         self._pass: Optional[Callable] = None
         self._reduced = None      # (result, g, bytes, elements, weight)
         #                           all-reduce, for chaining
+        # the storages of the tensors whose reads are watched (kept alive,
+        # so that no other storage takes their key)
+        self.watched: Dict[int, torch.Tensor] = {}
+        # the collectives of an op or a redistribution on a mesh with a
+        # factored axis, held to be merged (``factor_batch``): [the axis
+        # of each factor's group, chains, the chain each storage derives
+        # from]
+        self._batch: Optional[list] = None
+
+    def watch(self, ts: Sequence[torch.Tensor]) -> None:
+        """Record from now on whether the walk reads the data of each of
+        ``ts`` (a DTensor's block) or of a view of it: ``Cost.read_of``."""
+        for t in ts:
+            t = _block(t)
+            self.watched[storage_key(t)] = t
 
     def __enter__(self):
         _MODES.append(self)
@@ -221,6 +248,9 @@ class CostMode(TorchDispatchMode):
         if len(_MODES) == 1:
             prop._propagate_tensor_meta_non_cached = _quiet(
                 prop._propagate_tensor_meta_non_cached)
+            for mod in _redistributors():
+                mod.redistribute_local_tensor = _batched(
+                    mod.redistribute_local_tensor)
         return super().__enter__()
 
     def __exit__(self, *exc):
@@ -229,6 +259,9 @@ class CostMode(TorchDispatchMode):
         if not _MODES:
             prop._propagate_tensor_meta_non_cached = \
                 prop._propagate_tensor_meta_non_cached.quiet_of
+            for mod in _redistributors():
+                mod.redistribute_local_tensor = \
+                    mod.redistribute_local_tensor.batched_of
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -250,8 +283,18 @@ class CostMode(TorchDispatchMode):
         this mode active again so that its local ops and collectives are
         counted; a product's partial sums reduced where it makes them
         (``sharding.reduced_product``)."""
+        x = next((a for a in _tensors(list(args) + list(kwargs.values()))
+                  if isinstance(a, DTensor)), None)
+        with factor_batch(getattr(x, "device_mesh", None)):
+            return self._dtensor_op_on(func, args, kwargs)
+
+    def _dtensor_op_on(self, func, args, kwargs):
         with _reentered(self):
             out = sh.weight_grad_slab(func, args)
+            if out is None:
+                out = sh.split_view(func, args)
+            if out is None:
+                out = sh.local_pointwise(func, args, kwargs)
         if out is None:
             out = self._dispatched(func, args, kwargs)
         with _reentered(self):
@@ -269,7 +312,9 @@ class CostMode(TorchDispatchMode):
                 if "sharding strategy" not in str(e):
                     raise
                 self._pass = None
-                return self._replicated(func, args, kwargs)
+                out = sh.gspmd_fallback(func, args)
+                return self._replicated(func, args, kwargs) \
+                    if out is None else out
             except IndexError as e:
                 # torch 2.11's redistribution planner fails on some
                 # nested shardings: the op runs replicated
@@ -283,6 +328,11 @@ class CostMode(TorchDispatchMode):
                     raise
                 self._pass = None
                 x, shape = args[0], args[1]
+                if self.cost.axis_cut is None:
+                    # the walk goes on: an exception out of a
+                    # rematerialized block's forward leaves torch 2.11's
+                    # checkpoint state broken
+                    self.cost.axis_cut = sh.split_factors(x, shape)
                 first = next((i for i, (a, b) in enumerate(zip(
                     x.shape, shape)) if a != b), min(len(shape), x.ndim))
                 want = [Replicate() if q.is_shard() and q.dim >= first
@@ -340,6 +390,29 @@ class CostMode(TorchDispatchMode):
             self._collective(name, args, outs)
         if name not in NO_TRAFFIC:
             c.bytes += w * (_nbytes(ins) + _nbytes(outs))
+            if self.watched:
+                self._note_reads(name, args, ins)
+        if self._batch is not None and name not in COLLECTIVES:
+            chain = next((self._batch[2][k] for k in map(storage_key, ins)
+                          if k in self._batch[2]), None)
+            if chain is not None:
+                for t in outs:
+                    self._batch[2][storage_key(t)] = chain
+
+    def _note_reads(self, name, args, ins):
+        """The watched storages an op that moves data reads: each input,
+        but for the destination of a pure write (``copy_``, ``fill_``,
+        ``zero_``) that covers its whole storage — a write into part of
+        a buffer keeps the rest, as XLA's dynamic-update-slice reads its
+        operand."""
+        dest = args[0] if name in _WRITES else None
+        for t in ins:
+            if t is dest and t.numel() * t.element_size() \
+                    == t.untyped_storage().nbytes():
+                continue
+            k = storage_key(t)
+            if k in self.watched:
+                self.cost.read.add(k)
 
     def _collective(self, name, args, outs):
         c, w = self.cost, self.weight
@@ -355,6 +428,9 @@ class CostMode(TorchDispatchMode):
         if name == "all_to_all_single" and sum(map(bool, args[2])) == 1:
             kind = "collective-permute"     # its whole block to one rank
         self._reduced = None
+        if kind != "all-reduce" and self._batch is not None:
+            self._hold(kind, g, rb, ne, w, _group_name(args), args, outs)
+            return
         if kind == "all-reduce":
             if last is not None and _unwrap(args[0]) is last[0] \
                     and last[4] == w:
@@ -365,10 +441,103 @@ class CostMode(TorchDispatchMode):
         c.add_collective(kind, g, rb, ne, w)
 
 
+    def _hold(self, kind, g, rb, ne, w, group, args, outs):
+        """A collective of the open batch: one over a factor of a mesh
+        axis, of the result of one over another factor of that axis
+        (through the local ops between them), of the same kind, joins
+        its chain — DTensor moves a split over each mesh dim in turn,
+        GSPMD in one collective over the whole axis, of the last one's
+        result."""
+        factor_of, chains, lineage = self._batch
+        axis = factor_of.get(group)
+        src = next((lineage[k] for k in map(storage_key, _tensors(args))
+                    if k in lineage), None)
+        if axis is not None and src is not None:
+            c = chains[src]
+            if c["kind"] == kind and c["w"] == w and c["axis"] == axis \
+                    and group not in c["groups"]:
+                c["groups"].add(group)
+                c.update(g=c["g"] * g, rb=rb, ne=ne)
+                for t in outs:
+                    lineage[storage_key(t)] = src
+                return
+        chains.append({"kind": kind, "g": g, "rb": rb, "ne": ne, "w": w,
+                       "axis": axis, "groups": {group}})
+        for t in outs:
+            lineage[storage_key(t)] = len(chains) - 1
+
+
+@contextlib.contextmanager
+def factor_batch(mesh):
+    """The collectives issued inside, on a mesh with a factored axis, held
+    by each active mode and merged at its end (``CostMode._hold``); a
+    batch already open holds them."""
+    axes = sh.factored_axes(mesh)
+    if not axes or _QUIET.depth or not _MODES \
+            or _MODES[-1]._batch is not None:
+        yield
+        return
+    factor_of = {mesh.get_group(m).group_name: a
+                 for a, ms in axes.items() if len(ms) > 1 for m in ms}
+    for m in _MODES:
+        m._batch = [factor_of, [], {}]
+    try:
+        yield
+    finally:
+        for m in _MODES:
+            _, chains, _ = m._batch
+            m._batch = None
+            for c in chains:
+                m.cost.add_collective(c["kind"], c["g"], c["rb"], c["ne"],
+                                      c["w"])
+
+
+def _redistributors():
+    """The modules of DTensor that call ``redistribute_local_tensor`` by
+    their own name for it."""
+    import importlib
+    mods = []
+    for name in ("_redistribute", "_dispatch", "_api"):
+        mod = importlib.import_module(f"torch.distributed.tensor.{name}")
+        if hasattr(mod, "redistribute_local_tensor"):
+            mods.append(mod)
+    return mods
+
+
+def _batched(fn):
+    """DTensor's ``redistribute_local_tensor`` in a ``factor_batch``."""
+    @functools.wraps(fn)
+    def run(local, current, target, *args, **kwargs):
+        with factor_batch(current.mesh):
+            return fn(local, current, target, *args, **kwargs)
+    run.batched_of = fn
+    return run
+
+
+def _group_name(args) -> str:
+    return next(a for a in args if isinstance(a, str)
+                and a not in ("sum", "avg", "max", "min"))
+
+
+# ops that write their first argument without reading it
+_WRITES = {"copy", "fill", "zero"}
+
+
+def storage_key(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage, shared by every view of it."""
+    return t.untyped_storage()._cdata
+
+
+def _block(t: torch.Tensor) -> torch.Tensor:
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
 # DTensor's refusals to view a split dimension as several (torch 2.13's
-# wording, then 2.11's)
+# wording, then 2.11's), and torch 2.11's to merge a split dimension
+# into the one before it (2.13 splits the merged dim strided)
 _UNSPLIT_VIEW = ("unevenly sharded",
-                 "split the sharded dimension")
+                 "split the sharded dimension",
+                 "Attempted to flatten multiple dimensions")
 
 
 @contextlib.contextmanager
@@ -430,8 +599,17 @@ def count_as(n: int, fn: Callable, inputs: Sequence[torch.Tensor]):
     return out
 
 
-def count_step(fn: Callable) -> Cost:
-    """The cost of ``fn()`` (a step on ``meta`` tensors)."""
+def watch(ts: Sequence[torch.Tensor]) -> None:
+    """``CostMode.watch`` on every active mode (a tensor the step makes)."""
+    for m in _MODES:
+        m.watch(ts)
+
+
+def count_step(fn: Callable, watch: Sequence[torch.Tensor] = ()) -> Cost:
+    """The cost of ``fn()`` (a step on ``meta`` tensors); ``read_of``
+    answers, for each of ``watch`` and each tensor ``fn`` watches
+    (``watch``), whether the step read its data."""
     with CostMode() as mode:
+        mode.watch(watch)
         fn()
     return mode.cost

@@ -17,14 +17,16 @@ sharding propagation partitions each op, held to GSPMD's choices
 reference reads one SPMD partition's HLO.  It runs on the CPU and
 allocates no tensor of the full-size configs.  Per cell, per device:
 
-  * ``memory.argument_bytes`` — exact: the sum of every argument leaf's
-    local shard bytes (plus the 4-byte step or index scalar of the train
-    and decode steps), the reference's
-    ``memory_analysis().argument_size_in_bytes``; split by tree in
+  * ``memory.argument_bytes`` — exact: the local shard bytes of every
+    argument leaf the step reads (plus the 4-byte step or index scalar
+    where it is used), the reference's
+    ``memory_analysis().argument_size_in_bytes`` (XLA drops a parameter
+    the step never reads); split by tree in
     ``memory.argument_bytes_by_tree``; ``memory.output_bytes``, the
-    local bytes of every output leaf, and ``memory.alias_bytes``, those
-    of the donated trees the step returns (parameters and optimizer
-    state for train, the cache for prefill and decode);
+    local bytes of every output leaf as the walk leaves it, with XLA's
+    output tuple; ``memory.alias_bytes``, those of the read donated
+    leaves (parameters and optimizer state for train, the cache for
+    prefill and decode) an output of the same block shape takes;
   * ``sharding_fallbacks`` — the reference's text, from the same rules;
   * ``flops_per_device``, ``dot_flops_per_device``, ``bytes_per_device``
     (eager, unfused: an upper bound on the reference's fused bytes),
@@ -51,11 +53,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import implicit_replication
+from torch.overrides import TorchFunctionMode
 
 from repro_torch.common.config import (LM_SHAPES, SHAPES_BY_NAME, ModelConfig,
                                        ShapeConfig, TrainConfig)
 from repro_torch.configs import ALL_ARCHS, get_config, get_smoke_config
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import cost_analysis
 from repro_torch.launch.cost_analysis import count_step
 from repro_torch.models import params as P
 from repro_torch.models.model import (ENC_LEN_FOR_DECODE, Model, cache_spec,
@@ -110,13 +114,12 @@ def resolve_cell(cfg: ModelConfig, shape: ShapeConfig, mesh
 
 def argument_bytes(cfg: ModelConfig, shape: ShapeConfig, mesh
                    ) -> Dict[str, int]:
-    """One device's bytes of the step's arguments, by tree: every leaf's
-    local shard, plus the 4-byte step (train) or index (decode) scalar.
-    The decode step takes only the tokens of its inputs."""
+    """One device's bytes of every argument leaf of the cell's step, by
+    tree (each leaf's local shard), plus the 4-byte step (train) or
+    index (decode) scalar: what the step is given, read or not (the
+    walk counts what it reads: ``walk_cell``)."""
     by_tree: Dict[str, int] = {}
     for tree, path, shp, dt, spec in resolve_cell(cfg, shape, mesh):
-        if tree == "inputs" and shape.is_decode and path != "tokens":
-            continue
         by_tree[tree] = by_tree.get(tree, 0) + sh.NamedSharding(
             mesh, spec).local_bytes(shp, dt)
     if shape.kind == "train":
@@ -140,67 +143,175 @@ def _split_override(cfg: ModelConfig, opt_override):
     return cfg, tc_kw
 
 
-def _local_bytes(tree) -> int:
-    """One device's bytes of every tensor leaf of ``tree`` (a DTensor's
-    block, a plain tensor whole)."""
-    if isinstance(tree, dict):
-        return sum(_local_bytes(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return sum(_local_bytes(v) for v in tree)
-    if isinstance(tree, DTensor):
-        tree = tree.to_local()
+def _leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a nested dict / list / tuple, in order."""
     if isinstance(tree, torch.Tensor):
-        return tree.numel() * tree.element_size()
-    return 0
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return []
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    """One device's bytes of ``t`` (a DTensor's block, a plain tensor
+    whole)."""
+    t = _local(t)
+    return t.numel() * t.element_size()
+
+
+_TUPLE_ENTRY = 8       # bytes of XLA's output tuple for each leaf
+
+
+class _MadeFrom(TorchFunctionMode):
+    """The tensors the step makes from its scalar argument (the train
+    step's step, the decode step's position): ``torch.full``'s fill or
+    ``torch.as_tensor``'s data that is the scalar's very object (the
+    walk passes one above CPython's small-int cache, so no literal of
+    the model's is it), each watched by the walk's ``CostMode``."""
+
+    def __init__(self, scalar: int):
+        super().__init__()
+        self.scalar, self.made = scalar, []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func in (torch.full, torch.as_tensor) and any(
+                a is self.scalar for a in (*args, *kwargs.values())):
+            self.made.append(out)
+            cost_analysis.watch([out])
+        return out
 
 
 def walk_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
               opt_override: Optional[Dict[str, Any]] = None):
-    """Resolve every argument leaf of the cell's step on ``mesh``, place
-    the parameters, the optimizer state (train), the inputs and the
-    cache (serve) as DTensors of ``meta`` blocks by their specs, and walk
-    the step once under the mesh's rules, as one rank's share.  Tensors
-    the step makes itself (positions, masks, zeros) are plain and join
-    the DTensors as replicated (``implicit_replication``).  Returns
-    (argument bytes by tree, the step's Cost, output and alias bytes)."""
+    """Place the parameters, the optimizer state (train), the inputs and
+    the cache (serve) as DTensors of ``meta`` blocks by their specs, and
+    walk the step once under the mesh's rules, as one rank's share.
+    Tensors the step makes itself (positions, masks, zeros) are plain
+    and join the DTensors as replicated (``implicit_replication``).
+
+    The memory is XLA's for the reference's jitted step
+    (``step_memory``): XLA drops a parameter the step never reads (a
+    cache that prefill overwrites whole, the encoder's weights in a
+    decode step, a scalar the step never uses — the step or position
+    scalar counts if the walk reads a tensor the step makes from it).
+    Returns (argument bytes by tree, the step's Cost, output and alias
+    bytes).
+
+    Where a view unflattens a dim split over a mesh axis into dims the
+    axis cannot split whole (``sharding.split_factors``), the step is
+    walked again on the mesh with that axis cut into the factors the
+    shapes give (``launch.mesh.factor_axis``), as GSPMD cuts it."""
     cfg, tc_kw = _split_override(cfg, opt_override)
-    by_tree = argument_bytes(cfg, shape, mesh)
+    resolve_cell(cfg, shape, mesh)  # the fallback log in the reference's order
+    by_tree, cost, memory = _walk(cfg, shape, mesh, tc_kw)
+    if cost.axis_cut is None:
+        return by_tree, cost, memory
+    return _walk(cfg, shape, mesh_lib.factor_axis(mesh, *cost.axis_cut),
+                 tc_kw)
+
+
+def _walk(cfg: ModelConfig, shape: ShapeConfig, mesh, tc_kw):
     rules, ctx = _rules_of(shape), f"{cfg.name}/{shape.name}"
     model = Model(cfg, device="meta")
     ispecs, iaxes = input_specs(cfg, shape)
+    # the scalar, an int object of its own (see _MadeFrom)
+    scalar = int(str(1 << 20 if shape.kind == "train"
+                     else shape.seq_len - 1))
+    made = _MadeFrom(scalar)
     with sh.activate(mesh, rules, ctx), implicit_replication(), \
             sh.gspmd_partitioning():
         sh.place_meta(model, model.param_spec(), mesh, rules, ctx)
         inputs = sh.place_meta(ispecs, {k: P.Spec(tuple(v.shape), iaxes[k])
                                         for k, v in ispecs.items()},
                                mesh, rules, ctx)
-        out: List[Any] = []
+        params = list(model.parameters())
+        out: List[Any] = []         # the state the step returns
+        rest: List[Any] = []        # its other outputs
         if shape.kind == "train":
             step_fn, opt = make_train_step(model, TrainConfig(**tc_kw))
             ospec = opt.state_spec(model.param_spec())
-            donated = sh.place_meta(P.shapes(ospec, "float32"), ospec,
-                                    mesh, rules, ctx)
-            cost = count_step(lambda: out.extend(
-                step_fn(donated, inputs, 0)))
-            donated = [list(model.parameters()), donated]
-            out.append(list(model.parameters()))
+            state = sh.place_meta(P.shapes(ospec, "float32"), ospec,
+                                  mesh, rules, ctx)
+            trees = {"params": params, "inputs": inputs, "opt_state": state}
+            donated = params + _leaves(state)
+            state_specs = [model.param_spec(), ospec]
+
+            def step():
+                new_state, metrics = step_fn(state, inputs, scalar)
+                out.extend([new_state, params])
+                rest.append(metrics)
         else:
             enc = _enc_len(cfg, shape)
-            donated = sh.place_meta(
+            cache = sh.place_meta(
                 model.init_cache(shape.global_batch, shape.seq_len, enc),
                 model.cache_spec(shape.global_batch, shape.seq_len, enc),
                 mesh, rules, ctx)
+            trees = {"params": params, "inputs": inputs, "cache": cache}
+            donated = _leaves(cache)
+            state_specs = [model.cache_spec(shape.global_batch,
+                                            shape.seq_len, enc)]
             if shape.kind == "prefill":
                 step_fn = make_prefill_step(model)
-                cost = count_step(lambda: out.extend(
-                    step_fn(inputs, donated)))
+
+                def step():
+                    logits, new_cache = step_fn(inputs, cache)
+                    out.append(new_cache)
+                    rest.append(logits)
             else:
                 step_fn = make_decode_step(model)
-                cost = count_step(lambda: out.extend(step_fn(
-                    donated, inputs["tokens"], shape.seq_len - 1)))
-    memory = {"output_bytes": _local_bytes(out),
-              "alias_bytes": _local_bytes(donated)}
+
+                def step():
+                    tokens, new_cache = step_fn(cache, inputs["tokens"],
+                                                scalar)
+                    out.append(new_cache)
+                    rest.append(tokens)
+        leaves = {k: _leaves(v) for k, v in trees.items()}
+        with made:
+            cost = count_step(step, watch=[t for v in leaves.values()
+                                           for t in v])
+    by_tree, memory = step_memory(leaves, donated, out + rest,
+                                  cost.read_of)
+    # XLA's output is a tuple of the reference's leaves (a stacked
+    # subtree's leaf one array) with a pointer a leaf
+    n_out = sum(len(list(P.tree_items(s))) for s in state_specs) \
+        + len(_leaves(rest))
+    memory["output_bytes"] += _TUPLE_ENTRY * n_out
+    if any(cost.read_of(t) for t in made.made):
+        by_tree["step_scalar" if shape.kind == "train"
+                else "index_scalar"] = 4
     return by_tree, cost, memory
+
+
+def step_memory(arguments: Dict[str, List[torch.Tensor]],
+                donated: List[torch.Tensor], outputs,
+                read_of) -> Tuple[Dict[str, int], Dict[str, int]]:
+    """XLA's memory of a step from its walk: the bytes of the argument
+    leaves it reads (``read_of``), by tree; the output bytes, of the
+    blocks the walk left on each output; the alias bytes, of each read
+    donated leaf that an output of its block's shape and dtype can take
+    (each output once)."""
+    by_tree = {k: sum(_nbytes(t) for t in v if read_of(t))
+               for k, v in arguments.items()}
+    free: Dict[Tuple, int] = {}
+    for t in _leaves(outputs):
+        key = (tuple(_local(t).shape), t.dtype)
+        free[key] = free.get(key, 0) + 1
+    alias = 0
+    for t in donated:
+        key = (tuple(_local(t).shape), t.dtype)
+        if read_of(t) and free.get(key):
+            free[key] -= 1
+            alias += _nbytes(t)
+    return by_tree, {"output_bytes": sum(map(_nbytes, _leaves(outputs))),
+                     "alias_bytes": alias}
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,

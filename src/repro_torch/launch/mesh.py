@@ -18,6 +18,8 @@ constants, so importing this module touches no process group.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
@@ -60,6 +62,32 @@ def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
         n *= s
     return DeviceMesh("cpu", torch.arange(n).reshape(shape),
                       mesh_dim_names=axes)
+
+
+def factor_axis(mesh: DeviceMesh, axis: str, sizes) -> DeviceMesh:
+    """``mesh`` over the same ranks with the mesh axis ``axis`` cut into
+    factors of ``sizes`` (major first), mesh dims named ``axis.0``,
+    ``axis.1``, ..: the sub-axes GSPMD makes of an axis to keep a dim
+    split through a view (``sharding.split_factors``).  Specs still name
+    ``axis``; ``sharding.FACTORED`` maps it to its factors' dims, and a
+    spec that names it is placed on all of them
+    (``sharding.mesh_axes``)."""
+    names = list(mesh.mesh_dim_names)
+    i = names.index(axis)
+    if math.prod(sizes) != mesh.size(i):
+        raise ValueError(f"{sizes} do not multiply to the {mesh.size(i)} "
+                         f"ranks of {axis!r}")
+    shape = tuple(mesh.shape[:i]) + tuple(sizes) + tuple(mesh.shape[i + 1:])
+    dims = names[:i] + [f"{axis}.{k}" for k in range(len(sizes))] \
+        + names[i + 1:]
+    out = DeviceMesh(mesh.device_type, mesh.mesh.reshape(shape),
+                     mesh_dim_names=tuple(dims))
+    from repro_torch.parallel.sharding import FACTORED
+    FACTORED[out] = {
+        a: (tuple(range(i, i + len(sizes))) if a == axis
+            else (j + (len(sizes) - 1 if j > i else 0),))
+        for j, a in enumerate(names)}
+    return out
 
 
 def _init_world_of_one(device: torch.device) -> None:

@@ -127,10 +127,36 @@ class PartitionSpec(tuple):
         return f"PartitionSpec{tuple.__repr__(self)}"
 
 
+# the meshes with an axis cut into factors (``launch.mesh.factor_axis``):
+# mesh -> axis name -> its mesh dims; keyed by the mesh's value, which
+# every DeviceMesh object of those ranks and names shares
+FACTORED: dict = {}
+
+
+def factored_axes(mesh) -> Optional[dict]:
+    """Mesh-axis name -> mesh dims, of a mesh with a factored axis; None
+    for any other."""
+    try:
+        return FACTORED.get(mesh)
+    except TypeError:             # not a DeviceMesh: no hash
+        return None
+
+
+def mesh_axes(mesh) -> dict:
+    """Mesh-axis name -> the mesh dims it spans: one each, but for an
+    axis cut into factors (``launch.mesh.factor_axis``: "model" as 8 x 2
+    dims), its factors', major first."""
+    return factored_axes(mesh) or {
+        a: (m,) for m, a in enumerate(mesh.mesh_dim_names)}
+
+
 def _axis_sizes(mesh) -> dict:
     """Mesh-axis name -> size, of a ``DeviceMesh`` or of anything with
-    ``mesh_dim_names`` and a ``shape``."""
-    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    ``mesh_dim_names`` and a ``shape`` (a factored axis: its factors'
+    product)."""
+    shape = tuple(mesh.shape)
+    return {a: math.prod(shape[m] for m in ms)
+            for a, ms in mesh_axes(mesh).items()}
 
 
 def entry_axes(entry) -> Tuple[str, ...]:
@@ -155,8 +181,12 @@ class NamedSharding:
         from torch.distributed.tensor import Replicate, Shard
         dim_of = {a: i for i, e in enumerate(self.spec)
                   for a in entry_axes(e)}
-        return [Shard(dim_of[a]) if a in dim_of else Replicate()
-                for a in self.mesh.mesh_dim_names]
+        out = [Replicate()] * len(self.mesh.mesh_dim_names)
+        for a, ms in mesh_axes(self.mesh).items():
+            for m in ms:
+                if a in dim_of:
+                    out[m] = Shard(dim_of[a])
+        return out
 
     def local_shape(self, global_shape: Sequence[int]) -> Tuple[int, ...]:
         """The shape of one device's block."""
@@ -206,7 +236,7 @@ class NamedSharding:
         name them in the mesh's order (major first), the one order a
         DTensor placement list can express."""
         from torch.distributed.tensor import DTensor
-        names = list(self.mesh.mesh_dim_names)
+        names = list(mesh_axes(self.mesh))
         for e in self.spec:
             order = [names.index(a) for a in entry_axes(e)]
             if order != sorted(order):
@@ -408,20 +438,32 @@ def _mesh_group(mesh):
     return group
 
 
-def _move_split(x, a: int, b: int, placements):
-    """``x``'s split moved from mesh axis ``a`` to mesh axis ``b`` of the
-    same size — the rank at (.., i, .., j, ..) takes the block of the rank
-    at (.., j, .., i, ..) — as ``placements``: one collective-permute,
-    issued as the all-to-all that sends the whole block to one rank
-    (``launch.cost_analysis`` counts it as a collective-permute)."""
+def _flat_coordinate(mesh, dims, coord=None) -> int:
+    """This rank's index over the mesh dims ``dims`` (major first)."""
+    coord = mesh.get_coordinate() if coord is None else coord
+    at = 0
+    for m in dims:
+        at = at * mesh.size(m) + coord[m]
+    return at
+
+
+def _move_split(x, a: Tuple[int, ...], b: Tuple[int, ...], placements):
+    """``x``'s split moved from the mesh dims ``a`` (one mesh axis: one
+    dim, or a factored axis's) to the mesh dims ``b`` of the same size —
+    the rank at index i over ``a`` and j over ``b`` takes the block of
+    the rank at j over ``a`` and i over ``b`` — as ``placements``: one
+    collective-permute, issued as the all-to-all that sends the whole
+    block to one rank (``launch.cost_analysis`` counts it as a
+    collective-permute)."""
     from torch.distributed import _functional_collectives as funcol
     from torch.distributed.tensor import DTensor
     mesh = x.device_mesh
     coord = list(mesh.get_coordinate())
-    coord[a], coord[b] = coord[b], coord[a]
-    flat = 0
-    for m, c in enumerate(coord):
-        flat = flat * mesh.size(m) + c
+    i, j = _flat_coordinate(mesh, a, coord), _flat_coordinate(mesh, b, coord)
+    for dims, v in ((a, j), (b, i)):
+        for m in reversed(dims):
+            coord[m], v = v % mesh.size(m), v // mesh.size(m)
+    flat = _flat_coordinate(mesh, range(mesh.ndim), coord)
     block = x.to_local().contiguous()
     splits = [0] * mesh.size()
     splits[flat] = block.shape[0]
@@ -430,18 +472,25 @@ def _move_split(x, a: int, b: int, placements):
                               shape=x.shape, stride=x.stride())
 
 
-def _use_axes(p, dims) -> Optional[Tuple[int, int]]:
-    """The mesh axes (stored, use) between which a weight's FSDP split
-    moves for its use: where its one FSDP dim is split over one axis and
-    the weight is replicated over another of that size.  None: it stays
-    where it is stored."""
+def _use_axes(p, dims) -> Optional[Tuple[Tuple[int, ...], Tuple[int, ...]]]:
+    """The mesh dims (stored, use) between which a weight's FSDP split
+    moves for its use: where its one FSDP dim is split over one mesh
+    axis (all of its mesh dims) and the weight is replicated over
+    another axis of that size.  None: it stays where it is stored."""
     mesh, stored = p.device_mesh, list(p.placements)
-    axes = [m for m, q in enumerate(stored) if q.is_shard() and q.dim in dims]
-    if len(dims) != 1 or len(axes) != 1:
+    axes = list(mesh_axes(mesh).values())
+    split = [ms for ms in axes
+             if any(stored[m].is_shard() and stored[m].dim in dims
+                    for m in ms)]
+    if len(dims) != 1 or len(split) != 1 \
+            or sum(q.is_shard(dims[0]) for q in stored) != len(split[0]) \
+            or not all(stored[m].is_shard(dims[0]) for m in split[0]):
         return None
-    b = next((m for m, q in enumerate(stored) if q.is_replicate()
-              and mesh.size(m) == mesh.size(axes[0])), None)
-    return None if b is None else (axes[0], b)
+    size = math.prod(mesh.size(m) for m in split[0])
+    b = next((ms for ms in axes
+              if all(stored[m].is_replicate() for m in ms)
+              and math.prod(mesh.size(m) for m in ms) == size), None)
+    return None if b is None else (split[0], b)
 
 
 class _Gather(torch.autograd.Function):
@@ -467,7 +516,10 @@ class _Gather(torch.autograd.Function):
         if axes is not None:
             a, b = axes
             moved = list(stored)
-            moved[a], moved[b] = stored[b], stored[a]
+            for m in a:
+                moved[m] = Replicate()
+            for m in b:
+                moved[m] = stored[a[0]]
             p = _move_split(p, a, b, moved)
             ctx.use, ctx.axis, ctx.dim, ctx.moved = b, a, dims[0], moved
         if not gather:
@@ -627,14 +679,14 @@ def weight_grad_slab(func, args):
         if d is None:
             continue
         cut = (len(shape) - 1 - d) if flip else d
-        n = mesh.size(fn.use)
+        n = math.prod(mesh.size(m) for m in fn.use)
         if out_shape[cut] % n:
             return None
         placements = []
         for m in range(mesh.ndim):
             if m in partial:
                 placements.append(Partial())
-            elif m == fn.use and a.placements[m].is_replicate() \
+            elif m in fn.use and a.placements[m].is_replicate() \
                     and b.placements[m].is_replicate():
                 placements.append(Shard(cut))
             elif kind == "BmmBackward0" and a.placements[m].is_shard(0) \
@@ -643,7 +695,7 @@ def weight_grad_slab(func, args):
             else:
                 return None
         la, lb = a.to_local(), b.to_local()
-        k = mesh.get_coordinate()[fn.use]
+        k = _flat_coordinate(mesh, fn.use)
         if cut == len(out_shape) - 1:
             size = lb.shape[-1] // n
             lb = lb.narrow(-1, k * size, size)
@@ -657,6 +709,227 @@ def weight_grad_slab(func, args):
                                   stride=torch.empty(out_shape,
                                                      device="meta").stride())
     return None
+
+
+def _view_groups(src: Sequence[int], dst: Sequence[int]):
+    """The pairs (input dims, output dims) of a view from shape ``src`` to
+    ``dst``: runs of adjacent dims with equal products, size-1 dims
+    joined to the run before them."""
+    out, i, j = [], 0, 0
+    while i < len(src) and j < len(dst):
+        gi, gj, pi, pj = [i], [j], src[i], dst[j]
+        i, j = i + 1, j + 1
+        while pi != pj:
+            if pi < pj:
+                gi.append(i)
+                pi, i = pi * src[i], i + 1
+            else:
+                gj.append(j)
+                pj, j = pj * dst[j], j + 1
+        out.append((gi, gj))
+    if not out:
+        return [(list(range(len(src))), list(range(len(dst))))]
+    out[-1][0].extend(range(i, len(src)))
+    out[-1][1].extend(range(j, len(dst)))
+    return out
+
+
+def split_factors(x, shape) -> Optional[Tuple[str, Tuple[int, int]]]:
+    """For a view of the DTensor ``x`` to ``shape`` that DTensor cannot
+    partition because it unflattens a dim split over a mesh axis of n
+    ranks into dims (a, b, ..) with a < n (granite's 32 heads over
+    "model"'s 16 as 8 KV heads x 4): the axis and its factors (a, n /
+    a), where a divides n and n / a divides b — the sub-axes GSPMD cuts
+    to keep the dim split (KV over 8, the group over 2); else None (and
+    on a mesh already cut)."""
+    from torch._prims_common import infer_size
+    mesh = x.device_mesh
+    if factored_axes(mesh):
+        return None
+    shape = list(infer_size(shape, x.numel()))
+    if 0 in shape:
+        return None
+    groups = _view_groups(list(x.shape), shape)
+    for m, q in enumerate(x.placements):
+        if not q.is_shard():
+            continue
+        gi, gj = next(g for g in groups if q.dim in g[0])
+        sizes = [shape[j] for j in gj if shape[j] > 1]
+        n = mesh.size(m)
+        if len(gi) == 1 and len(sizes) > 1 and sizes[0] < n \
+                and n % sizes[0] == 0 and sizes[1] % (n // sizes[0]) == 0:
+            return mesh.mesh_dim_names[m], (sizes[0], n // sizes[0])
+    return None
+
+
+def split_view(func, args):
+    """A view of a DTensor on a mesh with a factored axis (``split_factors``)
+    that moves that axis's split between dims, partitioned as GSPMD
+    keeps it: the dims' splits taken major first over the run of dims
+    the view regroups, and given to the output dims in that order, each
+    factor to the dim it divides (8 KV heads over the first factor of
+    "model", the group of 4 over the second).  DTensor's own rule
+    mislays a dim split over two mesh dims.  Returns None for any
+    other view, and for one whose split would be strided."""
+    from torch.distributed.tensor import DTensor, Shard
+    aten = torch.ops.aten
+    if not _GSPMD.active or func not in (aten.view.default,
+                                         aten._unsafe_view.default):
+        return None
+    x = args[0]
+    if not isinstance(x, DTensor):
+        return None
+    mesh = x.device_mesh
+    factor_of = {m: a for a, ms in mesh_axes(mesh).items() if len(ms) > 1
+                 for m in ms}
+    if not factor_of:
+        return None
+    from torch._prims_common import infer_size
+    shape = list(infer_size(args[1], x.numel()))
+    if 0 in shape:
+        return None
+    by_dim: dict = {}
+    for m, q in enumerate(x.placements):
+        if q.is_shard():
+            if type(q) is not Shard:
+                return None
+            by_dim.setdefault(q.dim, []).append(m)
+    groups = _view_groups(list(x.shape), shape)
+
+    def factored(gi):
+        axes = [factor_of.get(m) for d in gi for m in by_dim.get(d, ())]
+        return any(a is not None and axes.count(a) > 1 for a in axes)
+    if not any(factored(gi) for gi, gj in groups
+               if len(gi) > 1 or len(gj) > 1):
+        return None
+    placements, local = list(x.placements), list(shape)
+    for gi, gj in groups:
+        seq, whole = [], False
+        for d in gi:
+            ms = by_dim.get(d, [])
+            if ms and whole:
+                return None           # a split under an unsplit dim
+            seq += ms
+            whole = whole or x.shape[d] > math.prod(mesh.size(m)
+                                                    for m in ms)
+        k, rest, dims_of = 0, shape[gj[0]], {}
+        for m in seq:
+            while rest == 1 and k + 1 < len(gj):
+                k += 1
+                rest = shape[gj[k]]
+            if rest % mesh.size(m):
+                return None
+            rest //= mesh.size(m)
+            dims_of.setdefault(gj[k], []).append(m)
+        for o, ms in dims_of.items():
+            if ms != sorted(ms):
+                return None
+            for m in ms:
+                placements[m] = Shard(o)
+                local[o] //= mesh.size(m)
+    try:
+        stride = torch.empty_strided(x.shape, x.stride(),
+                                     device="meta").view(shape).stride()
+    except RuntimeError:
+        stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(func(x._local_tensor, local), mesh, placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
+def _placed(block, mesh, placements, shape):
+    """``block`` as the DTensor of global ``shape`` it is one rank's block
+    of, the global strides laid out in the block's dim order (a view of
+    it maps to a view of the block)."""
+    from torch.distributed.tensor import DTensor
+    order = sorted(range(block.ndim), key=lambda d: -block.stride(d))
+    whole = torch.empty([shape[d] for d in order], device="meta")
+    stride = whole.permute([order.index(d) for d in range(block.ndim)]) \
+        .stride()
+    return DTensor.from_local(block, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def local_pointwise(func, args, kwargs):
+    """An elementwise op of DTensors on a mesh with a factored axis whose
+    operands already agree — each split where the output is, or
+    replicated where it broadcasts (a plain tensor only there) — run on
+    their blocks, its result placed as they are: DTensor's own
+    propagation weighs every placement of every mesh dim for it,
+    seconds an op on a 3- or 4-dim mesh, to choose these.  None for any
+    other op."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not _GSPMD.active or not (torch.Tag.pointwise in func.tags
+                                 or func.__name__ == "_to_copy.default"):
+        return None
+    ts = [a for a in (*args, *kwargs.values()) if isinstance(a, torch.Tensor)]
+    dts = [t for t in ts if isinstance(t, DTensor)]
+    if not dts or not factored_axes(dts[0].device_mesh) \
+            or any(type(q) is not Shard and not q.is_replicate()
+                   for t in dts for q in t.placements):
+        return None
+    shape = torch.broadcast_shapes(*(t.shape for t in ts))
+    lead = max(dts, key=lambda t: sum(q.is_shard() for q in t.placements))
+    off = len(shape) - lead.ndim
+    placements = [Shard(q.dim + off) if q.is_shard() else q
+                  for q in lead.placements]
+    for t in ts:
+        off = len(shape) - t.ndim
+        for m, q in enumerate(placements):
+            d = q.dim - off if q.is_shard() else -1
+            split = d >= 0 and t.shape[d] != 1
+            mine = t.placements[m] if isinstance(t, DTensor) else None
+            if not (mine is not None and mine.is_shard(d) if split
+                    else mine is None or mine.is_replicate()):
+                return None
+    out = func(*[a._local_tensor if isinstance(a, DTensor) else a
+                 for a in args],
+               **{k: v._local_tensor if isinstance(v, DTensor) else v
+                  for k, v in kwargs.items()})
+    if func._schema.is_mutable:
+        return args[0]
+    return _placed(out, lead.device_mesh, placements, shape)
+
+
+def gspmd_fallback(func, args):
+    """An op DTensor has no sharding strategy for, partitioned as GSPMD
+    partitions it, where it can be: an elementwise op
+    (``log_sigmoid_backward``) on the blocks of its input's placements,
+    every operand of its shape redistributed there; an op that moves
+    data along dims no mesh dim splits (``roll``, ``flip``: torch 2.11
+    has no strategy for them) on each block, its placements kept.
+    None for any other op (it runs replicated)."""
+    from torch.distributed.tensor import DTensor
+    name = func.__name__
+    x = args[0] if args else None
+    if not _GSPMD.active or not isinstance(x, DTensor) \
+            or any(q.is_partial() for q in x.placements):
+        return None
+    if name in _ELEMENTWISE:
+        x = args[_ELEMENTWISE[name]]
+        if not isinstance(x, DTensor) \
+                or any(q.is_partial() for q in x.placements):
+            return None
+        blocks = [a.redistribute(x.device_mesh, x.placements)._local_tensor
+                  if isinstance(a, DTensor) else a for a in args]
+    elif name in _ALONG_DIMS:
+        dims = args[_ALONG_DIMS[name]] if len(args) > _ALONG_DIMS[name] \
+            else ()
+        dims = [dims] if isinstance(dims, int) else list(dims)
+        if not dims or any(q.is_shard(d % x.ndim) for q in x.placements
+                           for d in dims):
+            return None
+        blocks = [x._local_tensor, *args[1:]]
+    else:
+        return None
+    return _placed(func(*blocks), x.device_mesh, x.placements, x.shape)
+
+
+# the elementwise ops without a DTensor strategy: name -> the argument
+# whose placements the others take; the ops that move data along given
+# dims: name -> the argument that names them
+_ELEMENTWISE = {"log_sigmoid_backward.default": 1}
+_ALONG_DIMS = {"roll.default": 2, "flip.default": 1}
 
 
 class _Gspmd(threading.local):
@@ -725,7 +998,184 @@ class _GspmdOps(TorchFunctionMode):
             use = (lambda x: at_use(x, gather=False)) \
                 if func is F.embedding else at_use
             args, kwargs = tree_map(use, (args, kwargs))
+        if func is torch.einsum:
+            args = _einsum_operands(args)
+            out = _einsum_on_blocks(args)
+            if out is not None:
+                return out
+        if func is F.embedding:
+            args = (_tokens_for_lookup(args[0], args[1]),) + tuple(args[1:])
         return func(*args, **kwargs)
+
+
+def _einsum_placements(subs, out, ops, mesh):
+    """The placements of ``torch.einsum`` of ``ops`` (subscripts
+    ``subs``, output ``out``) run on their blocks, as GSPMD partitions a
+    product: over each mesh dim at most one letter is split, in every
+    operand that has it; the output is split there if it keeps the
+    letter, else partial.  None where the operands disagree."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    placements = []
+    for m in range(mesh.ndim):
+        letters = set()
+        for sub, x in zip(subs, ops):
+            q = x.placements[m]
+            if type(q) is Shard:
+                letters.add(sub[q.dim])
+            elif not q.is_replicate():
+                return None
+        if not letters:
+            placements.append(Replicate())
+            continue
+        if len(letters) > 1:
+            return None
+        c = letters.pop()
+        if any(c in sub and not x.placements[m].is_shard(sub.index(c))
+               for sub, x in zip(subs, ops)):
+            return None
+        placements.append(Shard(out.index(c)) if c in out else Partial())
+    return placements
+
+
+class _BlockEinsum(torch.autograd.Function):
+    """``torch.einsum`` of DTensors run on their blocks, the result placed
+    by ``_einsum_placements``; its backward, each operand's gradient, is
+    the einsum of the output's gradient and the other operands (run the
+    same way)."""
+
+    @staticmethod
+    def forward(ctx, eq, placements, *ops):
+        from torch.distributed.tensor import DTensor
+        ins, out = eq.split("->")
+        subs = ins.split(",")
+        ctx.eq, ctx.subs, ctx.out = eq, subs, out
+        ctx.save_for_backward(*ops)
+        size = {c: n for sub, x in zip(subs, ops)
+                for c, n in zip(sub, x.shape)}
+        shape = torch.Size(size[c] for c in out)
+        block = torch.einsum(eq, *[x._local_tensor for x in ops])
+        return _placed(block, ops[0].device_mesh, placements, shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ops = ctx.saved_tensors
+        grads = []
+        for i, sub in enumerate(ctx.subs):
+            if not ctx.needs_input_grad[2 + i]:
+                grads.append(None)
+                continue
+            rest = [j for j in range(len(ops)) if j != i]
+            eq = ",".join([ctx.out] + [ctx.subs[j] for j in rest]) \
+                + "->" + sub
+            grads.append(torch.einsum(eq, grad, *[ops[j] for j in rest]))
+        return (None, None, *grads)
+
+
+def _einsum_on_blocks(args):
+    """``torch.einsum`` of DTensors on a mesh with a factored axis, run on
+    their blocks (``_BlockEinsum``): DTensor's own einsum flattens dims
+    split over different mesh dims into one, which torch 2.11 refuses
+    and torch 2.13 splits strided.  Only a batched product (a letter in
+    every operand and the output: attention's scores and values), whose
+    operands are activations; a weight's product keeps DTensor's ``mm``,
+    whose gradient ``weight_grad_slab`` cuts.  None for any other
+    einsum, and where each operand's letters do not all appear in the
+    output or another operand (its backward would broadcast)."""
+    from torch.distributed.tensor import DTensor
+    eq, ops = args[0], list(args[1:])
+    if len(ops) == 1 and isinstance(ops[0], (list, tuple)):
+        ops = list(ops[0])
+    if not isinstance(eq, str) or "->" not in eq or "." in eq or not ops \
+            or not all(isinstance(x, DTensor) for x in ops) \
+            or not factored_axes(ops[0].device_mesh):
+        return None
+    eq = eq.replace(" ", "")
+    ins, out = eq.split("->")
+    subs = ins.split(",")
+    if len(subs) != len(ops) or any(
+            c not in out + "".join(t for j, t in enumerate(subs) if j != i)
+            for i, sub in enumerate(subs) for c in sub) \
+            or not any(all(c in sub for sub in subs) for c in out):
+        return None              # a weight's product: DTensor's mm path
+    placements = _einsum_placements(subs, out, ops, ops[0].device_mesh)
+    if placements is None:
+        return None
+    return _BlockEinsum.apply(eq, placements, *ops)
+
+
+def _tokens_for_lookup(tokens, table):
+    """The token ids of an embedding lookup whose table splits its vocab
+    over one mesh axis and its rows over the axis that splits the
+    tokens, so that every rank needs every token: their split moved to
+    the vocab's axis (one collective-permute) and gathered there, as the
+    reference's partition gathers them (gemma2-27b train_4k:
+    s32[16,4096,1] permuted, then all-gathered to s32[256,4096,1] over
+    "model")."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not (_GSPMD.active and isinstance(tokens, DTensor)
+            and isinstance(table, DTensor)):
+        return tokens
+    axes = list(mesh_axes(table.device_mesh).values())
+    vocab = [ms for ms in axes if all(table.placements[m].is_shard(0)
+                                      for m in ms)]
+    split = [ms for ms in axes if all(type(tokens.placements[m]) is Shard
+                                      for m in ms)]
+    if len(vocab) != 1 or len(split) != 1 or vocab == split:
+        return tokens
+    a, b = split[0], vocab[0]
+    mesh = tokens.device_mesh
+    if len({tokens.placements[m].dim for m in a}) != 1 \
+            or not all(tokens.placements[m].is_replicate() for m in b) \
+            or not all(table.placements[m].is_shard() for m in a) \
+            or math.prod(mesh.size(m) for m in a) \
+            != math.prod(mesh.size(m) for m in b):
+        return tokens
+    moved = list(tokens.placements)
+    for m in a:
+        moved[m] = Replicate()
+    for m in b:
+        moved[m] = tokens.placements[a[0]]
+    return _move_split(tokens, a, b, moved).redistribute(
+        mesh, [Replicate()] * mesh.ndim)
+
+
+def _einsum_operands(args):
+    """``torch.einsum``'s arguments with each operand that is replicated
+    over a mesh dim on which another operand splits a letter they share
+    split there too — a slice, which moves nothing — as GSPMD partitions
+    a product: granite's (B,T,8,D) keys, replicated over "model", cut
+    over its first factor to the KV head of the rank's queries.  Only on
+    a mesh with a factored axis (``launch.mesh.factor_axis``), where
+    DTensor's product strategies gather the split operand instead."""
+    from torch.distributed.tensor import DTensor, Shard
+    eq, ops = args[0], list(args[1:])
+    nested = len(ops) == 1 and isinstance(ops[0], (list, tuple))
+    if nested:
+        ops = list(ops[0])
+    xs = [x for x in ops if isinstance(x, DTensor)]
+    if not isinstance(eq, str) or "->" not in eq or "." in eq or not xs \
+            or not factored_axes(xs[0].device_mesh):
+        return args
+    subs = eq.replace(" ", "").split("->")[0].split(",")
+    if len(subs) != len(ops):
+        return args
+    letter = {}                     # mesh dim -> the letter split over it
+    for sub, x in zip(subs, ops):
+        if isinstance(x, DTensor):
+            for m, q in enumerate(x.placements):
+                if type(q) is Shard:
+                    letter.setdefault(m, sub[q.dim])
+    for i, (sub, x) in enumerate(zip(subs, ops)):
+        if not isinstance(x, DTensor):
+            continue
+        want = list(x.placements)
+        for m, c in letter.items():
+            if c in sub and want[m].is_replicate() and not any(
+                    q.is_shard(sub.index(c)) for q in want):
+                want[m] = Shard(sub.index(c))
+        if want != list(x.placements):
+            ops[i] = x.redistribute(x.device_mesh, want)
+    return (eq, ops) if nested else (eq, *ops)
 
 
 def _run_backward(loss, gradient=None, retain_graph=None,
@@ -759,8 +1209,19 @@ def gspmd_partitioning():
         into slabs along the weight's FSDP dim (``weight_grad_slab``), a
         product's partial sums are reduced where it makes them
         (``reduced_product``), a softmax or log-sum-exp keeps a split
-        dim split (``_split_reduction``), and a split moved from one dim
-        to another is one all-to-all (``_shard_dim_alltoall``);
+        dim split (``_split_reduction``), a split moved from one dim
+        to another is one all-to-all (``_shard_dim_alltoall``), the
+        token ids of a vocab-split lookup are permuted to the vocab's
+        axis and gathered there (``_tokens_for_lookup``), and an op
+        DTensor has no strategy for is partitioned where it can be
+        (``gspmd_fallback``);
+      * on a mesh with an axis cut into factors (``split_factors``):
+        views move the splits between dims as GSPMD keeps them
+        (``split_view``), a batched einsum slices its replicated
+        operands and runs on the blocks (``_einsum_operands``,
+        ``_einsum_on_blocks``), an elementwise op whose operands agree
+        runs on the blocks (``local_pointwise``), and a strided split
+        is priced as the plain one;
       * DTensor's sharding propagation splits an op's work only as its
         operands are split.  Of the strategies DTensor weighs for an op,
         those are dropped (where any other is left) that shard or make
@@ -797,6 +1258,25 @@ def gspmd_partitioning():
                 strategy.strategies = keep
         return select(strategy, op_schema)
 
+    from torch.distributed.tensor import _collective_utils as cu
+    from torch.distributed.tensor._ops import utils as ou
+    cost = cu.redistribute_cost
+    costs: dict = {}
+
+    def gspmd_cost(current, target):
+        # on a mesh with a factored axis, a strided split (DTensor's own
+        # view rule gives one where a flattened dim's minor part is
+        # split) is priced as the plain split: DTensor's exact planner
+        # for it searches every placement state of the mesh, seconds a
+        # price on a 3-dim mesh, for each strategy it weighs; and each
+        # price is kept (the layers of a model ask the same ones)
+        if not factored_axes(current.mesh):
+            return cost(current, target)
+        key = (current, target)
+        if key not in costs:
+            costs[key] = cost(_unstrided(current), _unstrided(target))
+        return costs[key]
+
     if _GSPMD.active:
         yield                    # nested: the outer one holds the rule
         return
@@ -809,6 +1289,11 @@ def gspmd_partitioning():
     _clear_sharding_prop_cache()
     sp._select_min_cost_strategy = gspmd_pick
     pt.shard_dim_alltoall = _shard_dim_alltoall
+    cu.redistribute_cost = ou.redistribute_cost = gspmd_cost
+    mask_buffer = getattr(pt, "MaskBuffer", None)
+    materialize = getattr(mask_buffer, "materialize_mask", None)
+    if materialize is not None:
+        mask_buffer.materialize_mask = _materialize_meta_mask(materialize)
     _GSPMD.active = True
     try:
         with _GspmdOps():
@@ -817,7 +1302,36 @@ def gspmd_partitioning():
         _GSPMD.active = False
         sp._select_min_cost_strategy = select
         pt.shard_dim_alltoall = alltoall
+        cu.redistribute_cost = ou.redistribute_cost = cost
+        if materialize is not None:
+            mask_buffer.materialize_mask = materialize
         _clear_sharding_prop_cache()
+
+
+def _materialize_meta_mask(materialize):
+    """DTensor's masked embedding lookup over a vocab split over two mesh
+    dims (a factored axis) materializes one mask per dim into a shared
+    buffer, comparing each with the first (``torch.equal``, which has
+    no ``meta`` kernel): on ``meta`` masks, only their shapes exist, and
+    the first is kept."""
+    def run(self, mask):
+        if self.refcount and mask.is_meta:
+            self.refcount += 1
+            return None
+        return materialize(self, mask)
+    return run
+
+
+def _unstrided(spec):
+    """``spec`` with each strided split as the plain split of its dim."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.distributed.tensor.placement_types import _StridedShard
+    if not any(isinstance(q, _StridedShard) for q in spec.placements):
+        return spec
+    return DTensorSpec(spec.mesh, tuple(
+        Shard(q.dim) if isinstance(q, _StridedShard) else q
+        for q in spec.placements), tensor_meta=spec.tensor_meta)
 
 
 def _specs(specs):

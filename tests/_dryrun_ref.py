@@ -63,5 +63,6 @@ d.analyze = lambda text, n: (texts.append(text), analyze(text, n))[1]
 out = {}
 for s in sys.argv[2:]:
     out[s] = d.run_cell(sys.argv[1], s, False, verbose=False)
-    out[s]["dot_flops"], out[s]["coll_elements"] = partition(texts.pop())
+    if out[s]["status"] == "ok":     # a skipped or failed cell has no HLO
+        out[s]["dot_flops"], out[s]["coll_elements"] = partition(texts.pop())
 print("RESULT " + json.dumps(out))

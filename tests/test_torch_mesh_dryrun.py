@@ -32,12 +32,6 @@ What must hold:
   * ``route``'s counts are ``torch.bincount``'s, bit for bit;
     ``resolve_device`` takes ``"meta"`` only when asked.
 """
-import json
-import os
-import subprocess
-import sys
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -49,18 +43,11 @@ from repro_torch.launch import cost_analysis as ca
 from repro_torch.models import moe
 from repro_torch.models import params as P
 
-ROOT = Path(__file__).resolve().parents[1]
+from _dryrun_check import check_cells as _check_cells
+from _dryrun_check import result as _result
+from _dryrun_check import start as _start
+
 CELLS = ("train_4k", "long_500k")
-
-_REF = (ROOT / "tests" / "_dryrun_ref.py").read_text()
-
-_PORT = r"""
-import json, sys
-from repro_torch.launch.dryrun import run_cell
-out = {s: run_cell(sys.argv[1], s, False, verbose=False)
-       for s in sys.argv[2:]}
-print("RESULT " + json.dumps(out))
-"""
 
 _WORLD = r"""
 import json
@@ -81,26 +68,6 @@ print("RESULT " + json.dumps({
                                     "n_experts": 16},
                       verbose=False, smoke=True)}))
 """
-
-
-def _env():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(ROOT / "src")
-    return env
-
-
-def _start(snippet, *args):
-    return subprocess.Popen([sys.executable, "-c", snippet, *args],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, env=_env(), cwd=ROOT)
-
-
-def _result(proc, timeout=300):
-    out, err = proc.communicate(timeout=timeout)
-    for line in out.splitlines():
-        if line.startswith("RESULT "):
-            return json.loads(line[len("RESULT "):])
-    raise AssertionError(err[-2000:])
 
 
 def test_dry_run_world_and_production_meshes():
@@ -135,67 +102,6 @@ def test_dry_run_world_and_production_meshes():
         for k, v in cell["coll_breakdown"].items())
     assert cell["replicated_ops"] == {}
     assert cell["terms"]["collective_s"] > 0
-
-
-def _check_cells(arch, shapes):
-    """The port's dry run of ``arch`` x ``shapes`` on the 16x16 mesh
-    against the reference's ``run_cell`` and one SPMD partition of its
-    HLO, each run in its subprocess at once.  The reference's dots run
-    in float32 on this CPU (XLA's float normalization), so the
-    collectives of their results carry twice the port's bf16 bytes: each
-    kind is held by the elements it moves."""
-    ref, port = _start(_REF, arch, *shapes), _start(_PORT, arch, *shapes)
-    want, got = _result(ref), _result(port)
-    for s in shapes:
-        w, g = want[s], got[s]
-        assert w["status"] == "ok" and g["status"] == "ok", (w, g)
-        assert g["chips"] == w["chips"] == 256
-        gm, wm = g["memory"], w["memory"]
-        assert gm["argument_bytes"] == wm["argument_bytes"], (s, gm, wm)
-        assert gm["alias_bytes"] == wm["alias_bytes"], (s, gm, wm)
-        # XLA's output adds the output tuple's table: 8 bytes a leaf
-        assert 0 <= wm["output_bytes"] - gm["output_bytes"] <= 1024, (gm, wm)
-        assert g["sharding_fallbacks"] == w["sharding_fallbacks"], s
-        dot = g["dot_flops_per_device"] / w["dot_flops"]
-        coll = g["coll_traffic_per_device"] / w["coll_traffic_per_device"]
-        assert abs(dot - 1) <= 0.10, (s, dot)
-        assert 0.5 <= coll <= 2.0, (s, coll, g["coll_breakdown"],
-                                    w["coll_breakdown"])
-        # each kind of collective by the elements it moves: the
-        # reference's CPU compile carries f32 activations and s32 indices
-        # where the port carries bf16 and int64, so the bytes (the ratio
-        # above) differ by kind but the data moved does not.  Readings
-        # (PERF.md): gemma2-2b train_4k all-gather 1.0011, all-reduce
-        # 0.9978, all-to-all 1.0000, collective-permute 0.9991, long_500k
-        # 1.0000; whisper-base train_4k 1.0000 to 1.0001
-        ge, we = g["coll_elements"], w["coll_elements"]
-        for k, n in we.items():
-            assert abs(ge.get(k, 0) / n - 1) <= 0.01, (s, k, ge, we)
-        extra = sum(v for k, v in ge.items() if k not in we)
-        assert extra <= 1e-3 * sum(ge.values()), (s, ge, we)
-        t = g["terms"]
-        assert set(t) == {"compute_s", "memory_s", "collective_s"}
-        assert t["collective_s"] > 0 and t["compute_s"] > 0 \
-            and t["memory_s"] > 0
-        assert g["bottleneck"] == max(t, key=t.get)
-        assert g["replicated_ops"] == {}, g["replicated_ops"]
-        print(f"{arch} x {s} per device, port / reference: dot FLOPs "
-              f"{g['dot_flops_per_device']:.4e} / {w['dot_flops']:.4e} "
-              f"({dot:.4f}); FLOPs {g['flops_per_device']:.4e} / "
-              f"{w['hlo_flops_per_device']:.4e} "
-              f"({g['flops_per_device'] / w['hlo_flops_per_device']:.4f}); "
-              f"bytes (eager, unfused / fused) {g['bytes_per_device']:.4e} / "
-              f"{w['hlo_bytes_per_device']:.4e} "
-              f"({g['bytes_per_device'] / w['hlo_bytes_per_device']:.4f}); "
-              f"collective traffic {g['coll_traffic_per_device']:.4e} / "
-              f"{w['coll_traffic_per_device']:.4e} ({coll:.4f}); elements "
-              + ", ".join(f"{k} {ge.get(k, 0):.6e} / {n:.6e} "
-                          f"({ge.get(k, 0) / n:.4f})" for k, n in we.items())
-              + f"; port only {extra:.0f}; "
-              f"argument bytes {gm['argument_bytes']:,}; alias "
-              f"{gm['alias_bytes']:,}; output {gm['output_bytes']:,} / "
-              f"{wm['output_bytes']:,}; walk {g['step_s']} s")
-    return got
 
 
 def test_gemma2_cells_match_the_references_run_cell():

@@ -10,7 +10,7 @@ are named in ``replicated_ops`` (their gathers counted) and printed.
 The dry run makes a process group (the ``fake`` backend), so the cells
 run in subprocesses, all at once: the 16x16 mesh's in one, the 2x16x16
 mesh's (whose walks take 2-4x longer: DTensor weighs strategies over
-three mesh axes) in three groups of archs, each subprocess walking its
+three mesh axes) in four groups of archs, each subprocess walking its
 cells in one ``gspmd_partitioning`` (as the CLI's ``--all``) so that
 they share DTensor's sharding decisions.
 """
@@ -48,7 +48,9 @@ GROUPS = {"16x16": (ALL_ARCHS,),
                        "granite-3-2b"),
                       ("deepseek-v3-671b", "deepseek-v2-236b",
                        "whisper-base"),
-                      ("xlstm-125m", "recurrentgemma-9b", "qwen2-vl-72b"))}
+                      ("recurrentgemma-9b", "qwen2-vl-72b"),
+                      # its train cell walks again on "model" cut 2 x 8
+                      ("xlstm-125m",))}
 
 
 @pytest.fixture(scope="module")
@@ -104,7 +106,13 @@ def _check_walks(walks, mesh):
                 assert r["dot_flops_per_device"] > 0
                 assert r["flops_per_device"] >= r["dot_flops_per_device"]
                 assert r["memory"]["argument_bytes"] > 0
-                assert r["memory"]["alias_bytes"] > 0
+                if shape.kind == "prefill":
+                    # a donated cache leaf is aliased only if read: one
+                    # the prefill overwrites whole is neither
+                    assert 0 <= r["memory"]["alias_bytes"] <= \
+                        r["memory"]["argument_bytes_by_tree"]["cache"]
+                else:
+                    assert r["memory"]["alias_bytes"] > 0
                 assert r["terms"]["collective_s"] > 0, (arch, shape.name)
                 assert r["bottleneck"] == max(r["terms"],
                                               key=r["terms"].get)
