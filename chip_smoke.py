@@ -145,7 +145,12 @@ elastic checkpoint restore.
               alias bytes (384,224,260) exactly, its two fallbacks, its
               partition's dot FLOPs within 10 % and collective traffic
               within 2x (committed: the card machine has no JAX); the
-              three H100 roofline terms printed; (b) a one-rank
+              three H100 roofline terms printed; beside it, each in a
+              process of its own, granite-3-2b x train_4k and
+              deepseek-v3-671b x decode_32k (the MoE's flat branch)
+              held to their reference partitions (DRYRUN_GQA_REF,
+              DRYRUN_MOE_REF: memory exact, every kind's elements within
+              1 %, dot FLOPs within 10 % and 1 %, no op replicated); (b) a one-rank
               NCCL world (``make_host_mesh()``): the shard_map MoE
               (``expert_sharding="ep_sm"``, deepseek-v3 smoke, float32,
               4 x 4096 tokens) forward and gradients against the card's
@@ -3037,17 +3042,36 @@ DRYRUN_GQA_REF = {"argument_bytes": 251_032_072, "alias_bytes": 250_507_780,
                                     "collective-permute(g=256)": 40_896_000}}
 DRYRUN_GQA_FALLBACKS = ("kv_heads=8 !-> ('model',) (indivisible)",
                         "vocab=49155 !-> ('model',) (indivisible)")
+# ... and of deepseek-v3-671b x decode_32k, whose MoE takes the
+# reference's flat (decode) branch, partitioned as GSPMD partitions it
+# (tests/_dryrun_ref.py on the CPU): its all-to-alls around the
+# concatenation of the tokens and the zero row, the collective-permutes
+# of the bucket gather and of the combined rows, held as DRYRUN_GQA_REF
+# is, its dot FLOPs within DRYRUN_MOE_DOT_RTOL
+DRYRUN_MOE_ARCH, DRYRUN_MOE_SHAPE = "deepseek-v3-671b", "decode_32k"
+DRYRUN_MOE_REF = {"argument_bytes": 27_486_920_740,
+                  "alias_bytes": 18_421_383_168,
+                  "output_bytes": 18_421_383_272,
+                  "dot_flops": 391_744_585_728,
+                  "coll_traffic": 1_767_069_888,
+                  "coll_elements": {"all-reduce(g=16)": 223_774_720,
+                                    "all-to-all(g=16)": 7_074_816,
+                                    "all-gather(g=16)": 1_960_192,
+                                    "collective-permute(g=256)": 13_719_552}}
+DRYRUN_MOE_FALLBACKS = "no sharding fallbacks"
+DRYRUN_MOE_DOT_RTOL = 0.01
 MESH_ATOL = 1e-5        # ep_sm vs no mesh: forward (abs), grads (rel)
 MESH_TRAIN_ATOL = 1e-5  # launch.train's losses, mesh vs no mesh
 
 
-def start_dryrun(out: Path, arch: str = "gemma2-2b") -> subprocess.Popen:
-    """Phase 14a's dry run of ``arch`` x train_4k, started early in a
+def start_dryrun(out: Path, arch: str = "gemma2-2b",
+                 shape: str = "train_4k") -> subprocess.Popen:
+    """Phase 14a's dry run of ``arch`` x ``shape``, started early in a
     process of its own."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         arch, "--shape", "train_4k", "--json", str(out)],
+         arch, "--shape", shape, "--json", str(out)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
         cwd=ROOT)
 
@@ -3089,20 +3113,20 @@ def _dryrun_cell(proc: subprocess.Popen, path: Path) -> dict:
     return cell
 
 
-def check_dryrun_gqa(proc: subprocess.Popen, path: Path) -> dict:
-    """Phase 14a's GQA cell against DRYRUN_GQA_REF: the same checks as
-    the gemma2-2b cell's, and no op run replicated on this torch."""
-    cell = _dryrun_cell(proc, path)
-    mem, ref = cell["memory"], DRYRUN_GQA_REF
+def _check_against(cell: dict, ref: dict, dot_rtol: float) -> tuple:
+    """A 14a cell against its reference partition (DRYRUN_GQA_REF,
+    DRYRUN_MOE_REF): argument and alias bytes exact, output within 1 KiB,
+    dot FLOPs within ``dot_rtol``, traffic within DRYRUN_COLL_FACTOR,
+    each kind's elements within DRYRUN_ELEMENTS_RTOL, the port's own
+    kinds under DRYRUN_EXTRA_SHARE, no op run replicated on this torch.
+    Returns (dot, traffic, kinds, extra) as ratios to the reference."""
+    mem = cell["memory"]
     assert mem["argument_bytes"] == ref["argument_bytes"], cell
     assert mem["alias_bytes"] == ref["alias_bytes"], cell
     assert 0 <= ref["output_bytes"] - mem["output_bytes"] <= 1024, cell
-    for line in DRYRUN_GQA_FALLBACKS:
-        assert f"[{DRYRUN_GQA_ARCH}/train_4k] {line}" \
-            in cell["sharding_fallbacks"], cell["sharding_fallbacks"]
     dot = cell["dot_flops_per_device"] / ref["dot_flops"]
     coll = cell["coll_traffic_per_device"] / ref["coll_traffic"]
-    assert abs(dot - 1) <= DRYRUN_DOT_RTOL, (dot, cell)
+    assert abs(dot - 1) <= dot_rtol, (dot, cell)
     assert 1 / DRYRUN_COLL_FACTOR <= coll <= DRYRUN_COLL_FACTOR, (coll, cell)
     ge, we = cell["coll_elements"], ref["coll_elements"]
     kinds = {k: ge.get(k, 0) / n for k, n in we.items()}
@@ -3111,21 +3135,51 @@ def check_dryrun_gqa(proc: subprocess.Popen, path: Path) -> dict:
     extra = sum(v for k, v in ge.items() if k not in we)
     assert extra <= DRYRUN_EXTRA_SHARE * sum(ge.values()), ge
     assert cell["replicated_ops"] == {}, cell["replicated_ops"]
-    print(f"[mesh] (a) dry run {DRYRUN_GQA_ARCH} x train_4k on the 16x16 "
-          f"mesh, \"model\" cut into 8 x 2 for its KV heads: ok in "
-          f"{cell['step_s']} s walk; argument bytes {mem['argument_bytes']:,}"
-          f", alias {mem['alias_bytes']:,} (the reference's), output "
+    return dot, coll, kinds, extra
+
+
+def _print_against(label: str, cell: dict, ref: dict, checked: tuple):
+    dot, coll, kinds, extra = checked
+    mem = cell["memory"]
+    print(f"[mesh] (a) dry run {label}: ok in {cell['step_s']} s walk; "
+          f"argument bytes {mem['argument_bytes']:,}, alias "
+          f"{mem['alias_bytes']:,} (the reference's), output "
           f"{mem['output_bytes']:,} (reference {ref['output_bytes']:,}); dot "
           f"FLOPs {cell['dot_flops_per_device']:.4e} ({dot:.4f} x the "
           f"reference partition's), collective traffic {coll:.4f} x, "
           f"elements by kind x the reference's "
           f"{ {k: round(r, 4) for k, r in kinds.items()} }, port only "
           f"{extra:.0f}; replicated ops {cell['replicated_ops']}")
+
+
+def check_dryrun_gqa(proc: subprocess.Popen, path: Path) -> dict:
+    """Phase 14a's GQA cell against DRYRUN_GQA_REF: the same checks as
+    the gemma2-2b cell's, and no op run replicated on this torch."""
+    cell = _dryrun_cell(proc, path)
+    for line in DRYRUN_GQA_FALLBACKS:
+        assert f"[{DRYRUN_GQA_ARCH}/train_4k] {line}" \
+            in cell["sharding_fallbacks"], cell["sharding_fallbacks"]
+    checked = _check_against(cell, DRYRUN_GQA_REF, DRYRUN_DOT_RTOL)
+    _print_against(f"{DRYRUN_GQA_ARCH} x train_4k on the 16x16 mesh, "
+                   "\"model\" cut into 8 x 2 for its KV heads", cell,
+                   DRYRUN_GQA_REF, checked)
+    return cell
+
+
+def check_dryrun_moe(proc: subprocess.Popen, path: Path) -> dict:
+    """Phase 14a's MoE cell against DRYRUN_MOE_REF: the GQA cell's checks,
+    its dot FLOPs within DRYRUN_MOE_DOT_RTOL."""
+    cell = _dryrun_cell(proc, path)
+    assert cell["sharding_fallbacks"] == DRYRUN_MOE_FALLBACKS, cell
+    checked = _check_against(cell, DRYRUN_MOE_REF, DRYRUN_MOE_DOT_RTOL)
+    _print_against(f"{DRYRUN_MOE_ARCH} x {DRYRUN_MOE_SHAPE} on the 16x16 "
+                   "mesh, the MoE's flat branch", cell, DRYRUN_MOE_REF,
+                   checked)
     return cell
 
 
 def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
-               peak_13b: int, gqa: tuple) -> dict:
+               peak_13b: int, gqa: tuple, moe_cell: tuple) -> dict:
     """Phase 14: the mesh layer; (a) the dry run started by
     ``start_dryrun``, (b) a one-rank NCCL mesh on the card, (c) the dry
     run's argument bytes against phase 13b's peak memory."""
@@ -3185,6 +3239,7 @@ def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
           f"B/s) -> {cell['bottleneck']}; replicated ops "
           f"{cell['replicated_ops']}")
     gqa_cell = check_dryrun_gqa(*gqa)
+    moe_dry = check_dryrun_moe(*moe_cell)
 
     # (b) a one-rank NCCL world on the card
     mesh = make_host_mesh()
@@ -3257,6 +3312,7 @@ def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
     wall = time.perf_counter() - t0
     print(f"[mesh] phase 14 wall_s={wall:.1f}")
     return {"dryrun": cell["terms"], "dryrun_gqa": gqa_cell["terms"],
+            "dryrun_moe": moe_dry["terms"],
             "ep_sm_fwd_err": fwd,
             "ep_sm_grad_rel": rel, "train_loss_err": err,
             "arg_bytes_13b": arg, "peak_13b": peak_13b, "wall_s": wall}
@@ -3909,6 +3965,9 @@ def main() -> int:
     gqa_json = Path(tmp.name) / "dryrun_gqa.json"
     dryrun_gqa = start_dryrun(gqa_json, DRYRUN_GQA_ARCH)
     atexit.register(lambda: dryrun_gqa.poll() is None and dryrun_gqa.kill())
+    moe_json = Path(tmp.name) / "dryrun_moe.json"
+    dryrun_moe = start_dryrun(moe_json, DRYRUN_MOE_ARCH, DRYRUN_MOE_SHAPE)
+    atexit.register(lambda: dryrun_moe.poll() is None and dryrun_moe.kill())
     t12 = time.perf_counter()
     phase_lm_smoke(dev)
     phase_lm_full_width(dev, smi)
@@ -3919,7 +3978,7 @@ def main() -> int:
     print(f"[train] phase 13 wall_s={time.perf_counter() - t13:.1f}")
     phase_mesh(dev, smi, dryrun, dry_json,
                max(r["max_memory_allocated"] for r in full["steps"]),
-               (dryrun_gqa, gqa_json))
+               (dryrun_gqa, gqa_json), (dryrun_moe, moe_json))
     t15 = time.perf_counter()
     counts.update(phase_dpi_training(dev))
     counts.update(phase_placement(dev, smi))

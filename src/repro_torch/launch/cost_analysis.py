@@ -27,7 +27,11 @@ counts:
     issues over each factor in turn (``factor_batch``); an all-to-all
     that sends its whole block to one rank is a collective-permute;
   * reads — whether the step reads each argument's data
-    (``Cost.read_of``), the dry run's count of XLA's arguments.
+    (``Cost.read_of``), the dry run's count of XLA's arguments;
+  * with ``BY_SOURCE`` set (off by default), each kind's elements and
+    the dot FLOPs split by the code that issued them (``Cost.by_source``,
+    keyed ``"kind | source"``, ``_source``): the innermost frame of the
+    port's model, train or optim code, ``bwd`` in the backward pass.
 
 Under ``sharding.gspmd_partitioning`` a DTensor op may also be
 partitioned as the reference's partitioner does it
@@ -46,8 +50,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import re
+import sys
 import threading
 import traceback
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
@@ -121,6 +128,9 @@ class Cost:
     axis_cut: Optional[tuple] = None
     # the storages of the watched tensors (``CostMode.watch``) read
     read: set = dataclasses.field(default_factory=set)
+    # with ``BY_SOURCE``: "kind | source" -> elements (a collective's) or
+    # FLOPs ("dot | source")
+    by_source: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     def read_of(self, t: torch.Tensor) -> bool:
         """Whether the walk read the watched ``t``'s data (a DTensor's
@@ -136,9 +146,12 @@ class Cost:
             self.coll_bytes[k] = self.coll_bytes.get(k, 0.0) + v * mult
         for k, v in other.coll_elements.items():
             self.coll_elements[k] = self.coll_elements.get(k, 0.0) + v * mult
+        for k, v in other.by_source.items():
+            self.by_source[k] = self.by_source.get(k, 0.0) + v * mult
 
     def add_collective(self, kind: str, g: int, result_bytes: float,
-                       elements: float, w: float = 1.0):
+                       elements: float, w: float = 1.0,
+                       source: Optional[str] = None):
         key = f"{kind}(g={g})"
         self.coll_bytes[key] = self.coll_bytes.get(key, 0.0) \
             + w * result_bytes
@@ -147,6 +160,13 @@ class Cost:
         self.coll_traffic += w * _collective_traffic(kind, result_bytes, g)
         if not self.coll_bytes[key]:
             del self.coll_bytes[key], self.coll_elements[key]
+        if source is not None:
+            self.note_source(f"{key} | {source}", w * elements)
+
+    def note_source(self, key: str, amount: float) -> None:
+        self.by_source[key] = self.by_source.get(key, 0.0) + amount
+        if not self.by_source[key]:
+            del self.by_source[key]
 
 
 def _collective_traffic(kind: str, result_bytes: float, g: int) -> float:
@@ -212,20 +232,66 @@ def _propagator():
     return ShardingPropagator
 
 
+# split each collective kind's elements and the dot FLOPs by the code
+# that issued them (``Cost.by_source``); off unless set, as
+# ``tests/_dryrun_survey.py --sources`` sets it
+BY_SOURCE = False
+
+# the port's layers below the model whose frames name no source
+_INFRA = ("/parallel/", "/launch/")
+_FRAME = re.compile(r'File "([^"]+)", line \d+, in (\S+)')
+
+
+def _model_frame(frames) -> Optional[str]:
+    """``"models/moe.py:_moe_flat"``: the innermost of ``frames`` ((file,
+    function) pairs, outermost first) in ``repro_torch``, its parallel
+    and launch layers apart (a live frame's function by its qualified
+    name, as the reference's HLO names it; a recorded one's by its
+    name)."""
+    for path, fn in reversed(list(frames)):
+        path = path.replace("\\", "/")
+        if "/repro_torch/" in path and not any(i in path for i in _INFRA):
+            return f"{path.split('/repro_torch/')[-1]}:{fn}"
+    return None
+
+
+def _source() -> str:
+    """The code that issued the running op: in the backward pass, the
+    innermost model frame (``_model_frame``) of the autograd node being
+    run (anomaly mode records where it was made), else the innermost
+    one live on the stack; ``bwd `` before it in the backward pass,
+    ``?`` where neither names one."""
+    node = torch._C._current_autograd_node()
+    where = None
+    if node is not None:
+        where = _model_frame(_FRAME.search(line).groups()
+                             for line in node.metadata.get("traceback_", ())
+                             if _FRAME.search(line))
+    if where is None:
+        frames, f = [], sys._getframe(1)
+        while f is not None:
+            frames.append((f.f_code.co_filename, f.f_code.co_qualname))
+            f = f.f_back
+        where = _model_frame(reversed(frames))
+    return ("bwd " if node is not None else "") + (where or "?")
+
+
 class CostMode(TorchDispatchMode):
     """Counts every aten op run under it into ``self.cost``, each weighted
     by ``self.weight`` (``count_as`` raises it for one step of a scan
     that stands for many).  An op on DTensors is left to DTensor's
-    dispatch, whose local ops and collectives come back here."""
+    dispatch, whose local ops and collectives come back here.
+    ``by_source``: split the collectives and dot FLOPs by ``_source``."""
 
-    def __init__(self):
+    def __init__(self, by_source: bool = False):
         super().__init__()
         self.cost = Cost()
+        self.by_source = by_source
         self.weight = 1.0
         self.stack: List[float] = []
         self._pass: Optional[Callable] = None
-        self._reduced = None      # (result, g, bytes, elements, weight)
-        #                           all-reduce, for chaining
+        self._reduced = None      # (result, g, bytes, elements, weight,
+        #                           source) all-reduce, for chaining
         # the storages of the tensors whose reads are watched (kept alive,
         # so that no other storage takes their key)
         self.watched: Dict[int, torch.Tensor] = {}
@@ -295,6 +361,14 @@ class CostMode(TorchDispatchMode):
                 out = sh.split_view(func, args)
             if out is None:
                 out = sh.local_pointwise(func, args, kwargs)
+            if out is None:
+                out = sh.masked_gather(func, args)
+            if out is None:
+                out = sh.partial_scatter_add(func, args)
+            if out is None:
+                out = sh.uneven_cat(func, args)
+            if out is None:
+                out = sh.halo_slice(func, args)
         if out is None:
             out = self._dispatched(func, args, kwargs)
         with _reentered(self):
@@ -312,7 +386,7 @@ class CostMode(TorchDispatchMode):
                 if "sharding strategy" not in str(e):
                     raise
                 self._pass = None
-                out = sh.gspmd_fallback(func, args)
+                out = sh.gspmd_fallback(func, args, kwargs)
                 return self._replicated(func, args, kwargs) \
                     if out is None else out
             except IndexError as e:
@@ -381,6 +455,8 @@ class CostMode(TorchDispatchMode):
             c.flops += f
             if name in DOT_OPS:
                 c.dot_flops += f
+                if self.by_source:
+                    c.note_source(f"dot | {_source()}", f)
         elif name in ELEMENTWISE:
             c.flops += w * sum(t.numel() for t in outs)
         elif name in REDUCTIONS and ins:
@@ -425,23 +501,26 @@ class CostMode(TorchDispatchMode):
             return
         kind, g, rb = COLLECTIVES[name], _group_size(args), _nbytes(outs)
         ne = sum(t.numel() for t in outs)
+        src = _source() if self.by_source else None
         if name == "all_to_all_single" and sum(map(bool, args[2])) == 1:
             kind = "collective-permute"     # its whole block to one rank
         self._reduced = None
         if kind != "all-reduce" and self._batch is not None:
-            self._hold(kind, g, rb, ne, w, _group_name(args), args, outs)
+            self._hold(kind, g, rb, ne, w, _group_name(args), args, outs,
+                       src)
             return
         if kind == "all-reduce":
             if last is not None and _unwrap(args[0]) is last[0] \
                     and last[4] == w:
                 # one reduction over several mesh axes: one collective
-                c.add_collective(kind, last[1], -last[2], -last[3], w)
+                c.add_collective(kind, last[1], -last[2], -last[3], w,
+                                 last[5])
                 g *= last[1]
-            self._reduced = (outs[0], g, rb, ne, w)
-        c.add_collective(kind, g, rb, ne, w)
+            self._reduced = (outs[0], g, rb, ne, w, src)
+        c.add_collective(kind, g, rb, ne, w, src)
 
 
-    def _hold(self, kind, g, rb, ne, w, group, args, outs):
+    def _hold(self, kind, g, rb, ne, w, group, args, outs, source=None):
         """A collective of the open batch: one over a factor of a mesh
         axis, of the result of one over another factor of that axis
         (through the local ops between them), of the same kind, joins
@@ -462,7 +541,7 @@ class CostMode(TorchDispatchMode):
                     lineage[storage_key(t)] = src
                 return
         chains.append({"kind": kind, "g": g, "rb": rb, "ne": ne, "w": w,
-                       "axis": axis, "groups": {group}})
+                       "axis": axis, "groups": {group}, "src": source})
         for t in outs:
             lineage[storage_key(t)] = len(chains) - 1
 
@@ -489,7 +568,7 @@ def factor_batch(mesh):
             m._batch = None
             for c in chains:
                 m.cost.add_collective(c["kind"], c["g"], c["rb"], c["ne"],
-                                      c["w"])
+                                      c["w"], c["src"])
 
 
 def _redistributors():
@@ -533,11 +612,15 @@ def _block(t: torch.Tensor) -> torch.Tensor:
 
 
 # DTensor's refusals to view a split dimension as several (torch 2.13's
-# wording, then 2.11's), and torch 2.11's to merge a split dimension
-# into the one before it (2.13 splits the merged dim strided)
+# wording, then 2.11's), torch 2.11's to merge a split dimension into
+# the one before it (2.13 splits the merged dim strided), and the local
+# view DTensor sizes wrongly where a dim split over two mesh dims is
+# cut into dims the pair cannot split (the chunked MoE's rows on the
+# 2x16x16 mesh)
 _UNSPLIT_VIEW = ("unevenly sharded",
                  "split the sharded dimension",
-                 "Attempted to flatten multiple dimensions")
+                 "Attempted to flatten multiple dimensions",
+                 "is invalid for input of size")
 
 
 @contextlib.contextmanager
@@ -571,16 +654,50 @@ def _pop_weight() -> None:
         m.weight = m.stack.pop()
 
 
-def count_as(n: int, fn: Callable, inputs: Sequence[torch.Tensor]):
+class _Hoist(threading.local):
+    depth = 0
+
+
+_HOIST = _Hoist()
+
+
+def hoisting() -> bool:
+    """Whether the forward of a scan step counted by ``count_as(...,
+    hoist=True)`` is running."""
+    return _HOIST.depth > 0
+
+
+@contextlib.contextmanager
+def loop_invariant():
+    """What runs inside counted once for the innermost ``count_as`` (at
+    the weight before its step's), as XLA hoists a loop-invariant
+    instruction — a collective of a weight — out of the while loop."""
+    saved = [(m, m.weight) for m in _MODES]
+    for m in _MODES:
+        if m.stack:
+            m.weight = m.stack[-1]
+    try:
+        yield
+    finally:
+        for m, w in saved:
+            m.weight = w
+
+
+def count_as(n: int, fn: Callable, inputs: Sequence[torch.Tensor],
+             hoist: bool = False):
     """Run ``fn()`` — one step of a scan whose ``n`` steps are alike — and
     count it, forward and backward, as ``n`` steps, as the reference's
     HLO analysis multiplies a while body by its trip count.  Its
     backward: the autograd nodes ``fn`` created (those between its
-    outputs and ``inputs``) run under the same weight."""
+    outputs and ``inputs``) run under the same weight.  ``hoist``: the
+    step's weight reads are loop-invariant (``hoisting``; the MoE's
+    chunks: XLA hoists their collectives out of the scan)."""
     _push_weight(n)
+    _HOIST.depth += hoist
     try:
         out = fn()
     finally:
+        _HOIST.depth -= hoist
         _pop_weight()
     if not _MODES or not torch.is_grad_enabled():
         return out
@@ -608,8 +725,14 @@ def watch(ts: Sequence[torch.Tensor]) -> None:
 def count_step(fn: Callable, watch: Sequence[torch.Tensor] = ()) -> Cost:
     """The cost of ``fn()`` (a step on ``meta`` tensors); ``read_of``
     answers, for each of ``watch`` and each tensor ``fn`` watches
-    (``watch``), whether the step read its data."""
-    with CostMode() as mode:
+    (``watch``), whether the step read its data.  With ``BY_SOURCE``,
+    split by source (the autograd nodes record where they were made)."""
+    nodes = contextlib.nullcontext()
+    if BY_SOURCE:
+        with warnings.catch_warnings():     # its cost is the point here
+            warnings.simplefilter("ignore")
+            nodes = torch.autograd.detect_anomaly(check_nan=False)
+    with nodes, CostMode(by_source=BY_SOURCE) as mode:
         mode.watch(watch)
         fn()
     return mode.cost

@@ -33,7 +33,9 @@ allocates no tensor of the full-size configs.  Per cell, per device:
     ``coll_traffic_per_device`` (the ring model), ``coll_breakdown``
     (the 12 largest, bytes by kind and group) and ``coll_elements`` (the
     elements each moves, whatever its dtype); ``replicated_ops``, the
-    ops DTensor could not shard as placed, run on gathered inputs;
+    ops DTensor could not shard as placed, run on gathered inputs; with
+    ``cost_analysis.BY_SOURCE`` set, ``coll_by_source`` (each kind's
+    elements and the dot FLOPs by the code that issued them);
   * ``terms`` — roofline seconds from the H100 data-sheet constants of
     ``launch.mesh``: compute, memory and collective (traffic over one
     NVLink bandwidth, the reference's one-bandwidth model), and the
@@ -359,6 +361,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         "coll_elements": dict(sorted(cost.coll_elements.items(),
                                      key=lambda kv: -kv[1])),
         "replicated_ops": dict(sorted(cost.replicated_ops.items())),
+        **({"coll_by_source": dict(sorted(cost.by_source.items()))}
+           if cost.by_source else {}),
         "memory": {"argument_bytes": arg_bytes,
                    "argument_bytes_by_tree": by_tree, **memory},
         "sharding_fallbacks": sh.fallback_summary(),

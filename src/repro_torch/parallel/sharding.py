@@ -551,14 +551,179 @@ def at_use(x, gather: bool = True):
     return _Gather.apply(x, dims, gather)
 
 
+def _funcol():
+    from torch.distributed import _functional_collectives as funcol
+    return funcol
+
+
+def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The blocks of ``group``'s ranks concatenated along ``dim``, in rank
+    order."""
+    funcol = _funcol()
+    # all_gather_single is the newer name of all_gather_tensor
+    gather = getattr(funcol, "all_gather_single", funcol.all_gather_tensor)
+    out = funcol.wait_tensor(gather(x.movedim(dim, 0).contiguous(), 0,
+                                    group))
+    return out.movedim(0, dim)
+
+
+class _ShardIn(torch.autograd.Function):
+    """This rank's block of a global (replicated) tensor by ``sharding``
+    (a ``shard_map`` in_spec).  The backward assembles the global
+    tensor's whole gradient on every rank: the blocks all-gathered along
+    their dims, and the partial sums of ``partial_over`` (the axes whose
+    ranks each computed a part of this block's gradient) all-reduced."""
+
+    @staticmethod
+    def forward(ctx, x, sharding, partial_over):
+        ctx.args = (sharding, partial_over)
+        return sharding.local_block(x).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        sharding, partial_over = ctx.args
+        mesh, funcol = sharding.mesh, _funcol()
+        for dim, e in reversed(list(enumerate(sharding.spec))):
+            for a in reversed(entry_axes(e)):
+                g = _all_gather(g, dim, mesh.get_group(a))
+        for a in partial_over:
+            g = funcol.wait_tensor(funcol.all_reduce(g, "sum",
+                                                     mesh.get_group(a)))
+        return g, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """``out_specs=P("data")`` (``rows``): every rank's rows all-gathered
+    over "data" (dim 0); every rank then holds the global output and its
+    whole cotangent, so the backward keeps this rank's block of it."""
+
+    @staticmethod
+    def forward(ctx, y, rows):
+        ctx.rows = rows
+        return _all_gather(y, 0, rows.mesh.get_group("data"))
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.rows.local_block(g), None
+
+
+class ShardMap:
+    """The reference's ``shard_map`` over the mesh for a call whose token
+    stream is ``like``, as the port holds a step's tensors.  On a real
+    mesh (plain tensors, the active mesh's) every rank holds the whole of
+    each: it routes every token, cuts its block of each argument by the
+    in_spec (``_ShardIn``) and all-gathers the rows of the result
+    (``_GatherRows``), each with the backward that leaves every rank the
+    whole gradient of every global input.  In the dry run (``DTensor``s
+    on ``like``'s mesh, one rank's share of the step) a rank holds its
+    block of each already: it routes its block of the tokens, a placed
+    weight is read at use and redistributed to the in_spec, and a result
+    is the ``DTensor`` its blocks make; a mean over the tokens (the aux
+    loss, the load) is averaged over the token shards."""
+
+    def __init__(self, like: torch.Tensor):
+        self.placed = is_distributed(like)
+        self.mesh = like.device_mesh if self.placed else _ACTIVE.mesh
+        # the mesh dims that split the tokens
+        self.split = [q.is_shard() for q in like.placements] \
+            if self.placed else []
+
+    def size(self, axis: str) -> int:
+        return _axis_sizes(self.mesh).get(axis, 1)
+
+    def groups(self, spec: PartitionSpec, dim: int) -> list:
+        """The process groups of the mesh dims that split ``dim`` of an
+        argument of in_spec ``spec``, major first."""
+        return [self.mesh.get_group(m) for m, q in enumerate(
+            NamedSharding(self.mesh, spec).placements()) if q.is_shard(dim)]
+
+    def _local(self, t, placements=None):
+        """A placed ``t``'s block (redistributed to ``placements``); its
+        gradient is partial over the mesh dims that split the tokens but
+        not ``t``."""
+        from torch.distributed.tensor import Partial
+        t = at_use(t)
+        if placements is not None and list(t.placements) != placements:
+            t = t.redistribute(self.mesh, placements)
+        return t.to_local(grad_placements=[
+            Partial() if q.is_replicate() and split else q
+            for q, split in zip(t.placements, self.split)])
+
+    def held(self, t: torch.Tensor) -> torch.Tensor:
+        """What this rank holds of ``t`` as a plain tensor: the whole (a
+        real mesh), or its block (a ``DTensor``)."""
+        return self._local(t) if is_distributed(t) else t
+
+    def block(self, t: torch.Tensor, spec: PartitionSpec,
+              partial_over: Tuple[str, ...] = ()) -> torch.Tensor:
+        """This rank's block of the argument ``t`` by the in_spec ``spec``;
+        ``partial_over``: the axes whose ranks each compute a part of the
+        block's gradient.  A plain tensor made from what the rank holds
+        in the dry run is that block already."""
+        if is_distributed(t):
+            return self._local(t, NamedSharding(self.mesh,
+                                                spec).placements())
+        if self.placed:
+            return t
+        return _ShardIn.apply(t, NamedSharding(self.mesh, spec),
+                              partial_over)
+
+    def rows_out(self, y: torch.Tensor, spec: PartitionSpec,
+                 like: torch.Tensor) -> torch.Tensor:
+        """The result from each rank's block ``y`` by the out_spec
+        ``spec`` (rows over "data"): all-gathered on a real mesh; the
+        ``DTensor`` of ``like``'s placements in the dry run."""
+        if not self.placed:
+            return _GatherRows.apply(y, NamedSharding(self.mesh, spec))
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(y, self.mesh, like.placements,
+                                  run_check=False)
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """A mean over the tokens the rank routed, as the mean over all."""
+        if not self.placed:
+            return t
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        return DTensor.from_local(
+            t, self.mesh, [Partial("avg") if split else Replicate()
+                           for split in self.split],
+            run_check=False).redistribute(self.mesh,
+                                          [Replicate()] * self.mesh.ndim)
+
+
+def laid_out_as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` (a DTensor of ``like``'s shape) placed as ``like`` is, by way
+    of the whole where their placements differ: the chunked MoE's rows,
+    split over "data" alone where the batch is split over ("pod",
+    "data"), rejoined as the batch is split.  DTensor's own move between
+    the two runs through a strided split whose every redistribution its
+    planner sizes by splitting an index tensor of the whole dim (tens of
+    seconds a walk); the whole is an all-gather, then a slice.  ``x`` as
+    it is where the placements agree or ``x`` is a plain tensor."""
+    from torch.distributed.tensor import Replicate
+    if not (is_distributed(x) and is_distributed(like)) \
+            or list(x.placements) == list(like.placements):
+        return x
+    mesh = x.device_mesh
+    return x.redistribute(mesh, [Replicate()] * mesh.ndim).redistribute(
+        mesh, like.placements)
+
+
 def reduced_product(func, out):
     """A product's (``mm``, ``bmm``) partial sums all-reduced where it
-    makes them, under ``gspmd_partitioning``: GSPMD reduces a partial sum
-    before another op consumes it, where DTensor would carry it on
-    through linear ops (a norm's backward) and reduce it at each later
-    consumer."""
+    makes them, under ``gspmd_partitioning``, and so a broadcast's
+    gradient (its sum over the broadcast dims: MLA's key-rope gradient
+    summed over the heads, into the latent's): GSPMD reduces a partial
+    sum before another op consumes it, where DTensor would carry it on
+    through linear ops (a norm's backward, the latent's product) and
+    reduce it at each later consumer."""
     from torch.distributed.tensor import DTensor, Replicate
-    if not _GSPMD.active or func.__name__.split(".")[0] not in ("mm", "bmm") \
+    name = func.__name__.split(".")[0]
+    if name == "sum":
+        node = torch._C._current_autograd_node()
+        if type(node).__name__ != "ExpandBackward0":
+            return out
+    if not _GSPMD.active or name not in ("mm", "bmm", "sum") \
             or not isinstance(out, DTensor) \
             or not any(q.is_partial() for q in out.placements):
         return out
@@ -891,17 +1056,22 @@ def local_pointwise(func, args, kwargs):
     return _placed(out, lead.device_mesh, placements, shape)
 
 
-def gspmd_fallback(func, args):
+def gspmd_fallback(func, args, kwargs=None):
     """An op DTensor has no sharding strategy for, partitioned as GSPMD
     partitions it, where it can be: an elementwise op
     (``log_sigmoid_backward``) on the blocks of its input's placements,
     every operand of its shape redistributed there; an op that moves
     data along dims no mesh dim splits (``roll``, ``flip``: torch 2.11
-    has no strategy for them) on each block, its placements kept.
-    None for any other op (it runs replicated)."""
+    has no strategy for them) on each block, its placements kept; an op
+    that works along the last dim of operands whose other dims line up
+    (``searchsorted``, ``scatter``) on their blocks, each split where
+    any of them is, the last dim whole.  None for any other op (it runs
+    replicated)."""
     from torch.distributed.tensor import DTensor
     name = func.__name__
     x = args[0] if args else None
+    if name in _ALIGNED:
+        return _aligned_blocks(func, args, kwargs or {})
     if not _GSPMD.active or not isinstance(x, DTensor) \
             or any(q.is_partial() for q in x.placements):
         return None
@@ -930,6 +1100,416 @@ def gspmd_fallback(func, args):
 # dims: name -> the argument that names them
 _ELEMENTWISE = {"log_sigmoid_backward.default": 1}
 _ALONG_DIMS = {"roll.default": 2, "flip.default": 1}
+# the ops along the last dim of operands whose other dims line up:
+# name -> (the tensor arguments, the one whose shape the result has)
+_ALIGNED = {"searchsorted.Tensor": ((0, 1), 1),
+            "scatter.src": ((0, 2, 3), 0), "scatter_add.default": ((0, 2, 3), 0)}
+
+
+def _aligned_blocks(func, args, kwargs):
+    """``func`` (of ``_ALIGNED``) on the blocks of its tensor operands, each
+    redistributed to split every dim but the last where any of them
+    splits it (a plain tensor is replicated: its slice moves nothing);
+    None where two split a mesh dim differently, or one splits its last
+    dim, or one is partial, or their ranks differ."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    which, like = _ALIGNED[func.__name__]
+    if not _GSPMD.active or func.__name__.startswith("scatter") \
+            and args[1] % args[0].ndim != args[0].ndim - 1:
+        return None
+    ts = [args[i] for i in which]
+    dts = [t for t in ts if isinstance(t, DTensor)]
+    if not dts or len({t.ndim for t in ts}) != 1:
+        return None
+    mesh, last = dts[0].device_mesh, ts[0].ndim - 1
+    want = []
+    for m in range(mesh.ndim):
+        qs = [t.placements[m] for t in dts]
+        if any(q.is_partial() or q.is_shard() and type(q) is not Shard
+               for q in qs):
+            return None
+        dims = {q.dim for q in qs if q.is_shard()}
+        if len(dims) > 1 or last in dims or any(
+                t.shape[d] != ts[0].shape[d] for d in dims for t in ts):
+            return None
+        want.append(Shard(dims.pop()) if dims else Replicate())
+    blocks = list(args)
+    for i, t in zip(which, ts):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        blocks[i] = t.redistribute(mesh, want)._local_tensor
+    out = func(*blocks, **kwargs)
+    return _placed(out, mesh, want, args[which[like]].shape)
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` row by row: x (..., N, d), idx (..., *shape) with the
+    same leading dims -> (..., *shape, d), each leading index on its own
+    (one gather)."""
+    nb, d = x.dim() - 2, x.shape[-1]
+    flat = idx.reshape(*idx.shape[:nb], -1, 1)
+    out = torch.gather(x, -2, flat.expand(*flat.shape[:-1], d))
+    return out.reshape(*idx.shape, d)
+
+
+def gather_sum(src: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``sum_j src[index[..., j]]``: src (..., N, d), index (..., T, J) ->
+    (..., T, d), an index of N or more adding nothing; the terms added in
+    order j = 0, 1, .., each a gather, so that the sum's order never
+    depends on the device (the MoE combine).  On a DTensor whose rows a
+    mesh dim splits (the decode's expert buckets over "data"), as GSPMD
+    partitions the reference's scatter-add that this sum transposes
+    (``_gather_sum_blocks``)."""
+    if _GSPMD.active and is_distributed(src) and src.ndim == index.ndim == 2:
+        out = _gather_sum_blocks(src, index)
+        if out is not None:
+            return out
+    n, y = src.shape[-2], None
+    for j in range(index.shape[-1]):
+        at = index[..., j]
+        got = torch.where((at < n)[..., None],
+                          take_rows(src, torch.clamp_max(at, n - 1)), 0)
+        y = got if y is None else y + got
+    return y
+
+
+def _gather_sum_blocks(src, index):
+    """``gather_sum`` of rows split over one mesh dim by a replicated index,
+    as GSPMD partitions the reference's scatter-add of the decode's
+    expert outputs into its token rows: the output rows split over a
+    mesh dim of that size on which both are whole (the scatter's
+    operand; a slice of the index), each rank summing the terms its
+    block of ``src`` holds, the partial sums all-reduced over the
+    rows' mesh dim, and the output's split moved to that mesh dim (a
+    collective-permute).  None where src's rows are not split over one
+    mesh dim, or no such other mesh dim exists."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = src.device_mesh
+    split = [m for m, q in enumerate(src.placements) if q.is_shard()]
+    if len(split) != 1 or src.placements[split[0]] != Shard(0) \
+            or factored_axes(mesh) \
+            or any(not q.is_replicate() for q in index.placements):
+        return None
+    m = split[0]
+    free = next((f for f in range(mesh.ndim) if f != m
+                 and mesh.size(f) == mesh.size(m)), None)
+    if free is None:
+        return None
+    rows = [Replicate()] * mesh.ndim
+    rows[free] = Shard(0)
+    at = index.redistribute(mesh, rows)._local_tensor
+    block = src._local_tensor
+    start = compute_local_shape_and_global_offset(
+        src.shape, mesh, src.placements)[1][0]
+    n, y = block.shape[0], None
+    at = at - start
+    for j in range(at.shape[-1]):
+        a = at[..., j]
+        got = torch.where(((a >= 0) & (a < n))[..., None],
+                          take_rows(block, torch.clamp(a, 0, max(n - 1, 0))),
+                          0)
+        y = got if y is None else y + got
+    partial = list(rows)
+    partial[m] = Partial()
+    shape = (index.shape[0], src.shape[1])
+    y = _placed(y, mesh, partial, shape).redistribute(mesh, rows)
+    moved = [Replicate()] * mesh.ndim
+    moved[m] = Shard(0)
+    return _move_split(y, (free,), (m,), moved)
+
+
+def _permute_rows(t, mesh, m: int, shift: int, dim: int):
+    """``t`` sent to the rank ``shift`` further along mesh dim ``m`` (its
+    rows along ``dim``), the one from the rank ``shift`` before received:
+    one collective-permute."""
+    from torch.distributed import _functional_collectives as funcol
+    coord = list(mesh.get_coordinate())
+    n = mesh.size(m)
+    rows = t.movedim(dim, 0).contiguous()
+    send, recv = [0] * mesh.size(), [0] * mesh.size()
+    to, frm = list(coord), list(coord)
+    to[m], frm[m] = (coord[m] + shift) % n, (coord[m] - shift) % n
+    send[_flat_coordinate(mesh, range(mesh.ndim), to)] = rows.shape[0]
+    recv[_flat_coordinate(mesh, range(mesh.ndim), frm)] = rows.shape[0]
+    out = funcol.all_to_all_single(rows, recv, send, _mesh_group(mesh))
+    return funcol.wait_tensor(out).movedim(0, dim)
+
+
+def halo_slice(func, args):
+    """A slice ``[:end]`` of a dim split unevenly over one mesh dim (padded
+    blocks of B rows) that leaves a length it splits evenly (blocks of
+    b < B), as GSPMD re-cuts the blocks (the decode's combined 129 rows
+    cut to its 128 tokens): a halo exchange, each rank's new block
+    taking the rows it lacks from the ranks before it, at most B a
+    collective-permute, (n - 1) * (B - b) rows in all.  None for any
+    other op."""
+    from torch.distributed.tensor import DTensor, Shard
+    aten = torch.ops.aten
+    if not _GSPMD.active or func is not aten.slice.Tensor \
+            or not isinstance(args[0], DTensor):
+        return None
+    x = args[0]
+    dim, start, end, step = (list(args[1:]) + [0, None, None, 1][
+        len(args) - 1:])[:4]
+    dim %= x.ndim
+    mesh, total = x.device_mesh, x.shape[dim]
+    end = total if end is None else min(end, total)
+    split = [m for m, q in enumerate(x.placements) if q.is_shard(dim)]
+    if start not in (0, None) or step != 1 or len(split) != 1 \
+            or type(x.placements[split[0]]) is not Shard \
+            or factored_axes(mesh):
+        return None
+    m = split[0]
+    n = mesh.size(m)
+    big, small = -(-total // n), end // n
+    if total % n == 0 or end % n or big <= small:
+        return None
+    block, p = x._local_tensor, mesh.get_coordinate()[m]
+    left = (n - 1) * (big - small)
+    halo = []
+    for i in range(-(-left // big)):
+        rows = min(big, left - i * big)
+        piece = F.pad(block, [0, 0] * (block.ndim - 1 - dim)
+                      + [0, max(0, big - block.shape[dim])])
+        halo.insert(0, _permute_rows(piece.narrow(dim, big - rows, rows),
+                                     mesh, m, i + 1, dim))
+    joined = torch.cat(halo + [block], dim=dim)
+    need = p * (big - small)
+    local = joined.narrow(dim, joined.shape[dim] - block.shape[dim] - need,
+                          small)
+    shape = list(x.shape)
+    shape[dim] = end
+    return _placed(local, mesh, list(x.placements), shape)
+
+
+def uneven_cat(func, args):
+    """A concatenation along a dim one operand splits over one mesh dim
+    whose result that mesh dim does not divide (the decode's tokens and
+    the zero row: 129 rows over 16), as GSPMD partitions it: the split
+    moved to the last other dim the mesh dim divides (an all-to-all),
+    the blocks joined there, and the split moved back with the joined
+    dim padded to a multiple of the mesh dim (an all-to-all).  The other
+    operands are whole.  None for any other op."""
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    aten = torch.ops.aten
+    if not _GSPMD.active or func is not aten.cat.default:
+        return None
+    ts = list(args[0])
+    dim = args[1] if len(args) > 1 else 0
+    lead = [t for t in ts if isinstance(t, DTensor)
+            and any(q.is_shard() for q in t.placements)]
+    if len(lead) != 1 or factored_axes(lead[0].device_mesh):
+        return None
+    x = lead[0]
+    dim %= x.ndim
+    mesh = x.device_mesh
+    split = [m for m, q in enumerate(x.placements) if q.is_shard()]
+    if len(split) != 1 or x.placements[split[0]] != Shard(dim) \
+            or any(isinstance(t, DTensor) and t is not x and any(
+                not q.is_replicate() for q in t.placements) for t in ts):
+        return None
+    m = split[0]
+    n = mesh.size(m)
+    total = sum(t.shape[dim] for t in ts)
+    other = next((d for d in reversed(range(x.ndim)) if d != dim
+                  and all(t.shape[d] % n == 0 for t in ts)), None)
+    if total % n == 0 or other is None:
+        return None
+    group = mesh.get_group(m).group_name
+    at = mesh.get_coordinate()[m]
+    pieces = []
+    for t in ts:
+        if t is x:
+            pieces.append(torch.ops._dtensor.shard_dim_alltoall(
+                x._local_tensor, dim, other, group))
+        else:
+            whole = t._local_tensor if isinstance(t, DTensor) else t
+            size = whole.shape[other] // n
+            pieces.append(whole.narrow(other, at * size, size))
+    joined = torch.cat(pieces, dim=dim)
+    pad = -(-total // n) * n - total
+    joined = torch.cat([joined, joined.new_zeros(
+        [pad if d == dim else s for d, s in enumerate(joined.shape)])],
+        dim=dim)
+    back = torch.ops._dtensor.shard_dim_alltoall(joined, other, dim, group)
+    shape = list(x.shape)
+    shape[dim] = total
+    placements = list(x.placements)
+    rows = compute_local_shape_and_global_offset(shape, mesh,
+                                                 placements)[0][dim]
+    return _placed(back.narrow(dim, 0, rows), mesh, placements, shape)
+
+
+def masked_gather(func, args):
+    """A ``gather`` from a DTensor split along the gathered dim (and that
+    takes more than one entry there: DTensor's own masked strategy takes
+    that case), as GSPMD partitions it: each rank gathers the entries
+    its block holds and zeros elsewhere, and these partial results are
+    all-reduced over the mesh dims that split the operand there (the
+    reference's all-reduces of ``_dispatch_row``'s gathers of the
+    decode's split ids); over every other mesh dim the operand and the
+    index are split alike, or neither, or the index alone.  Where the
+    index is split over the mesh dim that splits the operand along the
+    gathered dim (the decode's tokens gathered into expert buckets, both
+    over "data"), the operand's split first moves to a mesh dim of that
+    size on which both are whole (a collective-permute, ``_split_off``).
+    None for any other op."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    if not _GSPMD.active or func is not torch.ops.aten.gather.default:
+        return None
+    x, dim, index = args[:3]
+    if not (isinstance(x, DTensor) and isinstance(index, DTensor)):
+        return None
+    dim %= x.ndim
+    if index.shape[dim] == 1 or not any(q.is_shard(dim)
+                                        for q in x.placements):
+        return None
+    x = _split_off(x, index)
+    placements = []
+    for qx, qi in zip(x.placements, index.placements):
+        if qx.is_shard(dim) and qi.is_replicate():
+            placements.append(Partial())
+        elif qx.is_replicate() and (qi.is_replicate() or type(qi) is Shard):
+            placements.append(qi)
+        elif type(qx) is Shard and qx == qi \
+                and x.shape[qx.dim] == index.shape[qx.dim]:
+            placements.append(qx)
+        else:
+            return None
+    block, at = x._local_tensor, index._local_tensor
+    start = compute_local_shape_and_global_offset(
+        x.shape, x.device_mesh, x.placements)[1][dim]
+    n = block.shape[dim]
+    at = at - start
+    inside = (at >= 0) & (at < n)
+    got = torch.gather(block, dim, torch.clamp(at, 0, max(n - 1, 0)))
+    out = torch.where(inside, got, torch.zeros((), dtype=got.dtype,
+                                               device=got.device))
+    out = _placed(out, x.device_mesh, placements, index.shape)
+    return out.redistribute(out.device_mesh, [
+        Replicate() if q.is_partial() else q for q in placements])
+
+
+def _split_off(x, index):
+    """``x`` with each split that ``index`` shares (the same mesh dim splits
+    both) moved to a mesh dim of the same size on which neither is split
+    (``_move_split``: one collective-permute), where there is one."""
+    mesh = x.device_mesh
+    for m, (qx, qi) in enumerate(zip(x.placements, index.placements)):
+        if not (qx.is_shard() and qi.is_shard()):
+            continue
+        free = next((f for f in range(mesh.ndim)
+                     if mesh.size(f) == mesh.size(m)
+                     and x.placements[f].is_replicate()
+                     and index.placements[f].is_replicate()), None)
+        if free is None or factored_axes(mesh):
+            return x
+        moved = list(x.placements)
+        moved[m], moved[free] = moved[free], moved[m]
+        x = _move_split(x, (m,), (free,), moved)
+    return x
+
+
+class _SortWhole(torch.autograd.Function):
+    """``torch.sort`` of a split DTensor on its operand gathered whole, each
+    rank keeping its block of the results; the backward scatters each
+    rank's block of the values' gradient to its rows' sorted positions,
+    where it stands (every row's gradient is in the rank's block)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, descending, stable):
+        from torch.distributed.tensor import Replicate
+        mesh, keep = x.device_mesh, list(x.placements)
+        whole = x.redistribute(mesh, [Replicate()] * mesh.ndim)
+        vals, ids = torch.sort(whole, dim=dim, descending=descending,
+                               stable=stable)
+        ids = ids.redistribute(mesh, keep)
+        ctx.save_for_backward(ids)
+        ctx.dim = dim
+        ctx.mark_non_differentiable(ids)
+        return vals.redistribute(mesh, keep), ids
+
+    @staticmethod
+    def backward(ctx, g, _):
+        ids, = ctx.saved_tensors
+        mesh, keep = ids.device_mesh, list(ids.placements)
+        block = g.redistribute(mesh, keep)._local_tensor
+        block = torch.zeros_like(block).scatter(ctx.dim, ids._local_tensor,
+                                                block)
+        return _placed(block, mesh, keep, g.shape), None, None, None
+
+
+def _top_k_whole(func, args, kwargs):
+    """A sort of a DTensor split anywhere — the port's top-k (``moe._top_k``
+    sorts and keeps the first k) — partitioned as XLA partitions the
+    TopK the reference's ``lax.top_k`` lowers to: its operand gathered
+    whole on every rank (the reference's all-gather of each token's
+    expert scores), sorted there, each rank keeping its block of the
+    results (a slice: nothing moves), its backward on the blocks
+    (``_SortWhole``).  None for any other op."""
+    from torch.distributed.tensor import DTensor
+    x = args[0] if args else None
+    if func not in (torch.sort, torch.Tensor.sort) \
+            or not isinstance(x, DTensor) \
+            or not any(q.is_shard() for q in x.placements):
+        return None
+    names = ("dim", "descending", "stable")
+    given = dict(zip(names, args[1:]), **kwargs)
+    dim = given.get("dim", -1) % x.ndim
+    if any(q.is_shard(dim) for q in x.placements):
+        return None
+    return torch.return_types.sort(_SortWhole.apply(
+        x, dim, given.get("descending", False),
+        given.get("stable", False) or False))
+
+
+def partial_scatter_add(func, args):
+    """A ``scatter_add`` into a DTensor replicated along the scattered dim
+    of an index and source split along it (the router's expert counts
+    over the rank's tokens), as GSPMD partitions it: each rank adds its
+    block into the operand (the first rank of each group into its
+    values, the others into zeros), and the partial sums are all-reduced
+    over the mesh dims that split the index.  None for any other op."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if not _GSPMD.active or func is not torch.ops.aten.scatter_add.default:
+        return None
+    x, dim, index, src = args[:4]
+    if not (isinstance(index, DTensor) and isinstance(src, DTensor)):
+        return None
+    mesh = index.device_mesh
+    if not isinstance(x, DTensor):          # a plain tensor: replicated
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    dim %= x.ndim
+    placements, first = [], True
+    coord = mesh.get_coordinate()
+    for m, (qx, qi, qs) in enumerate(zip(x.placements, index.placements,
+                                         src.placements)):
+        if qx.is_replicate() and qi.is_shard(dim) and qs == qi:
+            placements.append(Partial())
+            first = first and coord[m] == 0
+        elif qx == qi == qs and (qx.is_replicate()
+                                 or qx.is_shard() and qx.dim != dim):
+            placements.append(qx)
+        else:
+            return None
+    if not any(q.is_partial() for q in placements):
+        return None
+    block = x._local_tensor
+    if not first:
+        block = torch.zeros_like(block)
+    out = torch.scatter_add(block, dim, index._local_tensor,
+                            src._local_tensor)
+    out = _placed(out, mesh, placements, x.shape)
+    return out.redistribute(mesh, [Replicate() if q.is_partial() else q
+                                   for q in placements])
 
 
 class _Gspmd(threading.local):
@@ -971,10 +1551,13 @@ def _split_reduction(func, args, kwargs):
 
 class _GspmdOps(TorchFunctionMode):
     """The ops of the dry run's step as GSPMD partitions them: each op
-    run under autograd reads a placed weight as it uses it (``at_use``),
+    run under autograd reads a placed weight as it uses it (``at_use``;
+    a cast of it as the op that uses the cast does, ``_cast_at_use``),
     but for ``_STORED_READS`` (the optimizer's update, without autograd,
-    reads the stored block), and a softmax or log-sum-exp keeps a split
-    dim split (``_split_reduction``)."""
+    reads the stored block), a product with a weight may contract over
+    its split (``_contract_split``), a softmax or log-sum-exp keeps a
+    split dim split (``_split_reduction``) and a sort takes its operand
+    whole (``_top_k_whole``)."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         from torch.utils._pytree import tree_map
@@ -986,18 +1569,26 @@ class _GspmdOps(TorchFunctionMode):
             with _GspmdOps():
                 return _run_backward(*args, **kwargs)
         out = _split_reduction(func, args, kwargs)
+        if out is None:
+            out = _top_k_whole(func, args, kwargs)
         if out is not None:
             return out
         if torch.is_grad_enabled() and func not in _STORED_READS \
                 and getattr(func, "__name__", "") not in ("__get__",
                                                           "__set__"):
+            if _hoisting():
+                if func in _CASTS and getattr(args[0], "fsdp_dims", ()):
+                    return _cast_at_use(func, args, kwargs)
+                out = _contract_split(func, args)
+                if out is not None:
+                    return out
             # an embedding lookup takes a token's row from the table's
             # block, moved to its use axis but not gathered: the
             # reference's partition gathers the tokens instead (its
             # s32[256,4096,1] all-gather of gemma2-2b train_4k)
-            use = (lambda x: at_use(x, gather=False)) \
-                if func is F.embedding else at_use
-            args, kwargs = tree_map(use, (args, kwargs))
+            gather = func is not F.embedding
+            args, kwargs = tree_map(lambda x: _read(x, gather),
+                                    (args, kwargs))
         if func is torch.einsum:
             args = _einsum_operands(args)
             out = _einsum_on_blocks(args)
@@ -1006,6 +1597,140 @@ class _GspmdOps(TorchFunctionMode):
         if func is F.embedding:
             args = (_tokens_for_lookup(args[0], args[1]),) + tuple(args[1:])
         return func(*args, **kwargs)
+
+
+_CASTS = (torch.Tensor.to, torch.Tensor.float, torch.Tensor.bfloat16,
+          torch.Tensor.half, torch.Tensor.double, torch.Tensor.type_as)
+_PRODUCTS = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__)
+
+
+def _hoisting() -> bool:
+    """Whether a scan step whose weight reads are loop-invariant (the
+    MoE's chunks) runs (``cost_analysis.count_as(..., hoist=True)``)."""
+    from repro_torch.launch import cost_analysis
+    return cost_analysis.hoisting()
+
+
+def _hoisted():
+    """The context a weight's read runs in: in such a scan step, counted
+    once for the loop (``cost_analysis.loop_invariant``)."""
+    from repro_torch.launch import cost_analysis
+    return cost_analysis.loop_invariant() if _hoisting() \
+        else contextlib.nullcontext()
+
+
+def _cast_at_use(func, args, kwargs):
+    """A cast of a placed weight in such a scan step: the cast of its
+    stored block (no collective), which the op that uses it reads as the
+    cast of the weight read at that use (``_read``: the weight gathered,
+    then cast, as ``at_use`` reads it) — where a product contracts over
+    the weight's split instead (``_contract_split``), it is not
+    gathered."""
+    out = func(*args, **kwargs)
+    if out is args[0]:
+        out = out.view_as(out)
+    out._read_at_use = (args[0], func, args[1:], kwargs)
+    return out
+
+
+def _read(x, gather: bool = True):
+    """``x`` as an op reads it: a placed weight by ``at_use``, a cast of
+    one (``_cast_at_use``) the cast of that read, once."""
+    pending = getattr(x, "_read_at_use", None)
+    if pending is None:
+        if not getattr(x, "fsdp_dims", ()):
+            return x
+        with _hoisted():
+            return at_use(x, gather)
+    if getattr(x, "_read", None) is None:
+        w, func, args, kwargs = pending
+        with _hoisted():
+            x._read = func(at_use(w, gather), *args, **kwargs)
+    return x._read
+
+
+def _contract_split(func, args):
+    """A product ``x @ w`` of an activation and a cast placed weight whose
+    one FSDP dim is the contracted one (the router's ``(d, E)``), where
+    the product's block is smaller than the weight gathered: as GSPMD
+    partitions it, the weight's split moved to its use axis (a
+    collective-permute, ``_use_axes``) but not gathered, the product
+    contracted over the split and its partial sums all-reduced
+    (``_ContractSplit``; the reference's router logits, all-reduced
+    over "model" each chunk).  Only in a scan step whose weight reads
+    are loop-invariant (the MoE's chunks); None elsewhere."""
+    from torch.distributed.tensor import DTensor
+    if func not in _PRODUCTS or len(args) != 2:
+        return None
+    x, w = args
+    pending = getattr(w, "_read_at_use", None)
+    if pending is None or not isinstance(x, DTensor) \
+            or getattr(w, "_read", None) is not None:
+        return None
+    p = pending[0]
+    axes = _use_axes(p, p.fsdp_dims) if p.fsdp_dims == (0,) else None
+    if axes is None or p.ndim != 2 or x.shape[-1] != p.shape[0] \
+            or any(x.placements[m].is_shard(x.ndim - 1)
+                   or not x.placements[m].is_replicate() for m in axes[1]):
+        return None
+    block = x._local_tensor.numel() // x.shape[-1] * p.shape[1]
+    gathered = p.numel() // math.prod(
+        p.device_mesh.size(m) for m, q in enumerate(p.placements)
+        if q.is_shard(1))
+    if block >= gathered:
+        return None
+    with _hoisted():
+        moved = pending[1](at_use(p, gather=False), *pending[2],
+                           **pending[3])
+    return _ContractSplit.apply(x, moved, axes[1], pending)
+
+
+class _ContractSplit(torch.autograd.Function):
+    """``x @ w`` with ``w``'s first dim split over the mesh dims ``use``
+    (on which ``x`` is whole): ``x``'s last dim sliced to the blocks
+    (nothing moves), the blocks' product, partial over ``use``,
+    all-reduced.  The backward: ``x``'s gradient by the weight gathered
+    (``pending``: the weight and its cast; a loop-invariant read), and
+    ``w``'s from the blocks, partial over the mesh dims that split the
+    rows."""
+
+    @staticmethod
+    def forward(ctx, x, w, use, pending):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        mesh = x.device_mesh
+        cut = [Shard(x.ndim - 1) if m in use else q
+               for m, q in enumerate(x.placements)]
+        xs = x.redistribute(mesh, cut)
+        y = torch.matmul(xs._local_tensor, w._local_tensor)
+        y = _placed(y, mesh, [Partial() if m in use else q
+                              for m, q in enumerate(x.placements)],
+                    tuple(x.shape[:-1]) + (w.shape[-1],))
+        ctx.save_for_backward(xs, w)
+        ctx.pending, ctx.use = pending, use
+        return y.redistribute(mesh, [Replicate() if m in use else q
+                                     for m, q in enumerate(x.placements)])
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial, Replicate
+        xs, w = ctx.saved_tensors
+        p, func, args, kwargs = ctx.pending
+        mesh = xs.device_mesh
+        from repro_torch.launch import cost_analysis
+        with torch.no_grad(), cost_analysis.loop_invariant():
+            whole = func(at_use(p), *args, **kwargs)
+        dx = torch.matmul(g, whole.t())
+        rows = g.redistribute(mesh, [Replicate() if m in ctx.use else q
+                                     for m, q in enumerate(xs.placements)])
+        a = xs._local_tensor.reshape(-1, xs._local_tensor.shape[-1])
+        b = rows._local_tensor.reshape(-1, rows._local_tensor.shape[-1])
+        dw = torch.matmul(a.t(), b)
+        split = {m for m, q in enumerate(xs.placements)
+                 if q.is_shard() and q.dim != xs.ndim - 1}
+        dw = _placed(dw, mesh, [Partial() if m in split else q
+                                for m, q in enumerate(w.placements)],
+                     tuple(w.shape))
+        return dx, dw, None, None
 
 
 def _einsum_placements(subs, out, ops, mesh):

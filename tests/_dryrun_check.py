@@ -1,10 +1,10 @@
 """The port's dry run held to the reference's partition, cell by cell:
 ``check_cells`` runs the reference (``tests/_dryrun_ref.py``: its
 ``run_cell`` on the 16x16 mesh rebuilt with Auto axes, and one SPMD
-partition's dot FLOPs and collective elements read from its HLO) and
-the port (``repro_torch.launch.dryrun.run_cell``) of one arch's cells,
-each in a subprocess of its own, both at once, and asserts that they
-agree.  Shared by ``tests/test_torch_mesh_dryrun*.py``."""
+partition's dot FLOPs and collective elements read from its HLO) of
+one arch's cells in a subprocess, and the port's
+(``repro_torch.launch.dryrun.run_cell``) in a subprocess a cell, all
+at once, and asserts that they agree.  Shared by ``tests/test_torch_mesh_dryrun*.py``."""
 import json
 import os
 import subprocess
@@ -44,17 +44,23 @@ def result(proc, timeout=300):
     raise AssertionError(err[-2000:])
 
 
-def check_cells(arch, shapes, memory_only=False):
+def check_cells(arch, shapes, memory_only=False, dot_rtol=0.10):
     """The port's dry run of ``arch`` x ``shapes`` on the 16x16 mesh
     against the reference's ``run_cell`` and one SPMD partition of its
-    HLO, each run in its subprocess at once.  The reference's dots run
+    HLO, each run in subprocesses at once.  The reference's dots run
     in float32 on this CPU (XLA's float normalization), so the
     collectives of their results carry twice the port's bf16 bytes: each
     kind is held by the elements it moves.  ``memory_only``: the
     argument, alias and output bytes alone (a cell whose partition
-    differs, recorded in ROADMAP.md)."""
-    ref, port = start(_REF, arch, *shapes), start(_PORT, arch, *shapes)
-    want, got = result(ref, 600), result(port, 600)
+    differs, recorded in ROADMAP.md); ``dot_rtol``: the dot FLOPs'
+    tolerance."""
+    # the reference compiles its cells in one process; the port walks
+    # each cell in one of its own, all at once
+    ref = start(_REF, arch, *shapes)
+    ports = [start(_PORT, arch, s) for s in shapes]
+    want, got = result(ref, 600), {}
+    for port in ports:
+        got.update(result(port, 600))
     for s in shapes:
         w, g = want[s], got[s]
         assert w["status"] == "ok" and g["status"] == "ok", (w, g)
@@ -73,7 +79,7 @@ def check_cells(arch, shapes, memory_only=False):
         assert g["sharding_fallbacks"] == w["sharding_fallbacks"], s
         dot = g["dot_flops_per_device"] / w["dot_flops"]
         coll = g["coll_traffic_per_device"] / w["coll_traffic_per_device"]
-        assert abs(dot - 1) <= 0.10, (s, dot)
+        assert abs(dot - 1) <= dot_rtol, (s, dot)
         assert 0.5 <= coll <= 2.0, (s, coll, g["coll_breakdown"],
                                     w["coll_breakdown"])
         # each kind of collective by the elements it moves: the

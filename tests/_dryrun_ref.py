@@ -8,10 +8,19 @@ Prints ``RESULT`` and the reports as JSON, a cell a key::
 
     PYTHONPATH=src python tests/_dryrun_ref.py gemma2-2b train_4k long_500k
 
+With ``DRYRUN_BY_SOURCE=1`` in the environment each report also has
+``coll_by_source``: each kind's elements and the dot FLOPs by the code
+that issued them (``"kind | source"``; the innermost frame of the
+reference's model, train or optim code, from the instruction's
+``metadata`` and the module's stack-frame table; ``bwd`` where its
+``op_name`` is a transpose).
+
 ``tests/test_torch_mesh_dryrun.py`` holds the port's dry run to it.
 """
 import collections
 import json
+import os
+import re
 import sys
 
 import repro.launch.dryrun as d        # sets the 512-device flag first
@@ -19,13 +28,63 @@ import jax
 from repro.launch import hlo_analysis as h
 
 
+BY_SOURCE = os.environ.get("DRYRUN_BY_SOURCE") == "1"
+
+
+def _frames(text):
+    """stack_frame_id -> ``"models/moe.py:_moe_flat"``: the innermost frame
+    of the reference's model, train or optim code (its parallel and
+    launch layers apart) in the module's stack-frame tables."""
+    tables = {k: {} for k in ("FileNames", "FunctionNames",
+                              "FileLocations", "StackFrames")}
+    table = None
+    for line in text.splitlines():
+        s = line.strip()
+        if s in tables:
+            table = tables[s]
+            continue
+        m = re.match(r"(\d+) (.*)$", s) if table is not None else None
+        if m is None:
+            table = None
+            continue
+        key, rest = int(m.group(1)), m.group(2)
+        fields = {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)", rest)}
+        table[key] = fields or rest.strip('"')
+    files, funcs = tables["FileNames"], tables["FunctionNames"]
+    locs, stack = tables["FileLocations"], tables["StackFrames"]
+
+    def source(frame):
+        seen = set()
+        while frame in stack and frame not in seen:
+            seen.add(frame)
+            loc = locs[stack[frame]["file_location_id"]]
+            path = files[loc["file_name_id"]]
+            if "/repro/" in path and "/parallel/" not in path \
+                    and "/launch/" not in path:
+                return (path.split("/repro/")[-1] + ":"
+                        + funcs[loc["function_name_id"]])
+            frame = stack[frame]["parent_frame_id"]
+        return "?"
+    return source
+
+
+def _where(ins, source):
+    frame = re.search(r"stack_frame_id=(\d+)", ins.attrs)
+    op = re.search(r'op_name="([^"]*)"', ins.attrs)
+    return ("bwd " if op and "transpose(" in op.group(1) else "") \
+        + (source(int(frame.group(1))) if frame else "?")
+
+
 def partition(text):
     # the partition's dot FLOPs and the elements each kind of collective
     # moves: every instruction of the module, a while body's times its
     # trip count, a fusion's or call's counted where it is called (the
-    # call graph hlo_analysis.ModuleCost walks)
+    # call graph hlo_analysis.ModuleCost walks); with BY_SOURCE, both
+    # split by source
     comps = h.parse_module(text)
     elements = collections.Counter()
+    by_source = collections.Counter()
+    source = _frames(text) if BY_SOURCE else None
 
     def walk(name, trips):
         total, comp = 0.0, comps.get(name)
@@ -39,14 +98,21 @@ def partition(text):
                                 "custom-call", "conditional"):
                 total += sum(walk(c, trips) for c in called)
             elif ins.opcode == "dot":
-                total += trips * h._dot_flops(ins, comp)
+                f = trips * h._dot_flops(ins, comp)
+                total += f
+                if source:
+                    by_source[f"dot | {_where(ins, source)}"] += f
             for kind in h.COLLECTIVES:
                 if ins.opcode in (kind, kind + "-start"):
                     g = h._group_size(ins.attrs, 256)
-                    elements[f"{kind}(g={g})"] += \
-                        trips * h._shape_bytes_elems(ins.type_str)[1]
+                    n = trips * h._shape_bytes_elems(ins.type_str)[1]
+                    elements[f"{kind}(g={g})"] += n
+                    if source:
+                        by_source[f"{kind}(g={g}) | "
+                                  f"{_where(ins, source)}"] += n
         return total
-    return walk(h.ModuleCost(text).entry, 1), dict(elements)
+    return walk(h.ModuleCost(text).entry, 1), dict(elements), \
+        dict(sorted(by_source.items()))
 
 
 def auto_mesh(*, multi_pod=False):
@@ -64,5 +130,8 @@ out = {}
 for s in sys.argv[2:]:
     out[s] = d.run_cell(sys.argv[1], s, False, verbose=False)
     if out[s]["status"] == "ok":     # a skipped or failed cell has no HLO
-        out[s]["dot_flops"], out[s]["coll_elements"] = partition(texts.pop())
+        out[s]["dot_flops"], out[s]["coll_elements"], by_source = \
+            partition(texts.pop())
+        if BY_SOURCE:
+            out[s]["coll_by_source"] = by_source
 print("RESULT " + json.dumps(out))

@@ -16,7 +16,19 @@ is equal, ``replicated_ops`` and the port's walk seconds::
 
 A skipped cell reads ``skip``; a cell whose run outlasts ``--timeout``
 seconds reads ``timeout`` (its subprocess is killed).  ``--jobs`` cells
-run at once (each holds a reference compile of up to a few GB)."""
+run at once (each holds a reference compile of up to a few GB).
+
+``--sources`` (off by default: it slows the port's walk) splits each
+kind's elements, and the dot FLOPs, by the code that issued them, on
+both sides, and prints a line for each source under the cell's row:
+``kind | file:function`` (``bwd`` before the function in the backward
+pass), the port's and the reference's amounts and their ratio.  The
+reference's source is the innermost frame of its model, train or optim
+code in the instruction's ``metadata`` (``tests/_dryrun_ref.py``), the
+port's that of the op that issued it (``cost_analysis.BY_SOURCE``)::
+
+    PYTHONPATH=src python tests/_dryrun_survey.py --sources \
+        deepseek-v2-236b:decode_32k --json out.json"""
 import argparse
 import json
 import os
@@ -29,18 +41,25 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 _PORT = r"""
-import json, sys
+import json, os, sys
+from repro_torch.launch import cost_analysis
 from repro_torch.launch.dryrun import run_cell
+cost_analysis.BY_SOURCE = os.environ.get("DRYRUN_BY_SOURCE") == "1"
 out = {s: run_cell(sys.argv[1], s, False, verbose=False)
        for s in sys.argv[2:]}
 print("RESULT " + json.dumps(out))
 """
 
 
+SOURCES = False       # --sources
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
     env.setdefault("JAX_PLATFORMS", "cpu")
+    if SOURCES:
+        env["DRYRUN_BY_SOURCE"] = "1"
     return env
 
 
@@ -108,7 +127,18 @@ def row(cell):
         w["sharding_fallbacks"] else "fallbacks DIFFER"
     return (f"{head} | dot {dot} | " + ", ".join(kinds) + " | "
             + "; ".join(mem) + f" | {fb} | replicated "
-            f"{g['replicated_ops']} | walk {g['step_s']} s")
+            f"{g['replicated_ops']} | walk {g['step_s']} s"
+            + "".join(f"\n    {line}" for line in source_lines(cell)))
+
+
+def source_lines(cell):
+    """With ``--sources``: a line for each ``kind | source`` of either
+    side, its port and reference amounts and their ratio."""
+    gs = cell["port"].get("coll_by_source", {})
+    ws = cell["ref"].get("coll_by_source", {})
+    for k in sorted(set(gs) | set(ws)):
+        a, b = gs.get(k, 0), ws.get(k, 0)
+        yield f"{k}: port {a:,.0f} ref {b:,.0f} ({_ratio(a, b)})"
 
 
 def _verdict(cell):
@@ -159,7 +189,11 @@ def main(argv=None):
     ap.add_argument("--json", default=None)
     ap.add_argument("--compare", nargs=2, metavar=("BEFORE", "AFTER"),
                     help="two --json files: print the table, run nothing")
+    ap.add_argument("--sources", action="store_true",
+                    help="split each kind and the dot FLOPs by source")
     args = ap.parse_args(argv)
+    global SOURCES
+    SOURCES = args.sources
     if args.compare:
         before, after = (json.load(open(f)) for f in args.compare)
         return compare(before, after)

@@ -28,7 +28,8 @@ What must hold:
   * the ep_sm MoE's own collectives are counted once, by kind and group,
     beside the all-reduces DTensor issues; every collective is priced by
     the reference's ring-traffic model, copied unchanged;
-  * a scan step counted by ``count_as`` costs what its loop costs;
+  * a scan step counted by ``count_as`` costs what its loop costs; with
+    ``BY_SOURCE`` the dot FLOPs split by the code that ran them;
   * ``route``'s counts are ``torch.bincount``'s, bit for bit;
     ``resolve_device`` takes ``"meta"`` only when asked.
 """
@@ -168,6 +169,31 @@ def test_count_as_weights_a_scan_step_forward_and_backward():
     mm = ca.count_step(lambda: x @ w)
     assert mm.flops == mm.dot_flops == 2 * 4 * 16 * 16
     assert mm.bytes == (4 * 16 + 16 * 16 + 4 * 16) * 4
+
+
+def test_by_source_splits_the_dot_flops_by_the_code_that_ran_them(
+        monkeypatch):
+    """With ``cost_analysis.BY_SOURCE`` set (``tests/_dryrun_survey.py
+    --sources``), each dot's FLOPs are filed under the innermost model
+    frame that ran it — in the backward pass the one that made the
+    autograd node — and the split sums to ``dot_flops``; off, the
+    default, nothing is split."""
+    from repro_torch.models.layers import ffn
+    params = {k: torch.empty(shape, device="meta", requires_grad=True)
+              for k, shape in (("w_up", (16, 32)), ("w_gate", (16, 32)),
+                               ("w_down", (32, 16)))}
+    x = torch.empty((4, 16), device="meta", requires_grad=True)
+
+    def step():
+        ffn(params, x, torch.float32).sum().backward()
+
+    assert ca.count_step(step).by_source == {}
+    monkeypatch.setattr(ca, "BY_SOURCE", True)
+    cost = ca.count_step(step)
+    assert cost.by_source == {
+        "dot | models/layers.py:ffn": 3 * 2 * 4 * 16 * 32,
+        "dot | bwd models/layers.py:ffn": 6 * 2 * 4 * 16 * 32}
+    assert sum(cost.by_source.values()) == cost.dot_flops
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b"])

@@ -12,9 +12,11 @@ each, at once (``_dryrun_check.check_cells``: argument and alias bytes
 exact, output within 1 KiB, the fallback text equal, dot FLOPs within
 10 %, each kind of collective's elements within 1 %, kinds only the
 port issues under 0.1 % of its elements, ``replicated_ops == {}``).
-The deepseek cells are held on their memory alone: their partitions
-differ (ROADMAP.md queue 3). Also here: the dead-argument rule on a
-toy step."""
+The deepseek serving cells are held so with dot FLOPs within 1 %: their
+MoE takes the reference's flat (decode) or chunked (prefill) branch on
+the DTensor token stream, partitioned as GSPMD partitions it
+(deepseek-v2-236b x train_4k in ``test_torch_mesh_dryrun_cells_moe.py``).
+Also here: the dead-argument rule on a toy step."""
 import pytest
 import torch
 
@@ -39,10 +41,19 @@ def test_cells_match_the_references_partition(arch, shapes):
             assert by_tree["cache"] == 0 == got[s]["memory"]["alias_bytes"]
 
 
-@pytest.mark.parametrize("arch,shape", [("deepseek-v2-236b", "prefill_32k"),
-                                        ("deepseek-v3-671b", "decode_32k")])
-def test_deepseek_cells_memory_is_the_references(arch, shape):
-    check_cells(arch, (shape,), memory_only=True)
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b"])
+def test_deepseek_cells_memory_is_the_references(arch):
+    """The serving cells' partition, not their memory alone: the decode's
+    all-to-alls (the tokens' split moved off the rows the zero row makes
+    uneven, and back) and collective-permutes (the rows moved off
+    "data" for the bucket gather, the combined rows back and re-cut to
+    the tokens' blocks), the prefill's all-gather of the router's
+    scores for its top-k."""
+    got = check_cells(arch, ("prefill_32k", "decode_32k"), dot_rtol=0.01)
+    decode = got["decode_32k"]["coll_elements"]
+    assert decode["collective-permute(g=256)"] > 0
+    assert decode["all-to-all(g=16)"] > 0
+    assert got["prefill_32k"]["coll_elements"]["all-gather(g=16)"] > 0
 
 
 def test_a_buffer_overwritten_whole_is_neither_argument_nor_alias():

@@ -6,7 +6,8 @@ the reduced config.  On each mesh 35 cells must report ``ok`` and the
 other 5 ``skip``, exactly where each config's ``skip_shapes`` says; none
 may ``FAIL``.  Every ``ok`` cell splits something over the mesh, so its
 ``collective_s`` is positive; the ops DTensor could not shard as placed
-are named in ``replicated_ops`` (their gathers counted) and printed.
+are named in ``replicated_ops`` (their gathers counted) and printed;
+the MoE archs' cells on the 16x16 mesh run none.
 The dry run makes a process group (the ``fake`` backend), so the cells
 run in subprocesses, all at once: the 16x16 mesh's in one, the 2x16x16
 mesh's (whose walks take 2-4x longer: DTensor weighs strategies over
@@ -87,6 +88,20 @@ def test_every_smoke_cell_walks_on_the_16x16_mesh(walks):
 
 def test_every_smoke_cell_walks_on_the_2x16x16_mesh(walks):
     _check_walks(walks, "2x16x16")
+
+
+def test_moe_smoke_cells_run_nothing_replicated_on_the_16x16_mesh(walks):
+    """The deepseek smoke cells' MoE layers take the reference's branches
+    on the DTensor token stream (flat for decode, chunked for prefill and
+    train) with 8 experts, which "data" cannot split: every op of their
+    walks on the 16x16 mesh is partitioned, none run replicated."""
+    got = walks["16x16"]
+    assert isinstance(got, dict), got
+    for arch in ("deepseek-v2-236b", "deepseek-v3-671b"):
+        for shape in LM_SHAPES:
+            r = got[f"{arch}/{shape.name}"]
+            if r["status"] == "ok":
+                assert r["replicated_ops"] == {}, (arch, shape.name, r)
 
 
 def _check_walks(walks, mesh):
