@@ -148,9 +148,11 @@ elastic checkpoint restore.
               three H100 roofline terms printed; beside it, each in a
               process of its own, granite-3-2b x train_4k and
               deepseek-v3-671b x decode_32k (the MoE's flat branch)
-              held to their reference partitions (DRYRUN_GQA_REF,
-              DRYRUN_MOE_REF: memory exact, every kind's elements within
-              1 %, dot FLOPs within 10 % and 1 %, no op replicated); (b) a one-rank
+              and gemma2-27b x long_500k (queries and cache sequence
+              both over "model") held to their reference partitions
+              (DRYRUN_GQA_REF, DRYRUN_MOE_REF, DRYRUN_LONG_REF: memory
+              exact, every kind's elements within 1 %, dot FLOPs within
+              10 %, 1 % and 1 %, no op replicated); (b) a one-rank
               NCCL world (``make_host_mesh()``): the shard_map MoE
               (``expert_sharding="ep_sm"``, deepseek-v3 smoke, float32,
               4 x 4096 tokens) forward and gradients against the card's
@@ -3060,6 +3062,22 @@ DRYRUN_MOE_REF = {"argument_bytes": 27_486_920_740,
                                     "collective-permute(g=256)": 13_719_552}}
 DRYRUN_MOE_FALLBACKS = "no sharding fallbacks"
 DRYRUN_MOE_DOT_RTOL = 0.01
+# ... and of gemma2-27b x long_500k, a decode step over a 524,288-token
+# cache whose sequence is split over "model" while its 32 query heads
+# split there too: the queries moved to the free "data" and gathered
+# there for the scores, the value product run split over "data" with a
+# block of partial sums reduced over "model" and moved back, the new
+# key and value gathered for the cache's write (tests/_dryrun_ref.py on
+# the CPU), held as DRYRUN_MOE_REF is
+DRYRUN_LONG_ARCH, DRYRUN_LONG_SHAPE = "gemma2-27b", "long_500k"
+DRYRUN_LONG_REF = {"argument_bytes": 13_035_267_080,
+                   "alias_bytes": 6_225_288_192,
+                   "output_bytes": 6_225_288_252,
+                   "dot_flops": 10_014_425_088,
+                   "coll_traffic": 4_831_928,
+                   "coll_elements": {"all-reduce(g=16)": 443_264,
+                                     "all-gather(g=16)": 376_864,
+                                     "collective-permute(g=256)": 23_552}}
 MESH_ATOL = 1e-5        # ep_sm vs no mesh: forward (abs), grads (rel)
 MESH_TRAIN_ATOL = 1e-5  # launch.train's losses, mesh vs no mesh
 
@@ -3166,20 +3184,21 @@ def check_dryrun_gqa(proc: subprocess.Popen, path: Path) -> dict:
     return cell
 
 
-def check_dryrun_moe(proc: subprocess.Popen, path: Path) -> dict:
-    """Phase 14a's MoE cell against DRYRUN_MOE_REF: the GQA cell's checks,
+def check_dryrun_exact(proc: subprocess.Popen, path: Path, ref: dict,
+                       label: str) -> dict:
+    """A phase 14a cell with no sharding fallbacks against its reference
+    partition (DRYRUN_MOE_REF, DRYRUN_LONG_REF): the GQA cell's checks,
     its dot FLOPs within DRYRUN_MOE_DOT_RTOL."""
     cell = _dryrun_cell(proc, path)
     assert cell["sharding_fallbacks"] == DRYRUN_MOE_FALLBACKS, cell
-    checked = _check_against(cell, DRYRUN_MOE_REF, DRYRUN_MOE_DOT_RTOL)
-    _print_against(f"{DRYRUN_MOE_ARCH} x {DRYRUN_MOE_SHAPE} on the 16x16 "
-                   "mesh, the MoE's flat branch", cell, DRYRUN_MOE_REF,
-                   checked)
+    checked = _check_against(cell, ref, DRYRUN_MOE_DOT_RTOL)
+    _print_against(label, cell, ref, checked)
     return cell
 
 
 def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
-               peak_13b: int, gqa: tuple, moe_cell: tuple) -> dict:
+               peak_13b: int, gqa: tuple, moe_cell: tuple,
+               long_cell: tuple) -> dict:
     """Phase 14: the mesh layer; (a) the dry run started by
     ``start_dryrun``, (b) a one-rank NCCL mesh on the card, (c) the dry
     run's argument bytes against phase 13b's peak memory."""
@@ -3239,7 +3258,14 @@ def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
           f"B/s) -> {cell['bottleneck']}; replicated ops "
           f"{cell['replicated_ops']}")
     gqa_cell = check_dryrun_gqa(*gqa)
-    moe_dry = check_dryrun_moe(*moe_cell)
+    moe_dry = check_dryrun_exact(
+        *moe_cell, DRYRUN_MOE_REF, f"{DRYRUN_MOE_ARCH} x {DRYRUN_MOE_SHAPE} "
+        "on the 16x16 mesh, the MoE's flat branch")
+    long_dry = check_dryrun_exact(
+        *long_cell, DRYRUN_LONG_REF, f"{DRYRUN_LONG_ARCH} x "
+        f"{DRYRUN_LONG_SHAPE} on the 16x16 mesh, the queries' heads and "
+        "the cache's sequence both over \"model\"")
+    assert long_dry["coll_elements"]["collective-permute(g=256)"] > 0
 
     # (b) a one-rank NCCL world on the card
     mesh = make_host_mesh()
@@ -3312,7 +3338,7 @@ def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
     wall = time.perf_counter() - t0
     print(f"[mesh] phase 14 wall_s={wall:.1f}")
     return {"dryrun": cell["terms"], "dryrun_gqa": gqa_cell["terms"],
-            "dryrun_moe": moe_dry["terms"],
+            "dryrun_moe": moe_dry["terms"], "dryrun_long": long_dry["terms"],
             "ep_sm_fwd_err": fwd,
             "ep_sm_grad_rel": rel, "train_loss_err": err,
             "arg_bytes_13b": arg, "peak_13b": peak_13b, "wall_s": wall}
@@ -3968,6 +3994,10 @@ def main() -> int:
     moe_json = Path(tmp.name) / "dryrun_moe.json"
     dryrun_moe = start_dryrun(moe_json, DRYRUN_MOE_ARCH, DRYRUN_MOE_SHAPE)
     atexit.register(lambda: dryrun_moe.poll() is None and dryrun_moe.kill())
+    long_json = Path(tmp.name) / "dryrun_long.json"
+    dryrun_long = start_dryrun(long_json, DRYRUN_LONG_ARCH, DRYRUN_LONG_SHAPE)
+    atexit.register(lambda: dryrun_long.poll() is None
+                    and dryrun_long.kill())
     t12 = time.perf_counter()
     phase_lm_smoke(dev)
     phase_lm_full_width(dev, smi)
@@ -3978,7 +4008,8 @@ def main() -> int:
     print(f"[train] phase 13 wall_s={time.perf_counter() - t13:.1f}")
     phase_mesh(dev, smi, dryrun, dry_json,
                max(r["max_memory_allocated"] for r in full["steps"]),
-               (dryrun_gqa, gqa_json), (dryrun_moe, moe_json))
+               (dryrun_gqa, gqa_json), (dryrun_moe, moe_json),
+               (dryrun_long, long_json))
     t15 = time.perf_counter()
     counts.update(phase_dpi_training(dev))
     counts.update(phase_placement(dev, smi))

@@ -276,11 +276,14 @@ def _walk(cfg: ModelConfig, shape: ShapeConfig, mesh, tc_kw):
                     out.append(new_cache)
                     rest.append(tokens)
         leaves = {k: _leaves(v) for k, v in trees.items()}
+        # each leaf's block as it came in (an in-place update may rebind
+        # a DTensor to a block of another split: sharding._take_split)
+        blocks = {id(t): _local(t) for v in leaves.values() for t in v}
         with made:
             cost = count_step(step, watch=[t for v in leaves.values()
                                            for t in v])
     by_tree, memory = step_memory(leaves, donated, out + rest,
-                                  cost.read_of)
+                                  cost.read_of, blocks)
     # XLA's output is a tuple of the reference's leaves (a stacked
     # subtree's leaf one array) with a pointer a leaf
     n_out = sum(len(list(P.tree_items(s))) for s in state_specs) \
@@ -293,14 +296,21 @@ def _walk(cfg: ModelConfig, shape: ShapeConfig, mesh, tc_kw):
 
 
 def step_memory(arguments: Dict[str, List[torch.Tensor]],
-                donated: List[torch.Tensor], outputs,
-                read_of) -> Tuple[Dict[str, int], Dict[str, int]]:
+                donated: List[torch.Tensor], outputs, read_of,
+                blocks: Optional[Dict[int, torch.Tensor]] = None
+                ) -> Tuple[Dict[str, int], Dict[str, int]]:
     """XLA's memory of a step from its walk: the bytes of the argument
     leaves it reads (``read_of``), by tree; the output bytes, of the
     blocks the walk left on each output; the alias bytes, of each read
     donated leaf that an output of its block's shape and dtype can take
-    (each output once)."""
-    by_tree = {k: sum(_nbytes(t) for t in v if read_of(t))
+    (each output once).  ``blocks``: each argument leaf's block from
+    before the step, by ``id`` (default: its block now)."""
+    blocks = blocks or {}
+
+    def came_in(t):
+        return blocks.get(id(t), _local(t))
+
+    by_tree = {k: sum(_nbytes(came_in(t)) for t in v if read_of(came_in(t)))
                for k, v in arguments.items()}
     free: Dict[Tuple, int] = {}
     for t in _leaves(outputs):
@@ -308,10 +318,11 @@ def step_memory(arguments: Dict[str, List[torch.Tensor]],
         free[key] = free.get(key, 0) + 1
     alias = 0
     for t in donated:
-        key = (tuple(_local(t).shape), t.dtype)
-        if read_of(t) and free.get(key):
+        block = came_in(t)
+        key = (tuple(block.shape), t.dtype)
+        if read_of(block) and free.get(key):
             free[key] -= 1
-            alias += _nbytes(t)
+            alias += _nbytes(block)
     return by_tree, {"output_bytes": sum(map(_nbytes, _leaves(outputs))),
                      "alias_bytes": alias}
 

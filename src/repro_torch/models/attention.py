@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch.common.config import ModelConfig
 from repro_torch.models.layers import apply_mrope, apply_rope, rms_norm, softcap
 from repro_torch.models.params import Spec
-from repro_torch.parallel.sharding import constrain, set_slot
+from repro_torch.parallel.sharding import constrain, product_as, set_slot
 
 NEG_INF = -2.3819763e38  # large negative for bf16-safe masking
 
@@ -167,7 +167,8 @@ def _dot_attention(
     # scores: (B, KV, S, G, T); mask: (B,1,1,S,T) -> align as (B,1,S,1,T).
     scores = torch.where(mask.transpose(2, 3), scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bnsgt,btnd->bsngd", probs, v)
+    # the output projection takes the heads as the queries hold them
+    out = product_as(qh, torch.einsum, "bnsgt,btnd->bsngd", probs, v)
     return out.reshape(b, s, h, v.shape[-1])
 
 

@@ -364,10 +364,11 @@ def _expert_shard_map_fn(cfg, row_len: int, ep=(), tp=()):
 def _moe_chunked_shardmap(cfg, p, x, compute_dtype):
     """expert_sharding="ep_sm": the explicit-collective MoE (above), on
     the active mesh (``sharding.ShardMap``).  Routing and dispatch run
-    outside the body on the tokens a rank holds — on a real mesh every
-    rank routes the whole chunk, as the reference's run outside its
-    shard_map; in the dry run a rank routes its block, and the aux loss
-    and the load are averaged over the token shards."""
+    outside the body on the whole chunk, as the reference's run outside
+    its shard_map: on a real mesh every rank routes every token; in the
+    dry run the chunk is a ``DTensor`` whose top-k takes the router's
+    scores whole (``sharding._top_k_whole``), as the reference's
+    partition all-gathers them."""
     sm = ShardMap(x)
     b, s, d = x.shape
     e = cfg.n_experts
@@ -389,18 +390,16 @@ def _moe_chunked_shardmap(cfg, p, x, compute_dtype):
     w3 = sm.block(p["w3"].to(compute_dtype), w13)
     w2 = sm.block(p["w2"].to(compute_dtype),
                   PartitionSpec("data", "model", None))
-    router = {key: sm.held(p[key]) for key in ("w_router", "gate_bias")
-              if key in p}
+    router = {key: p[key] for key in ("w_router", "gate_bias") if key in p}
     body = _expert_shard_map_fn(cfg, row_len, sm.groups(w13, 0),
                                 sm.groups(w13, 2))
 
     def step(c):
         x_c = constrain(xrc[:, c], "batch", None, None)    # (r, L, d)
-        held = sm.held(x_c)
-        buf_tok, buf_w, a, l = _route_rows(cfg, router, held, cap)
-        x_pad = torch.cat([held.to(compute_dtype),
-                           held.new_zeros((held.shape[0], 1, d),
-                                          dtype=compute_dtype)], dim=1)
+        buf_tok, buf_w, a, l = _route_rows(cfg, router, x_c, cap)
+        x_pad = torch.cat([x_c.to(compute_dtype),
+                           x_c.new_zeros((r, 1, d), dtype=compute_dtype)],
+                          dim=1)
         # recompute the expert segment in the backward instead of keeping
         # its all-to-all and dispatch intermediates for every chunk
         y_c = checkpoint(
@@ -412,7 +411,7 @@ def _moe_chunked_shardmap(cfg, p, x, compute_dtype):
 
     ys, aux, load = _chunk_loop(nc, step, x, [xrc])
     y = laid_out_as(ys.reshape(b, s, d), x)
-    return y.to(x.dtype), sm.mean(aux) / nc, sm.mean(load) / nc
+    return y.to(x.dtype), aux / nc, load / nc
 
 
 def _moe_chunked(cfg, p, x, compute_dtype):

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from repro_torch.common.config import ModelConfig
 from repro_torch.models.layers import gelu
 from repro_torch.models.params import Spec
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import constrain, product_as
 
 
 # ---------------------------------------------------------------------------
@@ -392,9 +392,12 @@ def rglru_block(cfg: ModelConfig, p, x: torch.Tensor, cache=None,
     conv_state = cache["conv"] if cache is not None else None
     xc, conv_new = causal_conv1d(p["conv"], xr, conv_state)
 
-    r = torch.sigmoid(torch.matmul(xc, p["w_a"].to(compute_dtype))
+    # the gates multiply into xc, laid out as it is
+    r = torch.sigmoid(product_as(xc, torch.matmul, xc,
+                                 p["w_a"].to(compute_dtype))
                       + p["b_a"].to(compute_dtype)).float()
-    i = torch.sigmoid(torch.matmul(xc, p["w_i"].to(compute_dtype))
+    i = torch.sigmoid(product_as(xc, torch.matmul, xc,
+                                 p["w_i"].to(compute_dtype))
                       + p["b_i"].to(compute_dtype)).float()
     log_a = -RGLRU_C * F.softplus(p["lam"].float()) * r
     a = torch.exp(log_a)

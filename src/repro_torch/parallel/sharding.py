@@ -392,26 +392,30 @@ def set_slot(buf: torch.Tensor, dim: int, index: int,
     ``value`` in place: a decode step's write into its cache.  A
     ``DTensor`` split along ``dim`` is written by the rank whose block
     holds the entry, into that block, as the reference's partitioned
-    dynamic-update-slice does; the other ranks move nothing."""
+    dynamic-update-slice does, the entry first made whole along the
+    buffer's split on every rank."""
     if not is_distributed(buf) or not any(
             p.is_shard(dim) for p in buf.placements):
         buf.narrow(dim, index, 1).copy_(value)
         return
     from torch.distributed.tensor import DTensor, Replicate
     mesh, block = buf.device_mesh, buf.to_local()
+    if not isinstance(value, DTensor):
+        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+    # every rank takes the entry whole over the mesh dims that split the
+    # buffer along ``dim`` (a collective: gemma2-27b's (1, 1, 16, 128)
+    # keys, split over "model" by their heads, all-gathered for the
+    # cache whose sequence "model" splits), the one that holds it writes
+    want = [Replicate() if p.is_shard(dim) else p for p in buf.placements]
+    value = value.redistribute(mesh, want).to_local()
     coord, at = mesh.get_coordinate(), 0
     for m, p in enumerate(buf.placements):
         if p.is_shard(dim):
             at = at * mesh.size(m) + coord[m]
     start = at * block.shape[dim]
-    if not start <= index < start + block.shape[dim]:
-        return
-    if not isinstance(value, DTensor):
-        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim,
-                                   run_check=False)
-    want = [Replicate() if p.is_shard(dim) else p for p in buf.placements]
-    block.narrow(dim, index - start, 1).copy_(
-        value.redistribute(mesh, want).to_local())
+    if start <= index < start + block.shape[dim]:
+        block.narrow(dim, index - start, 1).copy_(value)
 
 
 # the logical axes of a weight's FSDP dimension: split over "data" where
@@ -616,10 +620,9 @@ class ShardMap:
     (``_GatherRows``), each with the backward that leaves every rank the
     whole gradient of every global input.  In the dry run (``DTensor``s
     on ``like``'s mesh, one rank's share of the step) a rank holds its
-    block of each already: it routes its block of the tokens, a placed
-    weight is read at use and redistributed to the in_spec, and a result
-    is the ``DTensor`` its blocks make; a mean over the tokens (the aux
-    loss, the load) is averaged over the token shards."""
+    block of each already: a placed weight is read at use and
+    redistributed to the in_spec, and a result is the ``DTensor`` its
+    blocks make."""
 
     def __init__(self, like: torch.Tensor):
         self.placed = is_distributed(like)
@@ -649,22 +652,14 @@ class ShardMap:
             Partial() if q.is_replicate() and split else q
             for q, split in zip(t.placements, self.split)])
 
-    def held(self, t: torch.Tensor) -> torch.Tensor:
-        """What this rank holds of ``t`` as a plain tensor: the whole (a
-        real mesh), or its block (a ``DTensor``)."""
-        return self._local(t) if is_distributed(t) else t
-
     def block(self, t: torch.Tensor, spec: PartitionSpec,
               partial_over: Tuple[str, ...] = ()) -> torch.Tensor:
         """This rank's block of the argument ``t`` by the in_spec ``spec``;
         ``partial_over``: the axes whose ranks each compute a part of the
-        block's gradient.  A plain tensor made from what the rank holds
-        in the dry run is that block already."""
+        block's gradient."""
         if is_distributed(t):
             return self._local(t, NamedSharding(self.mesh,
                                                 spec).placements())
-        if self.placed:
-            return t
         return _ShardIn.apply(t, NamedSharding(self.mesh, spec),
                               partial_over)
 
@@ -678,17 +673,6 @@ class ShardMap:
         from torch.distributed.tensor import DTensor
         return DTensor.from_local(y, self.mesh, like.placements,
                                   run_check=False)
-
-    def mean(self, t: torch.Tensor) -> torch.Tensor:
-        """A mean over the tokens the rank routed, as the mean over all."""
-        if not self.placed:
-            return t
-        from torch.distributed.tensor import DTensor, Partial, Replicate
-        return DTensor.from_local(
-            t, self.mesh, [Partial("avg") if split else Replicate()
-                           for split in self.split],
-            run_check=False).redistribute(self.mesh,
-                                          [Replicate()] * self.mesh.ndim)
 
 
 def laid_out_as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -1405,10 +1389,7 @@ def _split_off(x, index):
     for m, (qx, qi) in enumerate(zip(x.placements, index.placements)):
         if not (qx.is_shard() and qi.is_shard()):
             continue
-        free = next((f for f in range(mesh.ndim)
-                     if mesh.size(f) == mesh.size(m)
-                     and x.placements[f].is_replicate()
-                     and index.placements[f].is_replicate()), None)
+        free = _free_dim(mesh, m, (x, index))
         if free is None or factored_axes(mesh):
             return x
         moved = list(x.placements)
@@ -1512,6 +1493,245 @@ def partial_scatter_add(func, args):
                                    for q in placements])
 
 
+def _free_dim(mesh, m: int, ts) -> Optional[int]:
+    """A mesh dim other than ``m``, of its size, on which every DTensor of
+    ``ts`` is replicated (the long-context decode's "data", which its
+    batch of one leaves free), or None."""
+    return next((f for f in range(mesh.ndim) if f != m
+                 and mesh.size(f) == mesh.size(m)
+                 and all(t.placements[f].is_replicate() for t in ts)), None)
+
+
+def _einsum_args(func, args):
+    """(subscripts, operands) of ``torch.einsum(eq, *ops)`` or of
+    ``torch.matmul(x, w)`` with a 2-dim ``w`` (as ``"..l,lm->..m"``), or
+    None for anything else."""
+    if func is torch.einsum:
+        ops = list(args[1:])
+        if len(ops) == 1 and isinstance(ops[0], (list, tuple)):
+            ops = list(ops[0])
+        eq = args[0].replace(" ", "") if isinstance(args[0], str) else ""
+        if "->" not in eq or "." in eq:
+            return None
+        return eq, ops
+    if func in _PRODUCTS and len(args) == 2 and args[1].ndim == 2 \
+            and args[0].ndim >= 2:
+        lead = "abcdefghijklmnopqrstuvwx"[:args[0].ndim - 1]
+        return f"{lead}y,yz->{lead}z", list(args)
+    return None
+
+
+def _whole_over_free(eq, ops):
+    """A product whose operands split different letters over one mesh dim
+    (decode attention's scores: the queries' heads and the cache's
+    sequence, both over "model", on gemma2-27b and recurrentgemma-9b
+    long_500k), as GSPMD partitions it: the smaller operand's split
+    moved to a free mesh dim of that size (a collective-permute, the
+    reference's f32[1,1,1,2,128] a layer) and gathered there (an
+    all-gather), so the larger keeps its split.  The operands as they
+    are where there is no such conflict or no free mesh dim."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not ops or not all(isinstance(x, DTensor) for x in ops) \
+            or factored_axes(ops[0].device_mesh):
+        return ops
+    subs = eq.split("->")[0].split(",")
+    mesh = ops[0].device_mesh
+    if len(subs) != len(ops):
+        return ops
+    for m in range(mesh.ndim):
+        split = [i for i, x in enumerate(ops) if x.placements[m].is_shard()]
+        if len({subs[i][ops[i].placements[m].dim] for i in split}) < 2:
+            continue
+        small = min(split, key=lambda i: ops[i].numel())
+        x = ops[small]
+        f = _free_dim(mesh, m, ops)
+        if f is None or sum(q.is_shard() for q in x.placements) != 1:
+            return ops
+        moved = list(x.placements)
+        moved[m], moved[f] = Replicate(), moved[m]
+        ops = list(ops)
+        ops[small] = _move_split(x, (m,), (f,), moved).redistribute(
+            mesh, [Replicate()] * mesh.ndim)
+        return ops
+    return ops
+
+
+def product_as(like: torch.Tensor, func, *args) -> torch.Tensor:
+    """``func(*args)``, a product (``torch.matmul`` or ``torch.einsum``)
+    whose output, of ``like``'s shape, its users take laid out as
+    ``like`` is: RG-LRU's gates ``xc @ w_a``, multiplied into ``xc``;
+    decode attention's value product, whose heads the output projection
+    takes split as the queries' were.  GSPMD gives a product's output
+    the sharding its users want (its sharding propagation runs both
+    ways); the walk meets the users only after the product, so the model
+    names it here.  Under ``gspmd_partitioning``, where the product
+    contracts a dim split over the mesh dim that splits ``like``'s dim
+    of the output (``_wanted_split``), it is partitioned as GSPMD
+    partitions it: where the operands and ``like`` are whole over
+    another mesh dim of that size (the long-context decode's "data"),
+    by ``_split_partial``; else its forward is ``func(*args)`` and its
+    backward gathers the output's gradient (``_GatheredCotangent``).
+    Anywhere else it is ``func(*args)``."""
+    if _GSPMD.active and is_distributed(like):
+        found = _wanted_split(like, func, args)
+        if found is not None:
+            eq, ops, m, letter = found
+            f = _free_dim(like.device_mesh, m, ops + [like])
+            if f is not None:
+                out = _split_partial(eq, ops, m, letter, f)
+                if out is not None:
+                    return out
+            elif torch.is_grad_enabled():
+                prefix = args[:len(args) - len(ops)]
+                return _GatheredCotangent.apply(
+                    lambda *ts: func(*prefix, *ts), eq, m, *ops)
+    return func(*args)
+
+
+def _wanted_split(like, func, args):
+    """(subscripts, operands, m, letter) of ``product_as``'s product where
+    it contracts a letter split over the mesh dim ``m`` (in each operand
+    that has it) and ``like`` splits the output's ``letter`` over ``m``;
+    None elsewhere (a plain operand, a factored mesh)."""
+    from torch.distributed.tensor import DTensor, Shard
+    parsed = _einsum_args(func, args)
+    if parsed is None:
+        return None
+    eq, ops = parsed
+    if not ops or not all(isinstance(x, DTensor) for x in ops) \
+            or factored_axes(like.device_mesh):
+        return None
+    ins, out = eq.split("->")
+    subs = ins.split(",")
+    size = {c: n for sub, x in zip(subs, ops) for c, n in zip(sub, x.shape)}
+    if len(subs) != len(ops) or tuple(size[c] for c in out) \
+            != tuple(like.shape):
+        return None
+    for m, want in enumerate(like.placements):
+        if type(want) is not Shard:
+            continue
+        contracted = {sub[x.placements[m].dim] for sub, x in zip(subs, ops)
+                      if type(x.placements[m]) is Shard}
+        if len(contracted) == 1 and not contracted & set(out) \
+                and all(x.placements[m].is_replicate()
+                        or sub[x.placements[m].dim] in contracted
+                        for sub, x in zip(subs, ops)):
+            return eq, ops, m, out[want.dim]
+    return None
+
+
+def _split_partial(eq, ops, m, letter, f):
+    """``product_as``'s product as GSPMD partitions it where the output's
+    wanted mesh dim ``m`` also splits the contracted dim and the mesh dim
+    ``f`` of ``m``'s size is free: the output's ``letter`` split over
+    ``f`` instead (a slice of the operands that have it: nothing moves),
+    the product run on the blocks, its partial sums over ``m``
+    all-reduced (a block's worth: the reference's f32[1,1,256] gates and
+    f32[1,1,128,1,2] attention outputs), and the split moved from ``f``
+    to ``m`` (a collective-permute).  None where ``f`` does not divide
+    the letter."""
+    from torch.distributed.tensor import Replicate, Shard
+    ins, out = eq.split("->")
+    subs = ins.split(",")
+    mesh = ops[0].device_mesh
+    size = {c: n for sub, x in zip(subs, ops) for c, n in zip(sub, x.shape)}
+    if size[letter] % mesh.size(f):
+        return None
+    ops = [x.redistribute(mesh, [
+        Shard(sub.index(letter)) if k == f else q
+        for k, q in enumerate(x.placements)]) if letter in sub else x
+        for sub, x in zip(subs, ops)]
+    placements = _einsum_placements(subs, out, ops, mesh)
+    if placements is None or not placements[m].is_partial():
+        return None
+    y = _BlockEinsum.apply(eq, placements, *ops)
+    y = y.redistribute(mesh, [Replicate() if q.is_partial() else q
+                              for q in y.placements])
+    moved = list(y.placements)
+    moved[m], moved[f] = moved[f], Replicate()
+    return _move_split(y, (f,), (m,), moved)
+
+
+class _GatheredCotangent(torch.autograd.Function):
+    """``product_as``'s product where no mesh dim is free (the training
+    step's batch takes "data"): the forward is the product as it is (its
+    partial sums over ``m`` all-reduced), and the backward takes the
+    output's gradient, split over ``m`` as its users left it, whole over
+    ``m`` for each operand's product on its own (an all-gather each, as
+    GSPMD partitions each transposed product: the reference's two
+    f32[16,4096,4096] all-gathers of each RG-LRU gate's gradient), so
+    that neither product reduces an activation."""
+
+    @staticmethod
+    def forward(ctx, run, eq, m, *ops):
+        ctx.eq, ctx.m = eq, m
+        ctx.save_for_backward(*ops)
+        return run(*ops)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        ops = ctx.saved_tensors
+        ins, out = ctx.eq.split("->")
+        subs = ins.split(",")
+        grads = []
+        for i, sub in enumerate(subs):
+            if not ctx.needs_input_grad[3 + i]:
+                grads.append(None)
+                continue
+            whole = g.redistribute(g.device_mesh, [
+                Replicate() if k == ctx.m else q
+                for k, q in enumerate(g.placements)])
+            rest = [j for j in range(len(ops)) if j != i]
+            eq = ",".join([out] + [subs[j] for j in rest]) + "->" + sub
+            grads.append(torch.einsum(eq, whole, *[ops[j] for j in rest]))
+        return (None, None, None, *grads)
+
+
+def _take_split(func, args) -> None:
+    """An in-place op outside autograd (the optimizer's update) on a
+    DTensor replicated over a mesh dim on which an operand of its shape
+    is split, as XLA runs the reference's functional update: its result
+    takes the operand's split (RG-LRU's ``b_a``, ``b_i`` and ``lam``,
+    whose gradients the gates' split leaves split over "model", and
+    their moments leave the step split, each a (256,) block where the
+    parameter came in whole).  The DTensor is rebound to that block of
+    itself (a slice: nothing moves) before the op runs on it; the dry
+    run reads each leaf's argument block from before the step
+    (``launch.dryrun.step_memory``)."""
+    from torch.distributed.tensor import DTensor, Shard
+    name = getattr(func, "__name__", "")
+    if not name.endswith("_") or name.startswith("_") \
+            or torch.is_grad_enabled() or not args \
+            or not isinstance(args[0], DTensor) \
+            or factored_axes(args[0].device_mesh):
+        return
+    x = args[0]
+    want = list(x.placements)
+    for o in args[1:]:
+        if isinstance(o, DTensor) and o.shape == x.shape:
+            for m, (qx, qo) in enumerate(zip(x.placements, o.placements)):
+                if qx.is_replicate() and type(qo) is Shard:
+                    want[m] = qo
+    if want == list(x.placements):
+        return
+    moved = x.redistribute(x.device_mesh, want)     # a slice
+    base = x._base
+    if isinstance(base, DTensor) and tuple(base.shape[1:]) == x.shape:
+        # a layer of a stacked leaf (an optimizer moment): the stack
+        # takes the split, and the layer is its block of the stack's
+        old = base._local_tensor
+        at = (x._local_tensor.storage_offset() - old.storage_offset()) \
+            // max(old.stride(0), 1)
+        stack = base.redistribute(base.device_mesh, [
+            Shard(w.dim + 1) if w != q else b
+            for w, q, b in zip(want, x.placements, base.placements)])
+        base._local_tensor, base._spec = stack._local_tensor, stack._spec
+        x._local_tensor, x._spec = stack._local_tensor[at], moved._spec
+        return
+    x._local_tensor, x._spec = moved._local_tensor, moved._spec
+
+
 class _Gspmd(threading.local):
     active = False
 
@@ -1568,6 +1788,7 @@ class _GspmdOps(TorchFunctionMode):
             # rematerialized blocks, whose weights it gathers too
             with _GspmdOps():
                 return _run_backward(*args, **kwargs)
+        _take_split(func, args)
         out = _split_reduction(func, args, kwargs)
         if out is None:
             out = _top_k_whole(func, args, kwargs)
@@ -1591,6 +1812,10 @@ class _GspmdOps(TorchFunctionMode):
                                     (args, kwargs))
         if func is torch.einsum:
             args = _einsum_operands(args)
+            parsed = _einsum_args(func, args)
+            ops = _whole_over_free(*parsed) if parsed else None
+            if parsed and ops is not parsed[1]:
+                args = (parsed[0], *ops)
             out = _einsum_on_blocks(args)
             if out is not None:
                 return out
@@ -1807,14 +2032,13 @@ def _einsum_on_blocks(args):
     einsum, and where each operand's letters do not all appear in the
     output or another operand (its backward would broadcast)."""
     from torch.distributed.tensor import DTensor
-    eq, ops = args[0], list(args[1:])
-    if len(ops) == 1 and isinstance(ops[0], (list, tuple)):
-        ops = list(ops[0])
-    if not isinstance(eq, str) or "->" not in eq or "." in eq or not ops \
-            or not all(isinstance(x, DTensor) for x in ops) \
+    parsed = _einsum_args(torch.einsum, args)
+    if parsed is None:
+        return None
+    eq, ops = parsed
+    if not ops or not all(isinstance(x, DTensor) for x in ops) \
             or not factored_axes(ops[0].device_mesh):
         return None
-    eq = eq.replace(" ", "")
     ins, out = eq.split("->")
     subs = ins.split(",")
     if len(subs) != len(ops) or any(
@@ -1989,14 +2213,15 @@ def gspmd_partitioning():
     costs: dict = {}
 
     def gspmd_cost(current, target):
-        # on a mesh with a factored axis, a strided split (DTensor's own
-        # view rule gives one where a flattened dim's minor part is
-        # split) is priced as the plain split: DTensor's exact planner
-        # for it searches every placement state of the mesh, seconds a
-        # price on a 3-dim mesh, for each strategy it weighs; and each
-        # price is kept (the layers of a model ask the same ones)
-        if not factored_axes(current.mesh):
-            return cost(current, target)
+        # a strided split (DTensor's own view rule gives one where a
+        # flattened dim's minor part is split) is priced as the plain
+        # split: DTensor's exact planner for it searches every placement
+        # state of the mesh, seconds a price on a 3-dim mesh, and sizes
+        # each state's blocks by chunking an index of the whole dim
+        # (most of recurrentgemma-9b x train_4k's walk, its attention's
+        # (256, 65536, 256) heads x sequence), for each strategy it
+        # weighs; and each price is kept (the layers of a model ask the
+        # same ones)
         key = (current, target)
         if key not in costs:
             costs[key] = cost(_unstrided(current), _unstrided(target))

@@ -74,15 +74,21 @@ print("RESULT " + json.dumps({
 def test_dry_run_world_and_production_meshes():
     """The ``fake`` backend (a private module of torch, pinned here): a
     512-rank world in one process, and both production meshes over it.
-    The ep_sm MoE's own collectives (deepseek-v3 smoke with 16 experts,
-    so that they divide over "data"), walked as one rank's share, are
-    counted once: each MoE layer's tiled all-to-all of its dispatched
-    rows and its inverse, the rank's 16 rows of 4096 tokens (its 2 of
-    prefill_32k's 32 sequences) in (16 x 16, 1, C=640, 64) bf16, and
-    the body's one all-reduce over "model" of its (16, 4096, 64) output
-    (``_SumReplicas``); beside them the all-reduces DTensor issues: the
-    FFNs' d_ff and the table's vocab split over "model", the router's
-    load counted over the whole batch."""
+    The ep_sm MoE's collectives (deepseek-v3 smoke with 16 experts, so
+    that they divide over "data"), walked as one rank's share, as the
+    reference's partition issues them (its HLO, Auto axes): each chunk
+    routed whole outside the body, its router's f32 scores (16 rows of
+    4096 tokens, 16 experts) all-gathered over "data" for the top-k
+    (33,554,432 elements over 2 MoE layers x 16 chunks); each MoE
+    layer's tiled all-to-all of its dispatched rows and its inverse, the
+    rank's 16 rows of 4096 tokens (its 2 of prefill_32k's 32 sequences)
+    in (16 x 16, 1, C=640, 64) bf16, and the body's one all-reduce over
+    "model" of its (16, 4096, 64) output (``_SumReplicas``); beside them
+    the all-reduces DTensor issues: the FFNs' d_ff and the table's vocab
+    split over "model", and each chunk's expert counts summed over the
+    rank's tokens (``sharding.partial_scatter_add``, 16 int64 a chunk:
+    the reference's prefill drops its unused load, so its HLO has no
+    such all-reduce; the walk runs every op)."""
     r = _result(_start(_WORLD), timeout=200)
     assert r["backend"] == "fake" and r["world"] == 512
     assert r["single"] == [[16, 16], ["data", "model"], 256, [0, 0]]
@@ -90,14 +96,18 @@ def test_dry_run_world_and_production_meshes():
     assert r["data_group"] == 16
     cell = r["ep_sm"]
     assert cell["status"] == "ok", cell
-    moe, tokens = 2, 2 * 32768 * 64       # MoE layers; the rank's tokens
+    moe, chunks, tokens = 2, 16, 2 * 32768 * 64  # MoE layers; the rank's
+    ag = moe * chunks * (16 * 4096 * 16) * 4      # the scores, f32
     a2a = moe * 2 * (16 * 16 * 640 * 64) * 2      # (fwd, inverse), bf16
     ar = (moe * 16 * 4096 * 64 * 2    # the body's sum over "model", bf16
           + 3 * tokens * 2            # dense FFN + 2 shared: d_ff split
           + tokens * 4                # embedding rows: vocab split, f32
-          + moe * (16 + 1) * 4)       # the router's expert load, total
-    assert cell["coll_breakdown"] == {"all-to-all(g=16)": a2a,
+          + moe * chunks * 16 * 8)    # each chunk's expert counts, int64
+    assert cell["coll_breakdown"] == {"all-gather(g=16)": ag,
+                                      "all-to-all(g=16)": a2a,
                                       "all-reduce(g=16)": ar}
+    assert cell["coll_elements"]["all-gather(g=16)"] == 33_554_432
+    assert cell["coll_elements"]["all-to-all(g=16)"] == 41_943_040
     assert cell["coll_traffic_per_device"] == sum(
         ca._collective_traffic(k.split("(")[0], v, int(k[k.index("=") + 1:-1]))
         for k, v in cell["coll_breakdown"].items())
