@@ -152,7 +152,10 @@ elastic checkpoint restore.
               both over "model") held to their reference partitions
               (DRYRUN_GQA_REF, DRYRUN_MOE_REF, DRYRUN_LONG_REF: memory
               exact, every kind's elements within 1 %, dot FLOPs within
-              10 %, 1 % and 1 %, no op replicated); (b) a one-rank
+              10 %, 1 % and 1 %, no op replicated), and so xlstm-125m x
+              train_4k, gemma2-27b x train_4k and deepseek-v3-671b x
+              prefill_32k (DRYRUN_XLSTM_REF, DRYRUN_GEMMA_REF,
+              DRYRUN_MLA_REF: dot FLOPs within 1 %); (b) a one-rank
               NCCL world (``make_host_mesh()``): the shard_map MoE
               (``expert_sharding="ep_sm"``, deepseek-v3 smoke, float32,
               4 x 4096 tokens) forward and gradients against the card's
@@ -3078,6 +3081,47 @@ DRYRUN_LONG_REF = {"argument_bytes": 13_035_267_080,
                    "coll_elements": {"all-reduce(g=16)": 443_264,
                                      "all-gather(g=16)": 376_864,
                                      "collective-permute(g=256)": 23_552}}
+# ... and of three cells torch 2.11 (the card's) walked apart from torch
+# 2.13 before the port partitioned them itself (tests/_dryrun_ref.py on
+# the CPU), each held as DRYRUN_MOE_REF is: xlstm-125m x train_4k (the
+# xLSTM blocks' split residual, chunks kept split by permutes, q/k/v
+# reduced by the heads' cut, the sLSTM's split state), gemma2-27b x
+# train_4k (attention's batched einsums over a batch split over "data"
+# and heads over "model", which DTensor 2.11's flattening view
+# refuses) and deepseek-v3-671b x prefill_32k (MLA's einsums likewise,
+# and the cache's pad, which DTensor 2.11 fails to redistribute)
+DRYRUN_XLSTM_ARCH, DRYRUN_XLSTM_SHAPE = "xlstm-125m", "train_4k"
+DRYRUN_XLSTM_REF = {"argument_bytes": 79_590_088,
+                    "alias_bytes": 36_091_588,
+                    "output_bytes": 38_777_640,
+                    "dot_flops": 4_664_837_799_936,
+                    "coll_traffic": 84_079_599_654,
+                    "coll_elements": {"all-gather(g=16)": 4_742_197_248,
+                                      "collective-permute(g=256)":
+                                      1_466_211_072,
+                                      "all-reduce(g=16)": 3_989_478_744,
+                                      "all-reduce(g=4)": 3_509_061_123,
+                                      "all-gather(g=4)": 2_648_702_976,
+                                      "all-to-all(g=16)": 402_653_184}}
+DRYRUN_GEMMA_ARCH, DRYRUN_GEMMA_SHAPE = "gemma2-27b", "train_4k"
+DRYRUN_GEMMA_REF = {"argument_bytes": 1_286_985_736,
+                    "alias_bytes": 1_286_461_444,
+                    "output_bytes": 1_286_462_088,
+                    "dot_flops": 933_064_465_186_816,
+                    "coll_traffic": 970_286_551_024,
+                    "coll_elements": {"collective-permute(g=256)": 65_536,
+                                      "all-gather(g=16)": 3_330_605_056,
+                                      "all-reduce(g=16)": 127_404_212_768,
+                                      "all-to-all(g=16)": 603_979_776}}
+DRYRUN_MLA_ARCH, DRYRUN_MLA_SHAPE = "deepseek-v3-671b", "prefill_32k"
+DRYRUN_MLA_REF = {"argument_bytes": 9_065_799_680,
+                  "alias_bytes": 0,
+                  "output_bytes": 4_605_378_184,
+                  "dot_flops": 1_131_543_725_539_328,
+                  "coll_traffic": 4_578_670_018_560,
+                  "coll_elements": {"all-reduce(g=16)": 330_242_719_744,
+                                    "all-gather(g=16)": 15_569_256_448,
+                                    "all-to-all(g=16)": 544_923_975_680}}
 MESH_ATOL = 1e-5        # ep_sm vs no mesh: forward (abs), grads (rel)
 MESH_TRAIN_ATOL = 1e-5  # launch.train's losses, mesh vs no mesh
 
@@ -3198,7 +3242,7 @@ def check_dryrun_exact(proc: subprocess.Popen, path: Path, ref: dict,
 
 def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
                peak_13b: int, gqa: tuple, moe_cell: tuple,
-               long_cell: tuple) -> dict:
+               long_cell: tuple, more: tuple = ()) -> dict:
     """Phase 14: the mesh layer; (a) the dry run started by
     ``start_dryrun``, (b) a one-rank NCCL mesh on the card, (c) the dry
     run's argument bytes against phase 13b's peak memory."""
@@ -3266,6 +3310,8 @@ def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
         f"{DRYRUN_LONG_SHAPE} on the 16x16 mesh, the queries' heads and "
         "the cache's sequence both over \"model\"")
     assert long_dry["coll_elements"]["collective-permute(g=256)"] > 0
+    for proc, path, ref, label in more:
+        check_dryrun_exact(proc, path, ref, label)
 
     # (b) a one-rank NCCL world on the card
     mesh = make_host_mesh()
@@ -3998,6 +4044,19 @@ def main() -> int:
     dryrun_long = start_dryrun(long_json, DRYRUN_LONG_ARCH, DRYRUN_LONG_SHAPE)
     atexit.register(lambda: dryrun_long.poll() is None
                     and dryrun_long.kill())
+    more = []
+    for name, arch, shape, ref, label in (
+            ("xlstm", DRYRUN_XLSTM_ARCH, DRYRUN_XLSTM_SHAPE,
+             DRYRUN_XLSTM_REF, "the xLSTM blocks' partition"),
+            ("gemma", DRYRUN_GEMMA_ARCH, DRYRUN_GEMMA_SHAPE,
+             DRYRUN_GEMMA_REF, "attention's einsums on their blocks"),
+            ("mla", DRYRUN_MLA_ARCH, DRYRUN_MLA_SHAPE, DRYRUN_MLA_REF,
+             "MLA's einsums on their blocks, the cache's pad")):
+        path = Path(tmp.name) / f"dryrun_{name}.json"
+        proc = start_dryrun(path, arch, shape)
+        atexit.register(lambda p=proc: p.poll() is None and p.kill())
+        more.append((proc, path, ref,
+                     f"{arch} x {shape} on the 16x16 mesh, {label}"))
     t12 = time.perf_counter()
     phase_lm_smoke(dev)
     phase_lm_full_width(dev, smi)
@@ -4009,7 +4068,7 @@ def main() -> int:
     phase_mesh(dev, smi, dryrun, dry_json,
                max(r["max_memory_allocated"] for r in full["steps"]),
                (dryrun_gqa, gqa_json), (dryrun_moe, moe_json),
-               (dryrun_long, long_json))
+               (dryrun_long, long_json), tuple(more))
     t15 = time.perf_counter()
     counts.update(phase_dpi_training(dev))
     counts.update(phase_placement(dev, smi))

@@ -357,8 +357,16 @@ class CostMode(TorchDispatchMode):
     def _dtensor_op_on(self, func, args, kwargs):
         with _reentered(self):
             out = sh.weight_grad_slab(func, args)
+            if out is None and func.__name__ in sh.OWN_RULES:
+                out = sh.gspmd_fallback(func, args, kwargs)
             if out is None:
                 out = sh.split_view(func, args)
+            if out is None:
+                out = sh.split_kept(func, args)
+            if out is None:
+                out = sh.cat_kept(func, args)
+            if out is None:
+                out = sh.slice_backward_kept(func, args)
             if out is None:
                 out = sh.local_pointwise(func, args, kwargs)
             if out is None:
@@ -714,6 +722,15 @@ def count_as(n: int, fn: Callable, inputs: Sequence[torch.Tensor],
         node.register_prehook(lambda *_: _push_weight(n))
         node.register_hook(lambda *_: _pop_weight())
     return out
+
+
+def cut(axis_cut: tuple) -> None:
+    """Ask the dry run to walk the step again on the mesh with the axis
+    of ``axis_cut`` (``(mesh axis, factors)``) cut into those factors
+    (``Cost.axis_cut``), unless an earlier op asked first."""
+    for m in _MODES:
+        if m.cost.axis_cut is None:
+            m.cost.axis_cut = axis_cut
 
 
 def watch(ts: Sequence[torch.Tensor]) -> None:

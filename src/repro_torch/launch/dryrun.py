@@ -146,9 +146,12 @@ def _split_override(cfg: ModelConfig, opt_override):
 
 
 def _leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a nested dict / list / tuple, in order."""
+    """The tensors of a nested dict / list / tuple (a ``ParamTree``: its
+    parameters), in order."""
     if isinstance(tree, torch.Tensor):
         return [tree]
+    if isinstance(tree, P.ParamTree):
+        return list(tree.parameters())
     if isinstance(tree, dict):
         tree = list(tree.values())
     if isinstance(tree, (list, tuple)):
@@ -243,12 +246,12 @@ def _walk(cfg: ModelConfig, shape: ShapeConfig, mesh, tc_kw):
             state = sh.place_meta(P.shapes(ospec, "float32"), ospec,
                                   mesh, rules, ctx)
             trees = {"params": params, "inputs": inputs, "opt_state": state}
-            donated = params + _leaves(state)
+            donated = _buffers(model) + _buffers(state)
             state_specs = [model.param_spec(), ospec]
 
             def step():
                 new_state, metrics = step_fn(state, inputs, scalar)
-                out.extend([new_state, params])
+                out.extend([new_state, model])
                 rest.append(metrics)
         else:
             enc = _enc_len(cfg, shape)
@@ -257,7 +260,7 @@ def _walk(cfg: ModelConfig, shape: ShapeConfig, mesh, tc_kw):
                 model.cache_spec(shape.global_batch, shape.seq_len, enc),
                 mesh, rules, ctx)
             trees = {"params": params, "inputs": inputs, "cache": cache}
-            donated = _leaves(cache)
+            donated = _buffers(cache)
             state_specs = [model.cache_spec(shape.global_batch,
                                             shape.seq_len, enc)]
             if shape.kind == "prefill":
@@ -295,34 +298,65 @@ def _walk(cfg: ModelConfig, shape: ShapeConfig, mesh, tc_kw):
     return by_tree, cost, memory
 
 
+def _buffers(tree) -> List[List[torch.Tensor]]:
+    """The reference's buffers of a tree of the step's tensors: a leaf
+    each, but the layers of a stacked subtree — a ``ParamTree``'s
+    ``ModuleList`` (``models.params.leaf_groups``), a cache's list of
+    layers — one buffer a leaf path, its layers' tensors together (the
+    reference's ``(layers, ...)`` leaf)."""
+    if isinstance(tree, P.ParamTree):
+        return [v if isinstance(v, list) else [v]
+                for v in P.leaf_groups(tree).values()]
+    if isinstance(tree, torch.Tensor):
+        return [[tree]]
+    if isinstance(tree, dict):
+        return [b for v in tree.values() for b in _buffers(v)]
+    if isinstance(tree, (list, tuple)):
+        if tree and all(isinstance(x, dict) for x in tree):
+            layers = [_buffers(x) for x in tree]
+            if all(len(x) == len(layers[0]) for x in layers):
+                return [[t for x in layers for t in x[i]]
+                        for i in range(len(layers[0]))]
+        return [b for v in tree for b in _buffers(v)]
+    return []
+
+
 def step_memory(arguments: Dict[str, List[torch.Tensor]],
-                donated: List[torch.Tensor], outputs, read_of,
+                donated, outputs, read_of,
                 blocks: Optional[Dict[int, torch.Tensor]] = None
                 ) -> Tuple[Dict[str, int], Dict[str, int]]:
     """XLA's memory of a step from its walk: the bytes of the argument
     leaves it reads (``read_of``), by tree; the output bytes, of the
     blocks the walk left on each output; the alias bytes, of each read
-    donated leaf that an output of its block's shape and dtype can take
-    (each output once).  ``blocks``: each argument leaf's block from
-    before the step, by ``id`` (default: its block now)."""
+    donated buffer (a tensor, or a stacked leaf's layers: ``_buffers``)
+    that an output buffer of its bytes and dtype can take, each output
+    once — XLA aliases a donated buffer to an output of its size
+    whatever its shape (xlstm-125m train_4k: the f32[6,8] ``b_if`` and
+    its moments, which leave split, to f32[48] outputs).  ``blocks``:
+    each argument leaf's block from before the step, by ``id``
+    (default: its block now)."""
     blocks = blocks or {}
 
     def came_in(t):
         return blocks.get(id(t), _local(t))
 
+    def size(ts):
+        return sum(_nbytes(t) for t in ts)
+
     by_tree = {k: sum(_nbytes(came_in(t)) for t in v if read_of(came_in(t)))
                for k, v in arguments.items()}
     free: Dict[Tuple, int] = {}
-    for t in _leaves(outputs):
-        key = (tuple(_local(t).shape), t.dtype)
+    for b in _buffers(outputs):
+        key = (size(b), b[0].dtype)
         free[key] = free.get(key, 0) + 1
     alias = 0
-    for t in donated:
-        block = came_in(t)
-        key = (tuple(block.shape), t.dtype)
-        if read_of(block) and free.get(key):
+    for b in donated:
+        b = b if isinstance(b, list) else [b]
+        ins = [came_in(t) for t in b]
+        key = (size(ins), b[0].dtype)
+        if any(read_of(t) for t in ins) and free.get(key):
             free[key] -= 1
-            alias += _nbytes(block)
+            alias += size(ins)
     return by_tree, {"output_bytes": sum(map(_nbytes, _leaves(outputs))),
                      "alias_bytes": alias}
 

@@ -28,6 +28,7 @@ import torch
 from repro_torch.common.config import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import params as P
+from repro_torch.models import ssm
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import embed, embedding_spec, softcap, unembed
 from repro_torch.models.params import Spec, lm_params_from_numpy  # noqa: F401
@@ -147,8 +148,9 @@ class Model(P.ParamTree):
 
     def _embed_inputs(self, batch, compute_dtype):
         cfg = self.cfg
-        x = self._scale_embed(embed(self["embed"], batch["tokens"],
-                                    compute_dtype))
+        with ssm.embedding_layout(cfg):
+            x = self._scale_embed(embed(self["embed"], batch["tokens"],
+                                        compute_dtype))
         if cfg.vision_stub and "vision_embed" in batch:
             v = torch.matmul(batch["vision_embed"].to(compute_dtype),
                              self["vision_proj"]["w"].to(compute_dtype))

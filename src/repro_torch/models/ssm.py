@@ -13,6 +13,7 @@ RG-LRU  — real-gated linear recurrent unit; a log-depth parallel scan
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -22,7 +23,10 @@ import torch.nn.functional as F
 from repro_torch.common.config import ModelConfig
 from repro_torch.models.layers import gelu
 from repro_torch.models.params import Spec
-from repro_torch.parallel.sharding import constrain, product_as
+from repro_torch.parallel.sharding import (carried_grads, constrain,
+                                           is_distributed, laid_out_as,
+                                           lookup_by_table, product_as,
+                                           reduced_by_heads, replicated_on)
 
 
 # ---------------------------------------------------------------------------
@@ -51,6 +55,31 @@ def causal_conv1d(params, x: torch.Tensor,
     y = y + params["b"].to(x.dtype)
     new_state = xin[:, -(w - 1):, :] if state is not None else None
     return y, new_state
+
+
+def carried(x: torch.Tensor, like: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
+    """The residual of an xLSTM stack, or an sLSTM scan's state, as the
+    reference's partition carries it from layer to layer or step to
+    step: its last dim (d_model) split over the axis that splits the
+    sLSTM conv's channels and each gate's block (a slice).  A plain
+    tensor as it is, but one that joins a placed ``like`` (the scan's
+    zero state beside the placed step's inputs), placed first."""
+    if like is not None and is_distributed(like) and not is_distributed(x):
+        x = replicated_on(x, like.device_mesh)
+    if is_distributed(x):
+        x = constrain(x, "batch", *([None] * (x.ndim - 2)), "embed_tp")
+    return x
+
+
+def embedding_layout(cfg: ModelConfig):
+    """The context an xLSTM stack's embedding lookup runs in: the table
+    taken to the tokens (``sharding.lookup_by_table``), so that the
+    lookup leaves the residual split as ``carried`` carries it.  A
+    no-op context for any other stack, and outside the dry run."""
+    if any(k in ("mlstm", "slstm") for k in cfg.pattern):
+        return lookup_by_table()
+    return contextlib.nullcontext()
 
 
 # ===========================================================================
@@ -92,6 +121,16 @@ def _mlstm_chunkwise(q, k, v, ig, fg, chunk: int, state=None):
         # with C0 = n0 = 0 the initial stabilizer value is irrelevant;
         # 0 avoids extreme exponents
         m = torch.zeros((b, h), dtype=torch.float32, device=dev)
+        if is_distributed(q):
+            # the scan's carry laid out as its step leaves it (the
+            # reference's C: the heads and the value dim split)
+            C = laid_out_as(C, "bhsd,bhse->bhde", k, v)
+            n = laid_out_as(n, "bhsd->bhd", k)
+            m = laid_out_as(m, "bhs->bh", ig)
+            if torch.is_grad_enabled():
+                # the chunk's state comes from the chunk before: its
+                # gradient flows on (the reference's scan computes it)
+                C, n, m = (t.requires_grad_() for t in (C, n, m))
     else:
         C, n, m = [x.float() for x in state]
 
@@ -138,6 +177,7 @@ def _mlstm_chunkwise(q, k, v, ig, fg, chunk: int, state=None):
         nch = s // chunk
         out, C, n, m = count_as(nch, lambda: step(0, C, n, m),
                                 [q, k, v, ig, fg, C, n, m])
+        out = carried_grads(out, C, n, m)
         out = out[:, :, None].expand(b, h, nch, chunk, dh).reshape(
             b, h, s, dh)
         return out.to(v.dtype), (C, n, m)
@@ -192,10 +232,16 @@ def mlstm_block(cfg: ModelConfig, p, x: torch.Tensor, cache=None,
     conv_state = cache["conv"] if cache is not None else None
     xc, conv_new = causal_conv1d(p["conv"], xm, conv_state)
     xc = F.silu(xc)
-    q = torch.matmul(xc, p["wq"].to(compute_dtype))
-    k = torch.matmul(xc, p["wk"].to(compute_dtype))
-    v = torch.matmul(xm, p["wv"].to(compute_dtype))
-    gates = (torch.matmul(xc, p["w_if"].to(compute_dtype))
+    # the recurrence takes q, k and the gates by head, v by head and
+    # value dim (the dry run reduces their partial sums so)
+    q = reduced_by_heads(torch.matmul, xc, p["wq"].to(compute_dtype),
+                         heads=nh, whole=True)
+    k = reduced_by_heads(torch.matmul, xc, p["wk"].to(compute_dtype),
+                         heads=nh, whole=True)
+    v = reduced_by_heads(torch.matmul, xm, p["wv"].to(compute_dtype),
+                         heads=nh, whole=False)
+    gates = (reduced_by_heads(torch.matmul, xc, p["w_if"].to(compute_dtype),
+                              heads=nh, whole=True)
              + p["b_if"].to(compute_dtype))
     ig, fg = gates[..., :nh], gates[..., nh:]
 
@@ -269,8 +315,10 @@ def _slstm_cell(p, xg, state, nh):
     b, d4 = xg.shape
     d = d4 // 4
     dh = d // nh
-    rec = torch.einsum("bhd,hde->bhe", h.reshape(b, nh, dh).float(),
-                       p["r"].float()).reshape(b, 4 * d)
+    # laid out as each head's block of the gate pre-activations
+    rec = product_as(xg.reshape(b, nh, 4 * dh), torch.einsum,
+                     "bhd,hde->bhe", h.reshape(b, nh, dh).float(),
+                     p["r"].float()).reshape(b, 4 * d)
     # both xg and rec are laid out [z | i | f | o] per head groups flattened
     pre = xg.float() + rec
     zp, ip, fp, op = torch.chunk(pre, 4, dim=-1)
@@ -310,9 +358,15 @@ def slstm_block(cfg: ModelConfig, p, x: torch.Tensor, cache=None,
         # shapes only (the dry run): the steps are alike, so one is run
         # and counted as the s it stands for
         from repro_torch.launch.cost_analysis import count_as
+        state = tuple(carried(t, like=xg) for t in state)
+        if torch.is_grad_enabled() and is_distributed(xg):
+            # the step's state comes from the step before: its gradient
+            # flows on (the reference's scan computes it each step)
+            state = tuple(t.detach().requires_grad_() for t in state)
         state = count_as(s, lambda: _slstm_cell(p, xg[:, 0], state, nh),
                          [xg, *state])
-        hs = state[3].to(compute_dtype)[:, None].expand(b, s, d)
+        hs = carried_grads(state[3], *state[:3])
+        hs = hs.to(compute_dtype)[:, None].expand(b, s, d)
     else:
         hs = []
         for t in range(s):

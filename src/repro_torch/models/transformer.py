@@ -136,6 +136,8 @@ def apply_block(
     new_cache: Dict[str, Any] = {}
     self_cache = cache.get("self") if cache else None
 
+    if kind in ("mlstm", "slstm"):
+        x = ssm.carried(x)
     h = _norm(cfg, p["ln1"], x)
     if kind in ("global", "local", "enc"):
         y, c = attn.self_attention(

@@ -365,6 +365,14 @@ def named_sharding(
     return NamedSharding(mesh, resolve_spec(dims, names, mesh, rules, context))
 
 
+def replicated_on(x: torch.Tensor, mesh):
+    """A plain tensor as the ``DTensor`` replicated on ``mesh`` it is
+    (every rank holds it whole)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
 def is_distributed(x) -> bool:
     """Whether ``x`` is a ``DTensor`` (the dry run's placed step)."""
     from torch.distributed.tensor import DTensor
@@ -383,7 +391,31 @@ def constrain(x: torch.Tensor, *names: Optional[str]) -> torch.Tensor:
             want = NamedSharding(x.device_mesh, spec).placements()
             if list(x.placements) != want:
                 x = x.redistribute(x.device_mesh, want)
+            elif _GSPMD.active and x.requires_grad:
+                # the constraint holds for the cotangent too (GSPMD's
+                # transpose of a sharding constraint is one)
+                x = _ConstrainedGrad.apply(x)
     return x
+
+
+class _ConstrainedGrad(torch.autograd.Function):
+    """``x`` as it is, its gradient redistributed to ``x``'s placements:
+    the reference's sharding constraint on an output already laid out
+    as it asks (an xLSTM block's output, whole over "model"), whose
+    cotangent — split over "model" as the residual it came from — GSPMD
+    gathers there (its f32[16,4096,768] all-gather "sharding_constraint"
+    of xlstm-125m train_4k's backward)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = list(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_distributed(g) and list(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g
 
 
 def set_slot(buf: torch.Tensor, dim: int, index: int,
@@ -697,17 +729,25 @@ def reduced_product(func, out):
     """A product's (``mm``, ``bmm``) partial sums all-reduced where it
     makes them, under ``gspmd_partitioning``, and so a broadcast's
     gradient (its sum over the broadcast dims: MLA's key-rope gradient
-    summed over the heads, into the latent's): GSPMD reduces a partial
-    sum before another op consumes it, where DTensor would carry it on
-    through linear ops (a norm's backward, the latent's product) and
-    reduce it at each later consumer."""
+    summed over the heads, into the latent's) and a norm's (the
+    gradient of its (..., 1) scale, summed over xlstm-125m's d_model
+    split over "model"): GSPMD reduces a partial sum before another op
+    consumes it, where DTensor would carry it on through linear ops (a
+    norm's backward, the latent's product) and reduce it at each later
+    consumer."""
     from torch.distributed.tensor import DTensor, Replicate
     name = func.__name__.split(".")[0]
     if name == "sum":
         node = torch._C._current_autograd_node()
-        if type(node).__name__ != "ExpandBackward0":
+        kind = type(node).__name__
+        # a broadcast's gradient; or a product's with an operand that a
+        # feature dim broadcasts (a norm's (..., 1) scale), summed over
+        # that dim
+        if not (kind == "ExpandBackward0" or kind == "MulBackward0"
+                and out.ndim > 1 and out.shape[-1] == 1):
             return out
-    if not _GSPMD.active or name not in ("mm", "bmm", "sum") \
+    if not _GSPMD.active or _GSPMD.keep_partial \
+            or name not in ("mm", "bmm", "sum") \
             or not isinstance(out, DTensor) \
             or not any(q.is_partial() for q in out.placements):
         return out
@@ -986,6 +1026,236 @@ def split_view(func, args):
                               stride=stride)
 
 
+def _split_parts(func, args, shape):
+    """The (offset, length) of each part that ``split`` (``torch.chunk``'s)
+    or a unit-step ``slice`` takes along its dim, and that dim; None for
+    any other op."""
+    aten = torch.ops.aten
+    n = len(shape)
+    if func is aten.split.Tensor:
+        dim = (args[2] if len(args) > 2 else 0) % n
+        size = args[1]
+        return dim, [(o, min(size, shape[dim] - o))
+                     for o in range(0, shape[dim], size)]
+    if func is aten.slice.Tensor:
+        dim, start, end, step = (list(args[1:]) + [0, None, None, 1][
+            len(args) - 1:])[:4]
+        dim %= n
+        start = 0 if start is None else (start + shape[dim] if start < 0
+                                         else start)
+        end = shape[dim] if end is None else min(
+            end + shape[dim] if end < 0 else end, shape[dim])
+        if step != 1:
+            return None
+        return dim, [(start, end - start)]
+    return None
+
+
+def split_kept(func, args):
+    """A split (``torch.chunk``'s ``split``, a ``slice``) of a DTensor along
+    a dim split over mesh dims into parts those mesh dims divide, as
+    GSPMD partitions it: each part keeps the input's split, and each
+    rank fetches its block of a part from the rank whose block holds it
+    — collective-permutes, grouped as XLA groups them (``_permute_plan``:
+    the mLSTM's ``up`` cut into its two halves, f32[8,1,192] and three
+    f32[8,1,96] on xlstm-125m decode_32k; the sLSTM's four gate
+    pre-activations, ten f32[8,48] and six f32[8,96]), where DTensor
+    gathers the dim whole.  None for any other op, a part the mesh dims
+    do not divide, or one whose blocks straddle the input's."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not _GSPMD.active or not args or not isinstance(args[0], DTensor):
+        return None
+    x = args[0]
+    found = _split_parts(func, args, tuple(x.shape))
+    if found is None:
+        return None
+    dim, parts = found
+    mesh = x.device_mesh
+    over = [m for m, q in enumerate(x.placements) if q.is_shard(dim)]
+    if not over or any(type(x.placements[m]) is not Shard for m in over) \
+            or any(q.is_partial() for q in x.placements) \
+            or over != sorted(over):
+        return None
+    n = math.prod(mesh.size(m) for m in over)
+    b = x.shape[dim] // n
+    if x.shape[dim] % n or all(length == x.shape[dim] for _, length in parts):
+        return None
+    if any(length % n or b % (length // n) or o % (length // n)
+           for o, length in parts):
+        return None
+    block = x._local_tensor
+    me = _flat_coordinate(mesh, over)
+    outs = []
+    for o, length in parts:
+        got = _permuted_part(block, mesh, over, dim, b, o, length // n, me)
+        shape = list(x.shape)
+        shape[dim] = length
+        outs.append(_placed(got, mesh, list(x.placements), shape))
+    if func is torch.ops.aten.slice.Tensor:
+        return outs[0]
+    return tuple(outs)
+
+
+def cat_kept(func, args):
+    """The gradient of ``split_kept``'s split — autograd's concatenation
+    of its parts' gradients along the dim they split alike — as GSPMD
+    partitions that concatenation: each part's block exchanged over the
+    mesh dims that split it (an all-to-all), the blocks joined, and the
+    joined block exchanged again (an all-to-all), its split kept (the
+    reference's sLSTM step: four f32[16,48] all-to-alls and one
+    f32[16,192] a step of xlstm-125m train_4k's backward).  None for any
+    other op."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not _GSPMD.active or func is not torch.ops.aten.cat.default:
+        return None
+    node = torch._C._current_autograd_node()
+    if type(node).__name__ != "SplitBackward0":
+        return None
+    ts = list(args[0])
+    dim = args[1] if len(args) > 1 else 0
+    if not ts or not all(isinstance(t, DTensor) for t in ts):
+        return None
+    x = ts[0]
+    dim %= x.ndim
+    mesh, placements = x.device_mesh, list(x.placements)
+    over = [m for m, q in enumerate(placements) if q.is_shard(dim)]
+    if not over or any(list(t.placements) != placements for t in ts) \
+            or any(type(placements[m]) is not Shard for m in over) \
+            or any(q.is_partial() for q in placements):
+        return None
+    if any(t._local_tensor.shape[dim] % mesh.size(m)
+           for t in ts for m in over):
+        return None
+    blocks = [_exchanged(t._local_tensor, mesh, over, dim) for t in ts]
+    joined = _exchanged(torch.cat(blocks, dim), mesh, over, dim)
+    shape = list(x.shape)
+    shape[dim] = sum(t.shape[dim] for t in ts)
+    return _placed(joined, mesh, placements, shape)
+
+
+def slice_backward_kept(func, args):
+    """The gradient of ``split_kept``'s ``slice`` (autograd's
+    ``slice_backward``: the part's gradient padded with zeros to the
+    whole dim), as GSPMD partitions the pad: the whole dim's gradient
+    split as the part's was, each rank's block of the part sent back to
+    the rank whose block it came from (the permutes of
+    ``_permute_plan`` reversed: the mLSTM gates' f32[16,4096,1]
+    collective-permutes of xlstm-125m train_4k's backward), where
+    DTensor gathers the dim.  None for any other op."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not _GSPMD.active \
+            or func is not torch.ops.aten.slice_backward.default:
+        return None
+    g, sizes, dim, start, end, step = args[:6]
+    if not isinstance(g, DTensor) or step != 1:
+        return None
+    dim %= g.ndim
+    mesh, placements = g.device_mesh, list(g.placements)
+    over = [m for m, q in enumerate(placements) if q.is_shard(dim)]
+    whole = sizes[dim]
+    end = min(end, whole)
+    length = end - start
+    if not over or over != sorted(over) \
+            or any(type(placements[m]) is not Shard for m in over) \
+            or any(q.is_partial() for q in placements):
+        return None
+    n = math.prod(mesh.size(m) for m in over)
+    if whole % n or length % n or length == whole:
+        return None
+    b, b2 = whole // n, length // n
+    if b % b2 or start % b2:
+        return None
+    plan, _ = _permute_plan(n, b, start, b2)
+    block = g._local_tensor
+    me = _flat_coordinate(mesh, over)
+    for lo, width, pairs in plan:
+        back = {t: s for s, t in pairs.items()}
+        piece = block.movedim(dim, 0).contiguous()
+        send, recv = [0] * mesh.size(), [0] * mesh.size()
+        send[_rank_along(mesh, over, back.get(me, me))] = b2
+        recv[_rank_along(mesh, over, pairs.get(me, me))] = b2
+        _funcol().wait_tensor(_funcol().all_to_all_single(
+            piece, recv, send, _mesh_group(mesh)))
+    local = list(block.shape)
+    local[dim] = b
+    out = block.new_zeros(local)
+    return _placed(out, mesh, placements, list(sizes))
+
+
+def _exchanged(block, mesh, over, dim):
+    """``block`` through an all-to-all over the mesh dims ``over`` along
+    ``dim`` (one over each in turn: on a factored axis, merged into one
+    over the axis, ``cost_analysis.factor_batch``); its shape kept."""
+    for m in over:
+        rows = block.movedim(dim, 0).contiguous()
+        splits = [rows.shape[0] // mesh.size(m)] * mesh.size(m)
+        rows = _funcol().wait_tensor(_funcol().all_to_all_single(
+            rows, splits, splits, mesh.get_group(m)))
+        block = rows.movedim(0, dim)
+    return block
+
+
+def _permute_plan(n: int, b: int, o: int, b2: int):
+    """XLA's collective-permutes for one part (offset ``o``, a block of
+    ``b2`` a rank) of a dim split over ``n`` ranks in blocks of ``b``:
+    rank t's block of the part starts at ``o + b2 * t``, in the block of
+    rank s = that // b.  Each source's targets but itself, in order,
+    the k-th of each source making the k-th permute, which carries the
+    window of the source blocks from the least offset it sends to the
+    greatest plus ``b2``.  Returns [(window start, width, {source:
+    target})] and, for each target, (its permute or None, its offset
+    in the source's block)."""
+    targets = {}
+    where = []
+    for t in range(n):
+        s, off = divmod(o + b2 * t, b)
+        where.append((s, off))
+        if s != t:
+            targets.setdefault(s, []).append(t)
+    plan, of_target = [], [None] * n
+    for k in range(max((len(v) for v in targets.values()), default=0)):
+        pairs = {s: ts[k] for s, ts in targets.items() if len(ts) > k}
+        offs = [where[t][1] for t in pairs.values()]
+        lo = min(offs)
+        plan.append((lo, max(offs) + b2 - lo, pairs))
+        for t in pairs.values():
+            of_target[t] = len(plan) - 1
+    return plan, [(of_target[t], where[t][1]) for t in range(n)]
+
+
+def _rank_along(mesh, over, i: int) -> int:
+    """The global rank of the rank at index ``i`` over the mesh dims
+    ``over`` (major first), this rank's coordinate elsewhere."""
+    coord = list(mesh.get_coordinate())
+    for m in reversed(over):
+        coord[m], i = i % mesh.size(m), i // mesh.size(m)
+    return _flat_coordinate(mesh, range(mesh.ndim), coord)
+
+
+def _permuted_part(block, mesh, over, dim, b, o, b2, me):
+    """This rank's block of one part (``_permute_plan``): each permute of
+    the plan issued (every rank issues it, as XLA's SPMD program does;
+    one that sends nothing sends to itself), the block taken from the
+    permute that brings it, or from the rank's own block."""
+    n = math.prod(mesh.size(m) for m in over)
+    plan, at = _permute_plan(n, b, o, b2)
+    got = None
+    for k, (lo, width, pairs) in enumerate(plan):
+        frm = next((s for s, t in pairs.items() if t == me), me)
+        window = block.narrow(dim, lo, width).movedim(dim, 0).contiguous()
+        send, recv = [0] * mesh.size(), [0] * mesh.size()
+        send[_rank_along(mesh, over, pairs.get(me, me))] = width
+        recv[_rank_along(mesh, over, frm)] = width
+        moved = _funcol().all_to_all_single(window, recv, send,
+                                            _mesh_group(mesh))
+        moved = _funcol().wait_tensor(moved).movedim(0, dim)
+        if at[me][0] == k:
+            got = moved.narrow(dim, at[me][1] - lo, b2)
+    if got is None:                        # the rank's own block holds it
+        got = block.narrow(dim, at[me][1], b2)
+    return got
+
+
 def _placed(block, mesh, placements, shape):
     """``block`` as the DTensor of global ``shape`` it is one rank's block
     of, the global strides laid out in the block's dim order (a view of
@@ -1041,16 +1311,17 @@ def local_pointwise(func, args, kwargs):
 
 
 def gspmd_fallback(func, args, kwargs=None):
-    """An op DTensor has no sharding strategy for, partitioned as GSPMD
+    """An op DTensor has no sharding strategy for (or, ``OWN_RULES``, one
+    that differs between torch versions), partitioned as GSPMD
     partitions it, where it can be: an elementwise op
     (``log_sigmoid_backward``) on the blocks of its input's placements,
     every operand of its shape redistributed there; an op that moves
     data along dims no mesh dim splits (``roll``, ``flip``: torch 2.11
-    has no strategy for them) on each block, its placements kept; an op
-    that works along the last dim of operands whose other dims line up
-    (``searchsorted``, ``scatter``) on their blocks, each split where
-    any of them is, the last dim whole.  None for any other op (it runs
-    replicated)."""
+    has no strategy for them) on each block, its placements kept; a
+    constant pad (``_pad_blocks``); an op that works along the last dim
+    of operands whose other dims line up (``searchsorted``,
+    ``scatter``) on their blocks, each split where any of them is, the
+    last dim whole.  None for any other op (it runs replicated)."""
     from torch.distributed.tensor import DTensor
     name = func.__name__
     x = args[0] if args else None
@@ -1059,6 +1330,8 @@ def gspmd_fallback(func, args, kwargs=None):
     if not _GSPMD.active or not isinstance(x, DTensor) \
             or any(q.is_partial() for q in x.placements):
         return None
+    if name == "constant_pad_nd.default":
+        return _pad_blocks(func, x, *args[1:])
     if name in _ELEMENTWISE:
         x = args[_ELEMENTWISE[name]]
         if not isinstance(x, DTensor) \
@@ -1079,6 +1352,41 @@ def gspmd_fallback(func, args, kwargs=None):
     return _placed(func(*blocks), x.device_mesh, x.placements, x.shape)
 
 
+def _pad_blocks(func, x, pad, value=0.0):
+    """``constant_pad_nd`` of the DTensor ``x``: the pad run on the block,
+    the placements kept, as GSPMD pads along dims no mesh dim splits
+    (the causal conv's sequence, MLA's cache pad, the window pads: every
+    pad of the 35 cells); a mesh dim that splits a dim the pad changes
+    is gathered first (an all-gather: simpler than GSPMD's halo
+    exchange, and met by no cell).  torch 2.11's redistribution planner
+    raises ``IndexError`` on this op (the conv's pad of recurrentgemma-9b
+    train_4k's (256, 4096, 4096) split over "data" and "model") and 2.13
+    has a strategy of its own, so the port partitions it itself on
+    every torch (``OWN_RULES``)."""
+    from torch.distributed.tensor import Replicate
+    pad = list(pad)
+    shape = list(x.shape)
+    changed = set()
+    for i in range(0, len(pad), 2):
+        d = x.ndim - 1 - i // 2
+        shape[d] += pad[i] + pad[i + 1]
+        if pad[i] or pad[i + 1]:
+            changed.add(d)
+    want = [Replicate() if q.is_shard() and q.dim in changed else q
+            for q in x.placements]
+    if want != list(x.placements):
+        x = x.redistribute(x.device_mesh, want)
+    return _placed(func(x._local_tensor, pad, value), x.device_mesh, want,
+                   shape)
+
+
+# the ops the port partitions itself before DTensor's own strategy is
+# asked, on every torch (``gspmd_fallback``): torch 2.11 has none for
+# them, one whose redistribution fails (the pad) or one that gathers
+# what 2.13 leaves split (the MoE's dispatch scatter, 16 x 8192 rows a
+# rank of deepseek-v3-671b's smoke prefill_32k: 16,777,216 elements
+# all-gathered on 2.11, none on 2.13)
+OWN_RULES = {"constant_pad_nd.default", "scatter.src"}
 # the elementwise ops without a DTensor strategy: name -> the argument
 # whose placements the others take; the ops that move data along given
 # dims: name -> the argument that names them
@@ -1572,6 +1880,20 @@ def product_as(like: torch.Tensor, func, *args) -> torch.Tensor:
     by ``_split_partial``; else its forward is ``func(*args)`` and its
     backward gathers the output's gradient (``_GatheredCotangent``).
     Anywhere else it is ``func(*args)``."""
+    if _GSPMD.active and is_distributed(like) \
+            and factored_axes(like.device_mesh):
+        parsed = _einsum_args(func, args)
+        if parsed is not None:
+            planned = _gathered_contraction(*parsed, like)
+            if planned is not None:
+                ops, gathered = planned
+                if gathered and torch.is_grad_enabled() \
+                        and any(x.requires_grad for x in ops):
+                    return _RegatheredEinsum.apply(parsed[0], gathered,
+                                                   *ops)
+                ops = [_whole_over(x, gathered[i]) if i in gathered else x
+                       for i, x in enumerate(ops)]
+                return func(*args[:len(args) - len(ops)], *ops)
     if _GSPMD.active and is_distributed(like):
         found = _wanted_split(like, func, args)
         if found is not None:
@@ -1586,6 +1908,277 @@ def product_as(like: torch.Tensor, func, *args) -> torch.Tensor:
                 return _GatheredCotangent.apply(
                     lambda *ts: func(*prefix, *ts), eq, m, *ops)
     return func(*args)
+
+
+class _CarriedGrad(torch.autograd.Function):
+    """``out`` as it is; in the backward, a zero gradient for each of the
+    state ``carries`` a scan step leaves (``carried_grads``)."""
+
+    @staticmethod
+    def forward(ctx, out, *carries):
+        ctx.save_for_backward(*carries)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *[torch.zeros_like(c) for c in ctx.saved_tensors])
+
+
+def carried_grads(out, *carries):
+    """``out`` — the output of the one scan step the dry run walks for all
+    (``cost_analysis.count_as``) — whose backward also sends a gradient
+    to the state the step leaves, as the step after it would: the
+    reference's scan differentiates each step from the next one's
+    state gradient (the mLSTM's chunk state, the sLSTM's cell state),
+    the walk's last step has none.  ``out`` as it is outside the dry
+    run's autograd."""
+    if not (_GSPMD.active and torch.is_grad_enabled()
+            and is_distributed(out)
+            and any(c.requires_grad for c in carries)):
+        return out
+    return _CarriedGrad.apply(out, *carries)
+
+
+def reduced_by_heads(func, *args, heads: int, whole: bool):
+    """``func(*args)``, a product that contracts a dim split over a mesh
+    axis (an xLSTM block's q, k, v and gates, from its inner dim split
+    16 ways over "model"), its partial sums reduced as GSPMD reduces them
+    for the users that take its last dim by ``heads`` heads: over the
+    factor of the axis that splits the heads (the head view cuts it,
+    ``split_factors``), the head then sliced, and over the other factor
+    after — or, ``whole=False`` (the head dim split over that other
+    factor too), over the whole axis at once, then sliced.  The
+    reference's xlstm-125m decode: q and k f32[8,1,1536] all-reduced
+    over the 4 of the first factor, then f32[8,1,384] over the other 4;
+    v f32[8,1,1536] over all 16.  Where a mesh dim of the axis's size is
+    free, by ``_reduced_on_free``.  On a mesh whose axis is not cut, the
+    walk is asked to walk again on one cut so (``cost_analysis.cut``).
+    ``func(*args)`` anywhere but the dry run."""
+    if not (_GSPMD.active and any(is_distributed(a) for a in args)):
+        return func(*args)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    def product(*ops):
+        _GSPMD.keep_partial = True
+        try:
+            return func(*ops)
+        finally:
+            _GSPMD.keep_partial = False
+    parsed = _einsum_args(func, args)
+    if parsed is not None and all(isinstance(a, DTensor) for a in args):
+        eq, ops = parsed
+        ins, o = eq.split("->")
+        mesh = ops[0].device_mesh
+        placements = _einsum_placements(ins.split(","), o, ops, mesh)
+        axis = _partial_axis(mesh, placements) if placements else None
+        if axis is not None and len(axis) > 1:
+            split = axis[:1] if whole else axis
+            if _free_for(mesh, axis, ops) is not None:
+                return _reduced_on_free(func, args, placements, axis,
+                                        split)
+
+            def run(*ops):
+                out = product(*ops)
+                want = list(out.placements)
+                for m in split:
+                    want[m] = Replicate()
+                out = out.redistribute(mesh, want)
+                for m in split:
+                    want[m] = Shard(out.ndim - 1)
+                out = out.redistribute(mesh, want)
+                return out.redistribute(mesh, [
+                    Replicate() if q.is_partial() else q for q in want])
+            if torch.is_grad_enabled() and any(a.requires_grad
+                                               for a in args):
+                return _GatheredCotangent.apply(run, eq, split, *args)
+            return run(*args)
+    out = product(*args)
+    mesh = out.device_mesh
+    ms = _partial_axis(mesh, out.placements)
+    if ms is not None and len(ms) == 1:
+        from repro_torch.launch import cost_analysis
+        size = mesh.size(ms[0])
+        if size % heads == 0 and size > heads:
+            cost_analysis.cut((mesh.mesh_dim_names[ms[0]],
+                               (heads, size // heads)))
+    return reduced_product(torch.ops.aten.mm.default, out)
+
+
+def _partial_axis(mesh, placements) -> Optional[Tuple[int, ...]]:
+    """The mesh dims of the one mesh axis over which ``placements`` are
+    partial (all of its dims, and no other), or None."""
+    axes = [ms for ms in mesh_axes(mesh).values()
+            if all(placements[m].is_partial() for m in ms)]
+    partial = sum(q.is_partial() for q in placements)
+    if len(axes) != 1 or partial != len(axes[0]):
+        return None
+    return axes[0]
+
+
+def _reduced_on_free(func, args, placements, ms, split):
+    """``reduced_by_heads`` where a mesh dim of the axis's size is free
+    (the long-context decode's "data"), as GSPMD partitions it: each
+    rank's product only for the block of the output it will hold (its
+    weight's columns sliced: nothing moves), the block's partial sums
+    all-reduced over the axis's mesh dims ``ms``, and the block moved to
+    the rank that holds it (a collective-permute: the reference's
+    f32[1,1,384] q and k, f32[1,1,96] v, f32[1,1,2] gates of
+    xlstm-125m long_500k)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    x, w = args
+    mesh = x.device_mesh
+    n = math.prod(mesh.size(m) for m in split)
+    cols = w.shape[-1] // n
+    block = func(x._local_tensor, at_use(w)._local_tensor.narrow(-1, 0, cols))
+    shape = tuple(x.shape[:-1]) + (cols,)
+    block = _placed(block, mesh, placements, shape).redistribute(mesh, [
+        Replicate() if m in ms else q for m, q in enumerate(placements)])
+    local = block._local_tensor.contiguous()
+    splits = [local.shape[0]] + [0] * (mesh.size() - 1)
+    moved = _funcol().wait_tensor(_funcol().all_to_all_single(
+        local, splits, splits, _mesh_group(mesh)))
+    want = [Shard(len(shape) - 1) if m in split else
+            (Replicate() if m in ms else q)
+            for m, q in enumerate(placements)]
+    return _placed(moved, mesh, want, tuple(x.shape[:-1]) + (w.shape[-1],))
+
+
+def _gathered_contraction(eq, ops, like):
+    """``product_as``'s operands on a mesh with a factored axis where
+    ``like`` splits an output letter over a mesh dim on which an operand
+    splits a contracted letter and the others are whole (the sLSTM's
+    recurrent product: the state's head dim split over the second
+    factor of "model", the output's gate dim wanted there): as GSPMD
+    partitions it, that operand gathered over the mesh dim (an
+    all-gather: the reference's f32[8,1,192] a layer of xlstm-125m
+    decode_32k) and the others sliced to the wanted letter (nothing
+    moves), so the product runs on blocks with its output split as
+    ``like``.  Returns the operands (the others sliced) and, by
+    operand, the mesh dims to gather it over; None where no mesh dim
+    is so."""
+    from torch.distributed.tensor import DTensor, Shard
+    ins, out = eq.split("->")
+    subs = ins.split(",")
+    if len(subs) != len(ops) or not all(isinstance(x, DTensor) for x in ops):
+        return None
+    ops, gathered, cut = list(ops), {}, set()
+    wanted = {m: out[q.dim] for m, q in enumerate(like.placements)
+              if type(q) is Shard}
+    for m, letter in wanted.items():
+        split = [i for i, (sub, x) in enumerate(zip(subs, ops))
+                 if type(x.placements[m]) is Shard
+                 and sub[x.placements[m].dim] not in out]
+        if len(split) != 1 or any(
+                not x.placements[m].is_replicate()
+                for i, x in enumerate(ops) if i not in split) \
+                or not any(letter in sub for i, sub in enumerate(subs)
+                           if i not in split):
+            continue
+        i = split[0]
+        x = ops[i]
+        axis = next(d for d in mesh_axes(x.device_mesh).values() if m in d)
+        f = _free_for(x.device_mesh, axis, ops + [like])
+        if f is not None and x.shape[x.placements[m].dim] \
+                % x.device_mesh.size(f) == 0:
+            ops[i] = _gathered_on_free(x, m, f)
+        else:
+            gathered.setdefault(i, []).append(m)
+        cut.add(m)
+    if not cut:
+        return None
+    # the whole operands cut to each letter ``like`` splits, over the mesh
+    # dims just freed and those where another operand splits it (the
+    # sLSTM's ``r`` to the state's head and the gates' block), keeping
+    # their gradients so cut
+    for m, letter in wanted.items():
+        if m not in cut and not any(
+                type(x.placements[m]) is Shard
+                and sub[x.placements[m].dim] == letter
+                for sub, x in zip(subs, ops)):
+            continue
+        for j, (sub, y) in enumerate(zip(subs, ops)):
+            if letter in sub and y.placements[m].is_replicate():
+                ops[j] = _SlicedKeepingGrad.apply(y, tuple(
+                    Shard(sub.index(letter)) if k == m else q
+                    for k, q in enumerate(y.placements)))
+    return ops, {i: tuple(ms) for i, ms in gathered.items()}
+
+
+class _RegatheredEinsum(torch.autograd.Function):
+    """``torch.einsum(eq, *ops)`` with the operands ``gathered`` names
+    (index -> mesh dims) gathered over those mesh dims for it, as the
+    reference's partition differentiates such a product: each operand's
+    gradient the product of the output's gradient and the others, a
+    gathered operand's (its partial sums reduced where made) sliced
+    back to its split; and the gathered operands gathered again for the
+    others' gradients (XLA keeps the block: the reference's sLSTM
+    backward all-gathers the f32[16,1,192] state once more each step of
+    xlstm-125m train_4k)."""
+
+    @staticmethod
+    def forward(ctx, eq, gathered, *ops):
+        ctx.eq, ctx.gathered = eq, gathered
+        ctx.save_for_backward(*ops)
+        return torch.einsum(eq, *[_whole_over(x, gathered[i])
+                                  if i in gathered else x
+                                  for i, x in enumerate(ops)])
+
+    @staticmethod
+    def backward(ctx, g):
+        ops = ctx.saved_tensors
+        ins, out = ctx.eq.split("->")
+        subs = ins.split(",")
+        whole = [_whole_over(x, ctx.gathered[i]) if i in ctx.gathered
+                 else x for i, x in enumerate(ops)]
+        grads = []
+        for i, sub in enumerate(subs):
+            if not ctx.needs_input_grad[2 + i]:
+                grads.append(None)
+                continue
+            rest = [j for j in range(len(ops)) if j != i]
+            eq = ",".join([out] + [subs[j] for j in rest]) + "->" + sub
+            d = torch.einsum(eq, g, *[whole[j] for j in rest])
+            if i in ctx.gathered:
+                d = d.redistribute(d.device_mesh, ops[i].placements)
+            grads.append(d)
+        return (None, None, *grads)
+
+
+class _SlicedKeepingGrad(torch.autograd.Function):
+    """A DTensor sliced to ``placements`` (a replicated operand cut to the
+    split its product wants: nothing moves) whose gradient keeps that
+    split, as the reference's partition keeps the gradient of the
+    sLSTM's recurrent weight ``r``, f32[1,192,192] a device, reduced
+    over "data" alone (DTensor would gather it back whole)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        return x.redistribute(x.device_mesh, list(placements))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _gathered_on_free(x, m: int, f: int):
+    """``x`` made whole over the mesh dim ``m`` that splits one of its dims
+    by way of the free mesh dim ``f`` (the long-context decode's
+    "data"), as GSPMD does it: each rank's block re-cut to ``f``'s
+    blocks of that dim (a collective-permute of one: the reference's
+    f32[1,1,12] sLSTM state of xlstm-125m long_500k), then gathered over
+    ``f`` (an all-gather, its f32[1,1,192])."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, d = x.device_mesh, x.placements[m].dim
+    size = x.shape[d] // mesh.size(f)
+    piece = x._local_tensor.narrow(d, 0, size).movedim(d, 0).contiguous()
+    splits = [size] + [0] * (mesh.size() - 1)
+    piece = _funcol().wait_tensor(_funcol().all_to_all_single(
+        piece, splits, splits, _mesh_group(mesh))).movedim(0, d)
+    placements = [Shard(d) if k == f else (Replicate() if k == m else q)
+                  for k, q in enumerate(x.placements)]
+    return _placed(piece, mesh, placements, tuple(x.shape)).redistribute(
+        mesh, [Replicate() if k in (m, f) else q
+               for k, q in enumerate(placements)])
 
 
 def _wanted_split(like, func, args):
@@ -1654,13 +2247,15 @@ def _split_partial(eq, ops, m, letter, f):
 
 class _GatheredCotangent(torch.autograd.Function):
     """``product_as``'s product where no mesh dim is free (the training
-    step's batch takes "data"): the forward is the product as it is (its
-    partial sums over ``m`` all-reduced), and the backward takes the
-    output's gradient, split over ``m`` as its users left it, whole over
-    ``m`` for each operand's product on its own (an all-gather each, as
-    GSPMD partitions each transposed product: the reference's two
-    f32[16,4096,4096] all-gathers of each RG-LRU gate's gradient), so
-    that neither product reduces an activation."""
+    step's batch takes "data"), and ``reduced_by_heads``'s: the forward
+    is ``run`` (the product, its partial sums reduced), and the backward
+    takes the output's gradient, split over the mesh dim(s) ``m`` as
+    its users left it, whole over them for each operand's product on
+    its own (an all-gather each, as GSPMD partitions each transposed
+    product: the reference's two f32[16,4096,4096] all-gathers of each
+    RG-LRU gate's gradient, and two f32[16,4096,1536] of each of
+    xlstm-125m's q, k and v), so that neither product reduces an
+    activation."""
 
     @staticmethod
     def forward(ctx, run, eq, m, *ops):
@@ -1674,13 +2269,14 @@ class _GatheredCotangent(torch.autograd.Function):
         ops = ctx.saved_tensors
         ins, out = ctx.eq.split("->")
         subs = ins.split(",")
+        over = (ctx.m,) if isinstance(ctx.m, int) else tuple(ctx.m)
         grads = []
         for i, sub in enumerate(subs):
             if not ctx.needs_input_grad[3 + i]:
                 grads.append(None)
                 continue
             whole = g.redistribute(g.device_mesh, [
-                Replicate() if k == ctx.m else q
+                Replicate() if k in over else q
                 for k, q in enumerate(g.placements)])
             rest = [j for j in range(len(ops)) if j != i]
             eq = ",".join([out] + [subs[j] for j in rest]) + "->" + sub
@@ -1703,8 +2299,7 @@ def _take_split(func, args) -> None:
     name = getattr(func, "__name__", "")
     if not name.endswith("_") or name.startswith("_") \
             or torch.is_grad_enabled() or not args \
-            or not isinstance(args[0], DTensor) \
-            or factored_axes(args[0].device_mesh):
+            or not isinstance(args[0], DTensor):
         return
     x = args[0]
     want = list(x.placements)
@@ -1734,6 +2329,23 @@ def _take_split(func, args) -> None:
 
 class _Gspmd(threading.local):
     active = False
+    keep_partial = False      # ``reduced_by_heads``: a product's sums kept
+    table_lookup = False      # ``lookup_by_table``
+
+
+@contextlib.contextmanager
+def lookup_by_table():
+    """Embedding lookups inside take the table to the tokens
+    (``_table_for_lookup``), not the tokens to the table: the model's
+    word that its residual is carried split over the vocab's axis (an
+    xLSTM stack, ``models.ssm.carried``), the layout that route leaves
+    the lookup in.  Nothing changes outside the dry run."""
+    prev = _GSPMD.table_lookup
+    _GSPMD.table_lookup = True
+    try:
+        yield
+    finally:
+        _GSPMD.table_lookup = prev
 
 
 _GSPMD = _Gspmd()
@@ -1810,6 +2422,10 @@ class _GspmdOps(TorchFunctionMode):
             gather = func is not F.embedding
             args, kwargs = tree_map(lambda x: _read(x, gather),
                                     (args, kwargs))
+        if func in _PRODUCTS and len(args) == 2:
+            out = _input_whole_product(func, *args)
+            if out is not None:
+                return out
         if func is torch.einsum:
             args = _einsum_operands(args)
             parsed = _einsum_args(func, args)
@@ -1820,13 +2436,113 @@ class _GspmdOps(TorchFunctionMode):
             if out is not None:
                 return out
         if func is F.embedding:
-            args = (_tokens_for_lookup(args[0], args[1]),) + tuple(args[1:])
+            if _GSPMD.table_lookup:
+                args = (args[0], _table_for_lookup(args[0], args[1])) \
+                    + tuple(args[2:])
+            else:
+                args = (_tokens_for_lookup(args[0], args[1]),) \
+                    + tuple(args[1:])
         return func(*args, **kwargs)
 
 
 _CASTS = (torch.Tensor.to, torch.Tensor.float, torch.Tensor.bfloat16,
           torch.Tensor.half, torch.Tensor.double, torch.Tensor.type_as)
 _PRODUCTS = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__)
+
+
+def _input_whole_product(func, x, w):
+    """``x @ w`` where ``x`` splits the contracted dim over the mesh dims
+    that split ``w``'s output dim (an xLSTM residual split over "model"
+    into a projection whose columns "model" splits), as GSPMD
+    partitions it: ``x`` gathered over them (the reference's
+    f32[2,32768,768] all-gather before each of xlstm-125m prefill_32k's
+    up projections), so that the product's output keeps the weight's
+    split (``_RegatheredInput`` under autograd); DTensor would rather
+    move the weight to its rows and all-reduce the product.  Where a
+    mesh dim of their size is free (the long-context decode's "data"),
+    the split moved there (a collective-permute), then either
+    contracted there (its partial sums all-reduced: the reference's
+    f32[1,1,192] of xlstm-125m long_500k's up projections) or gathered
+    there (the unembedding's f32[1,1,768]), whichever moves less.  None
+    for any other product."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)) \
+            or w.ndim != 2 or x.ndim < 2:
+        return None
+    k = x.ndim - 1
+    over = [m for m, q in enumerate(x.placements) if q.is_shard(k)]
+    if not over or not all(w.placements[m].is_shard(1)
+                           and type(w.placements[m]) is type(x.placements[m])
+                           for m in over):
+        return None
+    mesh = x.device_mesh
+    f = _free_for(mesh, over, (x, w))
+    if f is not None:
+        moved = [Replicate() if m in over else q
+                 for m, q in enumerate(x.placements)]
+        moved[f] = x.placements[over[0]]
+        x = _move_split(x, tuple(over), (f,), moved)
+        # the product's block against the input gathered, a row each
+        if w._local_tensor.shape[-1] < x.shape[-1]:
+            return func(x, w.redistribute(mesh, [
+                Shard(0) if m == f else q for m, q in enumerate(w.placements)]))
+        over = [f]
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RegatheredInput.apply(x, w, tuple(over))
+    return func(_whole_over(x, over), w)
+
+
+def _whole_over(x, over):
+    """``x`` gathered over the mesh dims ``over`` (an all-gather)."""
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [
+        Replicate() if m in over else q for m, q in enumerate(x.placements)])
+
+
+class _RegatheredInput(torch.autograd.Function):
+    """``_input_whole_product``'s product under autograd, as the
+    reference's partition differentiates it: forward, ``x`` gathered
+    over ``over`` and the product run on the blocks; backward, ``x``'s
+    gradient the product of the output's gradient and the weight, its
+    partial sums all-reduced and sliced to ``x``'s split, and the
+    weight's gradient from ``x`` gathered again (XLA keeps the block,
+    not the gathered activation: the reference's backward all-gathers
+    f32[16,4096,768] once more before each such weight gradient of
+    xlstm-125m train_4k)."""
+
+    @staticmethod
+    def forward(ctx, x, w, over):
+        ctx.save_for_backward(x, w)
+        ctx.over = over
+        return torch.matmul(_whole_over(x, over), w)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(g, w.t())
+            if any(q.is_partial() for q in dx.placements):
+                dx = dx.redistribute(dx.device_mesh, [
+                    Replicate() if q.is_partial() else q
+                    for q in dx.placements])
+            dx = dx.redistribute(dx.device_mesh, x.placements)
+        if ctx.needs_input_grad[1]:
+            whole = _whole_over(x, ctx.over)
+            dw = torch.matmul(whole.reshape(-1, whole.shape[-1]).t(),
+                              g.reshape(-1, g.shape[-1]))
+        return dx, dw, None
+
+
+def _free_for(mesh, dims, ts) -> Optional[int]:
+    """A mesh dim outside ``dims``, of their product's size, on which every
+    DTensor of ``ts`` is replicated (the long-context decode's "data",
+    which its batch of one leaves free), or None."""
+    size = math.prod(mesh.size(m) for m in dims)
+    return next((f for f in range(mesh.ndim) if f not in dims
+                 and mesh.size(f) == size
+                 and all(t.placements[f].is_replicate() for t in ts)), None)
 
 
 def _hoisting() -> bool:
@@ -1987,6 +2703,25 @@ def _einsum_placements(subs, out, ops, mesh):
     return placements
 
 
+def laid_out_as(t: torch.Tensor, eq: str, *ops) -> torch.Tensor:
+    """``t`` (a plain tensor of ``torch.einsum(eq, *ops)``'s shape: a
+    scan's zero state) laid out as that product of the DTensors ``ops``
+    would leave its output on their blocks (``_einsum_placements``, a
+    partial sum as its reduction leaves it): a slice of ``t`` made
+    whole on their mesh, nothing moved.  ``t`` as it is where an
+    operand is plain or they disagree."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not ops or not all(isinstance(x, DTensor) for x in ops):
+        return t
+    ins, out = eq.split("->")
+    mesh = ops[0].device_mesh
+    placements = _einsum_placements(ins.split(","), out, ops, mesh)
+    if placements is None:
+        return t
+    return replicated_on(t, mesh).redistribute(mesh, [
+        Replicate() if q.is_partial() else q for q in placements])
+
+
 class _BlockEinsum(torch.autograd.Function):
     """``torch.einsum`` of DTensors run on their blocks, the result placed
     by ``_einsum_placements``; its backward, each operand's gradient, is
@@ -2022,22 +2757,23 @@ class _BlockEinsum(torch.autograd.Function):
 
 
 def _einsum_on_blocks(args):
-    """``torch.einsum`` of DTensors on a mesh with a factored axis, run on
-    their blocks (``_BlockEinsum``): DTensor's own einsum flattens dims
-    split over different mesh dims into one, which torch 2.11 refuses
-    and torch 2.13 splits strided.  Only a batched product (a letter in
-    every operand and the output: attention's scores and values), whose
-    operands are activations; a weight's product keeps DTensor's ``mm``,
-    whose gradient ``weight_grad_slab`` cuts.  None for any other
-    einsum, and where each operand's letters do not all appear in the
-    output or another operand (its backward would broadcast)."""
+    """``torch.einsum`` of DTensors whose operands agree, run on their
+    blocks (``_BlockEinsum``), on every mesh: DTensor's own einsum
+    flattens the batch dims into one (attention's batch over "data" and
+    heads over "model"), which torch 2.11 refuses (``_unsafe_view``:
+    "Attempted to flatten multiple dimensions") and torch 2.13 splits
+    strided.  Only a batched product (a letter in every operand and the
+    output: attention's scores and values, MLA's absorbed products);
+    a product of a 2-dim weight keeps DTensor's ``mm``, whose gradient
+    ``weight_grad_slab`` cuts.  None for any other einsum, and where
+    each operand's letters do not all appear in the output or another
+    operand (its backward would broadcast)."""
     from torch.distributed.tensor import DTensor
     parsed = _einsum_args(torch.einsum, args)
     if parsed is None:
         return None
     eq, ops = parsed
-    if not ops or not all(isinstance(x, DTensor) for x in ops) \
-            or not factored_axes(ops[0].device_mesh):
+    if not ops or not all(isinstance(x, DTensor) for x in ops):
         return None
     ins, out = eq.split("->")
     subs = ins.split(",")
@@ -2049,7 +2785,51 @@ def _einsum_on_blocks(args):
     placements = _einsum_placements(subs, out, ops, ops[0].device_mesh)
     if placements is None:
         return None
-    return _BlockEinsum.apply(eq, placements, *ops)
+    y = _BlockEinsum.apply(eq, placements, *ops)
+    # its partial sums reduced where made, as GSPMD reduces them (and
+    # ``reduced_product`` DTensor's ``bmm``'s)
+    if any(q.is_partial() for q in placements):
+        from torch.distributed.tensor import Replicate
+        y = y.redistribute(y.device_mesh, [
+            Replicate() if q.is_partial() else q for q in placements])
+    return y
+
+
+def _table_for_lookup(tokens, table):
+    """The table of an embedding lookup (``lookup_by_table``) whose vocab
+    one mesh axis splits and whose rows the tokens' axis splits, as the
+    reference's partition of xlstm-125m train_4k reads it: the two
+    splits swapped (one collective-permute of the block, its
+    f32[3144,48]), the vocab then gathered over the tokens' axis (an
+    all-gather, f32[50304,48]), so that each rank looks its tokens up
+    in its columns and the lookup leaves the embedding dim split as
+    the vocab was.  The table as it is for any other lookup."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not (_GSPMD.active and isinstance(tokens, DTensor)
+            and isinstance(table, DTensor)) or table.ndim != 2:
+        return table
+    axes = list(mesh_axes(table.device_mesh).values())
+    vocab = [ms for ms in axes if all(table.placements[m].is_shard(0)
+                                      for m in ms)]
+    rows = [ms for ms in axes if all(table.placements[m].is_shard(1)
+                                     for m in ms)]
+    split = [ms for ms in axes if all(type(tokens.placements[m]) is Shard
+                                      for m in ms)]
+    if len(vocab) != 1 or rows != split or len(split) != 1:
+        return table
+    a, b = split[0], vocab[0]
+    mesh = table.device_mesh
+    if math.prod(mesh.size(m) for m in a) \
+            != math.prod(mesh.size(m) for m in b):
+        return table
+    swapped = list(table.placements)
+    for m in a:
+        swapped[m] = Shard(0)
+    for m in b:
+        swapped[m] = Shard(1)
+    table = _move_split(table, a, b, swapped)
+    return table.redistribute(mesh, [Replicate() if m in a else q
+                                     for m, q in enumerate(swapped)])
 
 
 def _tokens_for_lookup(tokens, table):
@@ -2164,13 +2944,26 @@ def gspmd_partitioning():
         axis and gathered there (``_tokens_for_lookup``), and an op
         DTensor has no strategy for is partitioned where it can be
         (``gspmd_fallback``);
-      * on a mesh with an axis cut into factors (``split_factors``):
-        views move the splits between dims as GSPMD keeps them
-        (``split_view``), a batched einsum slices its replicated
-        operands and runs on the blocks (``_einsum_operands``,
-        ``_einsum_on_blocks``), an elementwise op whose operands agree
-        runs on the blocks (``local_pointwise``), and a strided split
-        is priced as the plain one;
+      * a batched einsum whose operands agree runs on the blocks, its
+        partial sums reduced where made (``_einsum_on_blocks``); a
+        constant pad and the MoE's dispatch scatter are partitioned by
+        the port's own rules before DTensor's, which differ between
+        torch versions (``OWN_RULES``); a split of a split dim keeps
+        each part split, its blocks fetched by collective-permutes
+        (``split_kept``; its gradient ``cat_kept``,
+        ``slice_backward_kept``); a product whose input splits the
+        contracted dim as the weight splits its output gathers the
+        input (``_input_whole_product``); an xLSTM stack's embedding
+        takes the table to the tokens (``lookup_by_table``);
+      * on a mesh with an axis cut into factors (``split_factors``; an
+        xLSTM block's q, k, v and gates ask for the heads' cut:
+        ``reduced_by_heads``): views move the splits between dims as
+        GSPMD keeps them (``split_view``), a batched einsum slices its
+        replicated operands (``_einsum_operands``), a product laid out
+        as a split ``like`` gathers the operand that splits the
+        contracted dim (``product_as``), an elementwise op whose
+        operands agree runs on the blocks (``local_pointwise``), and a
+        strided split is priced as the plain one;
       * DTensor's sharding propagation splits an op's work only as its
         operands are split.  Of the strategies DTensor weighs for an op,
         those are dropped (where any other is left) that shard or make

@@ -16,7 +16,18 @@ each on a toy op on the 16x16 production mesh (one rank's share,
   * ``_take_split``: an in-place update outside autograd takes its
     operand's split, a stacked leaf's layer with its stack;
   * ``set_slot``: the new entry gathered whole on every rank, whichever
-    rank writes it.
+    rank writes it;
+  * ``split_kept`` and ``cat_kept``: a chunk of a dim split over
+    "model" keeps each part split, its blocks fetched by
+    collective-permutes as XLA groups them, the parts' gradients joined
+    by all-to-alls;
+  * ``gspmd_fallback``'s pad: along dims no mesh dim splits on the
+    blocks, along a split dim gathered first;
+  * on "model" cut 4 x 4 (``launch.mesh.factor_axis``):
+    ``reduced_by_heads`` reduces a product's partial sums over the
+    heads' factor, slices the head, then over the other factor (or over
+    both at once, then slices), and asks an uncut mesh for the cut;
+    ``_take_split`` leaves an update split over both factors.
 
 The production mesh lives on a dry-run world (the ``fake`` backend), so
 every case runs in one subprocess (its results checked here)."""
@@ -103,6 +114,66 @@ with sh.gspmd_partitioning():
     new = dt((1, 1, 16, 128), [R, S(2)])
     out["slot"] = cost(lambda: sh.set_slot(buf, 1, 4095, new))
     out["slot"]["coordinate"] = mesh.get_coordinate()
+    # an xLSTM block's up projection, split 16 ways over "model", cut
+    # into its halves (the mLSTM) and its four gates (the sLSTM)
+    up = dt((128, 1, 3072), [S(0), S(2)], grad=True)
+    res = {}
+    out["halves"] = cost(lambda: res.setdefault("y", torch.chunk(up, 2, -1)))
+    out["halves"].update(where(res["y"][1]))
+    out["quarters"] = cost(lambda: torch.chunk(up, 4, -1))
+    # ... and the halves' gradients joined again
+    g = dt((128, 1, 1536), [S(0), S(2)])
+    out["joined"] = cost(lambda: (res["y"][0] * res["y"][1]).backward(g))
+    out["joined"].update(where(up.grad))
+    # a causal conv's pad along the unsplit sequence, and a pad along the
+    # split dim
+    x = dt((16, 4096, 64), [S(0), S(2)])
+    res = {}
+    out["pad seq"] = cost(lambda: res.setdefault("y", torch.nn.functional.pad(
+        x, (0, 0, 3, 0))))
+    out["pad seq"].update(where(res["y"]))
+    res = {}
+    out["pad split"] = cost(lambda: res.setdefault(
+        "y", torch.nn.functional.pad(x, (1, 1))))
+    out["pad split"].update(where(res["y"]))
+    # q's partial sums on "model" uncut: the walk asks for the heads' cut
+    xc = dt((128, 1, 1536), [S(0), S(2)])
+    wq = dt((1536, 1536), [R, S(0)])
+    c = ca.count_step(lambda: sh.reduced_by_heads(torch.matmul, xc, wq,
+                                                  heads=4, whole=True))
+    out["cut"] = list(c.axis_cut)
+
+# "model" cut 4 x 4 by the heads
+cut = m.factor_axis(mesh, "model", (4, 4))
+mesh = cut
+
+
+def dtc(shape, placements, grad=False):
+    local = list(shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            local[p.dim] //= cut.size(i)
+    stride = torch.empty(shape, device="meta").stride()
+    t = DTensor.from_local(torch.empty(local, device="meta"), cut,
+                           placements, run_check=False,
+                           shape=torch.Size(shape), stride=stride)
+    return t.detach().requires_grad_(grad)
+
+
+with sh.gspmd_partitioning():
+    xc = dtc((128, 1, 1536), [S(0), S(2), S(2)])
+    wq = dtc((1536, 1536), [R, S(0), S(0)])
+    for whole in (True, False):
+        res = {}
+        key = f"heads whole={whole}"
+        out[key] = cost(lambda: res.setdefault("y", sh.reduced_by_heads(
+            torch.matmul, xc, wq, heads=4, whole=whole)))
+        out[key].update(where(res["y"]))
+    p = dtc((4096,), [R, R, R])
+    gp = dtc((4096,), [R, S(0), S(0)])
+    with torch.no_grad():
+        out["update cut"] = cost(lambda: p.add_(gp))
+    out["update cut"].update(where(p))
 print("RESULT " + json.dumps(out))
 """
 
@@ -181,3 +252,62 @@ def test_a_cache_write_gathers_the_entry_on_every_rank(cases):
     c = cases["slot"]
     assert c["coordinate"] == [0, 0]
     assert c["elements"] == {"all-gather(g=16)": 16 * 128}
+
+
+def test_a_chunk_of_a_split_dim_keeps_each_part_split(cases):
+    """(128, 1, 3072) split 16 ways (this rank's 8 x 192): its halves
+    keep the split (8 x 96 a rank), each rank's block fetched by XLA's
+    four collective-permutes (192 + 3 x 96 wide, the reference's
+    f32[8,1,192] and f32[8,1,96] of xlstm-125m decode_32k); its quarters
+    by sixteen (ten 48 and six 96 wide)."""
+    h = cases["halves"]
+    assert h["elements"] == {"collective-permute(g=256)": 8 * (192 + 3 * 96)}
+    assert h["placements"] == ["S(0)", "S(2)"] and h["local"] == [8, 1, 96]
+    assert cases["quarters"]["elements"] == {
+        "collective-permute(g=256)": 8 * (10 * 48 + 6 * 96)}
+
+
+def test_the_halves_gradients_are_joined_by_all_to_alls(cases):
+    """Each half's (8, 1, 96) gradient block and the joined (8, 1, 192)
+    go through an all-to-all over "model" (the reference's transposed
+    concatenation), and the gradient keeps the split."""
+    j = cases["joined"]
+    assert j["elements"] == {"all-to-all(g=16)": 8 * (96 + 96 + 192)}
+    assert j["placements"] == ["S(0)", "S(2)"]
+
+
+def test_a_pad_runs_on_the_blocks_along_unsplit_dims(cases):
+    """The causal conv's pad of the sequence (unsplit) moves nothing and
+    keeps the placements; a pad along the split dim gathers it first."""
+    assert cases["pad seq"]["elements"] == {}
+    assert cases["pad seq"]["placements"] == ["S(0)", "S(2)"]
+    assert cases["pad seq"]["local"] == [1, 4099, 4]
+    p = cases["pad split"]
+    assert p["elements"] == {"all-gather(g=16)": 4096 * 64}
+    assert p["placements"] == ["S(0)", "R"] and p["local"] == [1, 4096, 66]
+
+
+def test_partial_sums_follow_the_heads_cut(cases):
+    """q = xc @ wq, xc's 1536 split 16 ways over "model" cut 4 x 4: its
+    (8, 1, 1536) partial sums all-reduced over the first factor, the
+    head sliced, its (8, 1, 384) over the second (the reference's q and
+    k); with the head dim split too, over all 16 at once, then sliced
+    (its v).  On "model" uncut, the walk asks for the 4 x 4 cut."""
+    q = cases["heads whole=True"]
+    assert q["elements"] == {"all-reduce(g=4)": 8 * 1536 + 8 * 384}
+    assert q["placements"] == ["S(0)", "S(2)", "R"]
+    assert q["local"] == [8, 1, 384]
+    assert q["dot_flops"] == 2 * 8 * 96 * 1536
+    v = cases["heads whole=False"]
+    assert v["elements"] == {"all-reduce(g=16)": 8 * 1536}
+    assert v["placements"] == ["S(0)", "S(2)", "S(2)"]
+    assert v["local"] == [8, 1, 96]
+    assert cases["cut"] == ["model", [4, 4]]
+
+
+def test_an_update_takes_its_operands_split_on_a_cut_mesh(cases):
+    """On "model" cut 4 x 4, a whole (4096,) parameter plus a gradient
+    split over both factors leaves the update split (this rank's 256)."""
+    c = cases["update cut"]
+    assert c["elements"] == {}
+    assert c["placements"] == ["R", "S(0)", "S(0)"] and c["local"] == [256]
