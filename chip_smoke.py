@@ -119,7 +119,9 @@ elastic checkpoint restore.
               bf16; (b) gemma2-2b's full ``config()`` (2,614,341,888
               parameters) served at the reference's defaults (batch 4,
               prompt 32, 16 tokens, bf16): init, prefill and decode
-              times, tok/s, peak memory; at float32 decode equals the
+              times, tok/s, peak memory, and the peak of one decode
+              step on a cache of 48 (the statistics reset around it);
+              at float32 decode equals the
               forward within 2e-3 on all 26 layers, and a 2-layer
               truncation of it agrees between card and CPU within 1e-3
  13. train    LM training (no hand-written kernel on this path): (a)
@@ -165,7 +167,11 @@ elastic checkpoint restore.
               to the same Trainer without a mesh; (c) the dry run's
               per-device argument bytes of gemma2-2b at phase 13b's batch
               (2 x 1024, AdamW, a one-card mesh) at or below the
-              ``max_memory_allocated`` phase 13b measured
+              ``max_memory_allocated`` phase 13b measured; the dry run's
+              walk of that step and of 12b's decode step on a mesh of
+              one device (a process of its own, ``start_memory_walks``):
+              its ``peak_bytes`` within 5 % of 13b's and of the decode
+              step's ``max_memory_allocated``
  15. placement DPI training, the sharded landing zone and the elastic
               restore: (a) ``train_dpi_params(make_dataset(2048,
               seed=0), steps=200)`` on the card against the CPU from the
@@ -2581,6 +2587,7 @@ LM_BATCH, LM_PROMPT, LM_GEN = 2, 24, 8          # 12a, every smoke arch
 LM_CARD_ATOL = 1e-4     # float32 logits, card vs CPU, TF32 off
 FULL_ARCH = "gemma2-2b"
 FULL_BATCH, FULL_PROMPT, FULL_GEN = 4, 32, 16   # the reference's defaults
+DECODE_CACHE = FULL_PROMPT + FULL_GEN           # 12b's one measured step
 FULL_PARAMS_LM = 2_614_341_888
 DECODE_FORWARD_BOUND = 2e-3                     # tests/test_models.py:80
 TRUNC_ATOL = 1e-3       # 2-layer full-width truncation, card vs CPU, f32
@@ -2704,6 +2711,7 @@ def phase_lm_full_width(dev, smi: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import generate, prefill_batch
     from repro_torch.models.model import Model
+    from repro_torch.train.step import make_decode_step
     cfg = get_config(FULL_ARCH)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -2731,6 +2739,17 @@ def phase_lm_full_width(dev, smi: str) -> dict:
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
     del cache
+    # one decode step's peak, the serving loop's last (a cache of prompt
+    # + new tokens), for phase 14c's walk of the same step
+    decode = make_decode_step(model)
+    cache = model.init_cache(FULL_BATCH, DECODE_CACHE)
+    _, cache = model.prefill(pre, cache)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    decode(cache, tokens[:, :1], DECODE_CACHE - 1)
+    torch.cuda.synchronize(dev)
+    decode_peak = torch.cuda.max_memory_allocated(dev)
+    del cache
     print(f"[lm] (b) {FULL_ARCH} full width on {smi}: {n:,} params "
           f"(f32), init {t_init:.2f} s (CUDA generator); batch "
           f"{FULL_BATCH} x prompt {FULL_PROMPT} + {FULL_GEN} tokens, bf16: "
@@ -2746,9 +2765,12 @@ def phase_lm_full_width(dev, smi: str) -> dict:
           f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s; "
           f"largest kernels (ms): " + ", ".join(
               f"{name} {ms:.3f}" for name, ms in busy["top"]))
+    print(f"[lm] (b) one bf16 decode step, batch {FULL_BATCH}, cache "
+          f"{DECODE_CACHE}: max_memory_allocated {decode_peak:,} B")
     rec = {"params": n, "init_s": t_init, "prefill_ms": t_p * 1e3,
            "decode_ms": t_d * 1e3, "decode_tok_s": n_dec / t_d,
            "max_memory_allocated": peak, "device": smi,
+           "decode_step_peak": decode_peak,
            "decode_step_busy_ms": busy["busy_ms"],
            "decode_step_kernels": busy["kernels"]}
 
@@ -3138,6 +3160,66 @@ def start_dryrun(out: Path, arch: str = "gemma2-2b",
         cwd=ROOT)
 
 
+MEM_WALK_RTOL = 0.05   # 14c: the walk's peak_bytes vs max_memory_allocated
+
+_MEMORY_WALKS = r"""
+import json
+import sys
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from repro_torch.common.config import ShapeConfig
+from repro_torch.configs import get_config
+from repro_torch.launch.dryrun import walk_cell
+from repro_torch.launch.mesh import init_dry_run_world
+out, arch, seq, batch, override, cache, dec_batch = sys.argv[1:]
+init_dry_run_world(1)
+mesh = DeviceMesh("cpu", torch.arange(1).reshape(1, 1),
+                  mesh_dim_names=("data", "model"))
+walks = {}
+for name, shape, opt in (
+        ("train", ShapeConfig("phase13b", seq_len=int(seq),
+                              global_batch=int(batch), kind="train"),
+         json.loads(override)),
+        ("decode", ShapeConfig("phase12b", seq_len=int(cache),
+                               global_batch=int(dec_batch), kind="decode"),
+         None)):
+    by_tree, cost, memory = walk_cell(get_config(arch), shape, mesh, opt)
+    walks[name] = {"peak_bytes": cost.peak_bytes,
+                   "argument_bytes": sum(by_tree.values()), **memory}
+with open(out, "w") as f:
+    json.dump(walks, f)
+"""
+
+
+def start_memory_walks(out: Path) -> subprocess.Popen:
+    """Phase 14c's walks, on a mesh of one device (a ``fake`` world of
+    one: a process of its own), of 13b's train step (gemma2-2b, batch
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ``, 13b's TrainConfig) and of 12b's one
+    measured decode step (batch ``FULL_BATCH``, a cache of
+    ``DECODE_CACHE``), started early; JSON into ``out``."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    override = {"tc_steps": TRAIN_STEPS, "tc_learning_rate": TRAIN_LR,
+                "tc_warmup_steps": 0}
+    return subprocess.Popen(
+        [sys.executable, "-c", _MEMORY_WALKS, str(out), FULL_ARCH,
+         str(TRAIN_SEQ), str(TRAIN_BATCH), json.dumps(override),
+         str(DECODE_CACHE), str(FULL_BATCH)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+
+
+def _memory_walks(proc: subprocess.Popen, path: Path) -> dict:
+    """What a ``start_memory_walks`` process wrote."""
+    try:
+        _, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-3000:]
+    return json.loads(path.read_text())
+
+
 def _moe_grads(cfg, p0, x0, mesh):
     """y and the gradients of sum(sin(y)) w.r.t. x, w1, w2, w3 of the
     port's moe_ffn (float32) under ``mesh`` (None: no mesh), and the
@@ -3241,11 +3323,14 @@ def check_dryrun_exact(proc: subprocess.Popen, path: Path, ref: dict,
 
 
 def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
-               peak_13b: int, gqa: tuple, moe_cell: tuple,
-               long_cell: tuple, more: tuple = ()) -> dict:
+               peak_13b: int, walks: tuple, decode_peak: int, gqa: tuple,
+               moe_cell: tuple, long_cell: tuple, more: tuple = ()) -> dict:
     """Phase 14: the mesh layer; (a) the dry run started by
     ``start_dryrun``, (b) a one-rank NCCL mesh on the card, (c) the dry
-    run's argument bytes against phase 13b's peak memory."""
+    run's argument bytes against phase 13b's peak memory, and the walks
+    ``start_memory_walks`` started (``walks``: (process, json)): their
+    ``peak_bytes`` against 13b's and against 12b's decode step's
+    (``decode_peak``) ``max_memory_allocated``."""
     import tempfile
 
     import torch
@@ -3380,6 +3465,21 @@ def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
           f"phase 13b's max_memory_allocated {peak_13b:,} on {smi} "
           f"({arg / peak_13b:.3f} of it)")
     assert arg <= peak_13b, (arg, peak_13b)
+    mem = _memory_walks(*walks)
+    train, decode = mem["train"], mem["decode"]
+    r_train = train["peak_bytes"] / peak_13b
+    r_decode = decode["peak_bytes"] / decode_peak
+    print(f"[mesh] (c) the dry run's walk on a mesh of one device, "
+          f"{FULL_ARCH}: the train step at {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"peak_bytes {train['peak_bytes']:,} (arguments "
+          f"{train['argument_bytes']:,}, temp {train['temp_bytes']:,}) vs "
+          f"phase 13b's max_memory_allocated {peak_13b:,}: {r_train:.4f}; "
+          f"the decode step at batch {FULL_BATCH}, cache {DECODE_CACHE} "
+          f"peak_bytes {decode['peak_bytes']:,} (temp "
+          f"{decode['temp_bytes']:,}) vs its max_memory_allocated "
+          f"{decode_peak:,}: {r_decode:.4f} (bound {MEM_WALK_RTOL}); {smi}")
+    assert abs(r_train - 1) <= MEM_WALK_RTOL, (train, peak_13b)
+    assert abs(r_decode - 1) <= MEM_WALK_RTOL, (decode, decode_peak)
     dist.destroy_process_group()
     wall = time.perf_counter() - t0
     print(f"[mesh] phase 14 wall_s={wall:.1f}")
@@ -3387,7 +3487,11 @@ def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
             "dryrun_moe": moe_dry["terms"], "dryrun_long": long_dry["terms"],
             "ep_sm_fwd_err": fwd,
             "ep_sm_grad_rel": rel, "train_loss_err": err,
-            "arg_bytes_13b": arg, "peak_13b": peak_13b, "wall_s": wall}
+            "arg_bytes_13b": arg, "peak_13b": peak_13b,
+            "walk_peak_13b": train["peak_bytes"], "walk_ratio_13b": r_train,
+            "walk_peak_decode": decode["peak_bytes"],
+            "decode_peak": decode_peak, "walk_ratio_decode": r_decode,
+            "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -4057,9 +4161,12 @@ def main() -> int:
         atexit.register(lambda p=proc: p.poll() is None and p.kill())
         more.append((proc, path, ref,
                      f"{arch} x {shape} on the 16x16 mesh, {label}"))
+    mem_json = Path(tmp.name) / "memory_walks.json"
+    mem_walks = start_memory_walks(mem_json)
+    atexit.register(lambda: mem_walks.poll() is None and mem_walks.kill())
     t12 = time.perf_counter()
     phase_lm_smoke(dev)
-    phase_lm_full_width(dev, smi)
+    lm_full = phase_lm_full_width(dev, smi)
     print(f"[lm] phase 12 wall_s={time.perf_counter() - t12:.1f}")
     t13 = time.perf_counter()
     phase_train_smoke(dev)
@@ -4067,6 +4174,7 @@ def main() -> int:
     print(f"[train] phase 13 wall_s={time.perf_counter() - t13:.1f}")
     phase_mesh(dev, smi, dryrun, dry_json,
                max(r["max_memory_allocated"] for r in full["steps"]),
+               (mem_walks, mem_json), lm_full["decode_step_peak"],
                (dryrun_gqa, gqa_json), (dryrun_moe, moe_json),
                (dryrun_long, long_json), tuple(more))
     t15 = time.perf_counter()

@@ -28,6 +28,11 @@ counts:
     that sends its whole block to one rank is a collective-permute;
   * reads — whether the step reads each argument's data
     (``Cost.read_of``), the dry run's count of XLA's arguments;
+  * memory — the local blocks live after each op, as eager PyTorch
+    assigns buffers (``Blocks``): ``Cost.peak_bytes``, the most live at
+    once, arguments included, and ``Cost.temp_bytes``, the most held by
+    blocks that are neither arguments nor outputs (XLA's
+    ``temp_size_in_bytes``; ``Cost.held``);
   * with ``BY_SOURCE`` set (off by default), each kind's elements and
     the dot FLOPs split by the code that issued them (``Cost.by_source``,
     keyed ``"kind | source"``, ``_source``): the innermost frame of the
@@ -55,7 +60,8 @@ import sys
 import threading
 import traceback
 import warnings
-from typing import Callable, Dict, List, Optional, Sequence
+import weakref
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor, Replicate
@@ -98,6 +104,11 @@ NO_TRAFFIC = {
     "unflatten", "flatten", "lift_fresh", "_reshape_alias", "view_as",
     "diagonal", "expand_as", "set_", "resize_", "zeros_like_", "wait_tensor",
 }
+# ops that allocate without writing, and ops whose result is their
+# input's buffer (``Blocks.made``): a functional collective's autograd
+# wrap of its result (its meta kernel allocates anew)
+_ALLOCATIONS = {"empty", "empty_like", "empty_strided", "new_empty"}
+_ALIASES = {"_wrap_tensor_autograd"}
 COLLECTIVES = {"all_reduce": "all-reduce",
                "all_gather_into_tensor": "all-gather",
                "reduce_scatter_tensor": "reduce-scatter",
@@ -131,11 +142,25 @@ class Cost:
     # with ``BY_SOURCE``: "kind | source" -> elements (a collective's) or
     # FLOPs ("dot | source")
     by_source: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # the blocks the walk held (``Blocks``), and from them (``held``) the
+    # most bytes live at once, arguments included, and the most held by
+    # blocks that are neither arguments nor outputs
+    blocks: Optional["Blocks"] = None
+    peak_bytes: int = 0
+    temp_bytes: int = 0
 
     def read_of(self, t: torch.Tensor) -> bool:
         """Whether the walk read the watched ``t``'s data (a DTensor's
         block's, or a view's of it)."""
         return storage_key(_block(t)) in self.read
+
+    def held(self, outputs: Sequence[torch.Tensor]) -> None:
+        """``peak_bytes`` and ``temp_bytes`` from ``blocks``, the step's
+        outputs ``outputs`` (DTensors or their blocks) as the walk left
+        them."""
+        out = self.blocks.at_end(_block(t) for t in outputs)
+        self.peak_bytes = self.blocks.peak()
+        self.temp_bytes = self.blocks.peak(self.blocks.arguments | out)
 
     def add(self, other: "Cost", mult: float = 1.0):
         self.flops += other.flops * mult
@@ -167,6 +192,276 @@ class Cost:
         self.by_source[key] = self.by_source.get(key, 0.0) + amount
         if not self.by_source[key]:
             del self.by_source[key]
+
+
+class Blocks:
+    """The local blocks one rank's step holds, as eager PyTorch assigns
+    buffers: a block is allocated when an op returns it on a storage of
+    its own and freed when that storage dies (a finalizer on the
+    storage; a view shares its base's).  ``log`` holds (block, +bytes)
+    at each allocation and (block, -bytes) at each free, in order; the
+    arguments are live from the start.
+
+    A scan step that stands for ``n`` (``count_as``) is one ``_Scan``:
+      * each block it made and still live at its end counts ``n`` times
+        (the loop holds every step's copy: ``stand_for``);
+      * the state it passes on (``carry``) and what dies with it (its
+        graph) keep their other copies until the scan's backward is done
+        where the loop's next step would keep them: the graph always, the
+        state's data if the step saved the state it took (``_settle``);
+      * its backward stands for the loop's second step back: one copy of
+        each block is gone when it starts (``backward``), a block that
+        dies frees one more, the rest go when it is done (``done``);
+      * a gradient that leaves it has the loop's running sum beside it
+        (``summed``);
+      * a rematerialized step's first run kept nothing (``recomputed``).
+    """
+
+    def __init__(self):
+        self.log: List[Tuple[int, int]] = []
+        # storage key -> [block, bytes, its scan's copies of it, scan,
+        #                 the storages it lives under]
+        self.live: Dict[int, list] = {}
+        self.arguments: set = set()
+        self.made_so_far = 0        # the id the next block takes
+        self.device: Optional[torch.device] = None
+        self.open = True
+        self._dying: list = []      # (block, copies, scan): died in a
+        #                             scan's forward since the last op
+        self._gone: set = set()     # blocks whose free is logged already
+        self._sums: list = []       # gradients to sum before the next op
+        self._probes: set = set()   # blocks no op has moved data in yet
+
+    def argument(self, t: torch.Tensor) -> None:
+        if self.device is None:
+            self.device = t.device
+        if storage_key(t) not in self.live:
+            self.arguments.add(self._new(t))
+
+    def made(self, name: str, ins: Sequence[torch.Tensor],
+             outs: Sequence[torch.Tensor]) -> None:
+        """Op ``name``'s inputs and results on the step's device (its
+        arguments', else its first op's): a storage not yet live is a new
+        block, made by the op (a result) or just before it, outside any
+        op (an input: ``torch.tensor`` on the device).  A block an
+        allocation (``empty``) makes counts from the first op that moves
+        data in it: one that none does is a shape probe (a stride, a
+        global shape), no rank's memory."""
+        if self._sums:
+            self._add_sums()
+        if self._dying:
+            self._settle()
+        probe = name in _ALLOCATIONS
+        if name in _ALIASES and ins:
+            self._alias(_unwrap(ins[0]), outs)
+        for t in (*ins, *outs):
+            t = _unwrap(t)
+            if self.device is None:
+                self.device = t.device
+            if t.device != self.device:
+                continue
+            entry = self.live.get(storage_key(t))
+            if entry is None:
+                self._new(t, probe)
+            elif entry[0] in self._probes and name not in NO_TRAFFIC:
+                self._probes.discard(entry[0])
+                self.log.append((entry[0], entry[1]))
+
+    def _alias(self, t: torch.Tensor, outs: Sequence[torch.Tensor]) -> None:
+        """``outs``: ``t``'s buffer under other storages (the meta kernel
+        of an op that returns its input wrapped allocates anew)."""
+        entry = self.live.get(storage_key(t))
+        for o in outs:
+            k = storage_key(o)
+            if entry is not None and k not in self.live:
+                self.live[k] = entry
+                entry[4] += 1
+                weakref.finalize(o.untyped_storage(), self._died, k,
+                                 entry[0]).atexit = False
+
+    def _entries(self) -> List[list]:
+        """The live blocks, each once (an aliased one has several
+        storage keys)."""
+        return list({id(e): e for e in self.live.values()}.values())
+
+    def _new(self, t: torch.Tensor, probe: bool = False) -> int:
+        st, b = t.untyped_storage(), self.made_so_far
+        self.made_so_far += 1
+        self.live[st._cdata] = [b, st.nbytes(), 0, None, 1]
+        if probe:
+            self._probes.add(b)
+        else:
+            self.log.append((b, st.nbytes()))
+        weakref.finalize(st, self._died, st._cdata, b).atexit = False
+        return b
+
+    def _died(self, key: int, b: int) -> None:
+        entry = self.live.get(key)
+        if not self.open or entry is None or entry[0] != b:
+            return
+        del self.live[key]
+        entry[4] -= 1
+        if entry[4]:
+            return          # its buffer lives on under another storage
+        _, size, copies, scan, _ = entry
+        if b in self._gone or b in self._probes:
+            self._probes.discard(b)
+            return
+        if scan is not None and scan.state == "backward":
+            scan.held.append((b, copies, None))
+            size -= copies
+        elif scan is not None and scan.state == "forward" and copies:
+            self._dying.append((b, copies, scan))
+        self.log.append((b, -size))
+
+    def _settle(self) -> None:
+        """The blocks of a scan that died together since the last op,
+        where the state the step passes on died with them: the loop's
+        later steps keep their other copies (``_Scan.kept``: the state's
+        own data only if saved) until the scan's backward is done."""
+        dying, self._dying = self._dying, []
+        with_state = {scan for b, _, scan in dying if b in scan.state_out}
+        for b, copies, scan in dying:
+            if scan in with_state and (b not in scan.state_out
+                                       or b in scan.kept):
+                scan.held.append((b, copies, len(self.log)))
+                self.log.append((b, copies))
+
+    def _add(self, entry: list, extra: int) -> None:
+        entry[1] += extra
+        self.log.append((entry[0], extra))
+
+    def _of(self, ts: Sequence[torch.Tensor]) -> List[Optional[int]]:
+        return [self.live.get(storage_key(_block(t)), [None])[0]
+                for t in ts]
+
+    def stand_for(self, scan: "_Scan", since: int,
+                  state_in: Sequence[torch.Tensor],
+                  state_out: Sequence[torch.Tensor], saved: set) -> None:
+        """The step's end: each block made from ``since`` on and live now
+        counts ``scan.n`` times what it counted, but ``state_out``, the
+        state passed on, only where the step saved ``state_in``'s (in
+        ``saved``: ``_saving``): the loop's later steps keep it."""
+        for t_in, b in zip(state_in, self._of(state_out)):
+            if b is not None:
+                scan.state_out.add(b)
+                if _block(t_in)._cdata in saved:
+                    scan.kept.add(b)
+        for entry in self._entries():
+            if entry[0] >= since and entry[0] not in self.arguments \
+                    and entry[0] not in self._probes \
+                    and (entry[0] not in scan.state_out
+                         or entry[0] in scan.kept):
+                extra = int(entry[1] * (scan.n - 1))
+                entry[2], entry[3] = entry[2] + extra, scan
+                self._add(entry, extra)
+        if scan.state == "forward":
+            # the state it took, should its first run turn out to have
+            # saved nothing (``recomputed``): gone here
+            for b in self._of(state_in):
+                if b is not None and b not in self.arguments:
+                    scan.took.append((b, len(self.log)))
+                    self.log.append((b, 0))
+
+    def recomputed(self, scan: "_Scan") -> None:
+        """The step is recomputed for its backward: its first run (a
+        rematerialized block's) kept nothing, so the copies its state
+        held and the state it took went at its end."""
+        self._settle()
+        for b, copies, at in scan.held:
+            if at is not None:
+                self.log[at] = (b, 0)
+        scan.held = [h for h in scan.held if h[2] is None]
+        for b, at in scan.took:
+            entry = next((e for e in self._entries() if e[0] == b), None)
+            if entry is not None:
+                self.log[at] = (b, -entry[1])
+                self._gone.add(b)
+        scan.took = []
+
+    def summed(self, scan: "_Scan", t: torch.Tensor, into_grad: bool
+               ) -> None:
+        """``t``, a step's gradient that leaves it: the loop sums its
+        steps' into one buffer, out of place (as under any dispatch
+        mode), so the running sum and the new sum are live beside it for
+        a moment — when the engine adds it, before the next op; the
+        running sum stays until the scan's backward is done, but where
+        ``t`` goes into a ``.grad`` (``into_grad``), which ``t`` itself
+        then stands for."""
+        entry = self.live.get(storage_key(t))
+        if entry is not None and entry[0] not in self.arguments:
+            self._sums.append((entry[0], entry[1], into_grad, scan))
+
+    def _add_sums(self) -> None:
+        sums, self._sums = self._sums, []
+        for b, size, into_grad, scan in sums:
+            self.log.append((b, 2 * size))
+            self.log.append((b, -2 * size if into_grad else -size))
+            if into_grad:
+                continue
+            if scan.state == "done":
+                self.log.append((b, -size))
+            else:
+                scan.held.append((b, size, None))
+
+    def backward(self, scan: "_Scan") -> None:
+        """The scan's backward starts: the walk's step stands for the
+        loop's second step back, the last step's copies already gone."""
+        self._settle()
+        scan.state = "backward"
+        if not self.open or scan.n <= 1:
+            return
+        for entry in self._entries():
+            if entry[3] is scan and entry[2]:
+                one = int(entry[2] / (scan.n - 1))
+                entry[2] -= one
+                self._add(entry, -one)
+        for i, (b, copies, at) in enumerate(scan.held):
+            one = int(copies / (scan.n - 1))
+            scan.held[i] = (b, copies - one, at)
+            self.log.append((b, -one))
+
+    def done(self, scan: "_Scan") -> None:
+        """The scan's backward is done: the copies its blocks held go."""
+        self._settle()
+        if scan.state == "backward" and self.open:
+            for b, copies, _ in scan.held:
+                self.log.append((b, -copies))
+            scan.held = []
+        scan.state = "done"
+
+    def close(self) -> None:
+        self._add_sums()
+        self._settle()
+        self.open = False
+
+    def at_end(self, ts) -> set:
+        """The blocks of ``ts`` live when the log was closed."""
+        return {self.live[storage_key(t)][0] for t in ts
+                if storage_key(t) in self.live}
+
+    def peak(self, leave_out=frozenset()) -> int:
+        """The most bytes live at once, the blocks ``leave_out`` apart."""
+        live = peak = 0
+        for b, n in self.log:
+            if b not in leave_out:
+                live += n
+                peak = max(peak, live)
+        return peak
+
+
+class _Scan:
+    """One ``count_as`` step's scan, for ``Blocks``: its trip count; its
+    state ("forward", "backward" once a node of its backward runs,
+    "done"); the copies (block, copies, the log's place of their keeping
+    in the forward) held until its backward is done; the blocks of the
+    state it passes on, and those of them kept; the state it took."""
+
+    def __init__(self, n: float):
+        self.n, self.state, self.held, self.left = n, "forward", [], 0
+        self.state_out: set = set()
+        self.kept: set = set()
+        self.took: list = []
 
 
 def _collective_traffic(kind: str, result_bytes: float, g: int) -> float:
@@ -285,28 +580,38 @@ class CostMode(TorchDispatchMode):
 
     def __init__(self, by_source: bool = False):
         super().__init__()
-        self.cost = Cost()
+        self.cost = Cost(blocks=Blocks())
         self.by_source = by_source
         self.weight = 1.0
         self.stack: List[float] = []
         self._pass: Optional[Callable] = None
-        self._reduced = None      # (result, g, bytes, elements, weight,
-        #                           source) all-reduce, for chaining
-        # the storages of the tensors whose reads are watched (kept alive,
-        # so that no other storage takes their key)
-        self.watched: Dict[int, torch.Tensor] = {}
+        self._reduced = None      # (weakref to the result, g, bytes,
+        #                           elements, weight, source) all-reduce,
+        #                           for chaining
+        # the storages of the tensors whose reads are watched: an
+        # argument's kept alive, so that no other storage takes its key,
+        # another's (``watch(..., tag)``) until it dies, read as its tag
+        self.watched: Dict[int, object] = {}
         # the collectives of an op or a redistribution on a mesh with a
         # factored axis, held to be merged (``factor_batch``): [the axis
         # of each factor's group, chains, the chain each storage derives
         # from]
         self._batch: Optional[list] = None
 
-    def watch(self, ts: Sequence[torch.Tensor]) -> None:
+    def watch(self, ts: Sequence[torch.Tensor], tag=None) -> None:
         """Record from now on whether the walk reads the data of each of
-        ``ts`` (a DTensor's block) or of a view of it: ``Cost.read_of``."""
+        ``ts`` (a DTensor's block) or of a view of it: ``Cost.read_of``;
+        with ``tag``, a tensor the step makes, not held (its read puts
+        ``tag`` in ``Cost.read``)."""
         for t in ts:
             t = _block(t)
-            self.watched[storage_key(t)] = t
+            k = storage_key(t)
+            if tag is None:
+                self.watched[k] = t
+            else:
+                self.watched[k] = tag
+                weakref.finalize(t.untyped_storage(), self.watched.pop, k,
+                                 None).atexit = False
 
     def __enter__(self):
         _MODES.append(self)
@@ -458,6 +763,8 @@ class CostMode(TorchDispatchMode):
         name = packet.__name__.rstrip("_")
         c, w = self.cost, self.weight
         ins, outs = _tensors(list(args) + list(kwargs.values())), _tensors(out)
+        if c.blocks.open:
+            c.blocks.made(name, ins, outs)
         if packet in flop_registry:
             f = w * flop_registry[packet](*args, **kwargs, out_val=out)
             c.flops += f
@@ -496,7 +803,8 @@ class CostMode(TorchDispatchMode):
                 continue
             k = storage_key(t)
             if k in self.watched:
-                self.cost.read.add(k)
+                w = self.watched[k]
+                self.cost.read.add(k if isinstance(w, torch.Tensor) else w)
 
     def _collective(self, name, args, outs):
         c, w = self.cost, self.weight
@@ -504,8 +812,8 @@ class CostMode(TorchDispatchMode):
         if name not in COLLECTIVES:
             # a wait or a wrap of the last all-reduce's result is that
             # result
-            if last is not None and outs and _unwrap(args[0]) is last[0]:
-                self._reduced = (outs[0],) + last[1:]
+            if last is not None and outs and _unwrap(args[0]) is last[0]():
+                self._reduced = (weakref.ref(outs[0]),) + last[1:]
             return
         kind, g, rb = COLLECTIVES[name], _group_size(args), _nbytes(outs)
         ne = sum(t.numel() for t in outs)
@@ -518,13 +826,13 @@ class CostMode(TorchDispatchMode):
                        src)
             return
         if kind == "all-reduce":
-            if last is not None and _unwrap(args[0]) is last[0] \
+            if last is not None and _unwrap(args[0]) is last[0]() \
                     and last[4] == w:
                 # one reduction over several mesh axes: one collective
                 c.add_collective(kind, last[1], -last[2], -last[3], w,
                                  last[5])
                 g *= last[1]
-            self._reduced = (outs[0], g, rb, ne, w, src)
+            self._reduced = (weakref.ref(outs[0]), g, rb, ne, w, src)
         c.add_collective(kind, g, rb, ne, w, src)
 
 
@@ -692,22 +1000,47 @@ def loop_invariant():
 
 
 def count_as(n: int, fn: Callable, inputs: Sequence[torch.Tensor],
-             hoist: bool = False):
+             hoist: bool = False, carry: int = 0):
     """Run ``fn()`` — one step of a scan whose ``n`` steps are alike — and
     count it, forward and backward, as ``n`` steps, as the reference's
     HLO analysis multiplies a while body by its trip count.  Its
     backward: the autograd nodes ``fn`` created (those between its
     outputs and ``inputs``) run under the same weight.  ``hoist``: the
     step's weight reads are loop-invariant (``hoisting``; the MoE's
-    chunks: XLA hoists their collectives out of the scan)."""
+    chunks: XLA hoists their collectives out of the scan).  ``carry``:
+    the last ``carry`` of ``inputs`` are the state the step takes, the
+    last ``carry`` of its outputs the state it passes on (for the
+    blocks the loop holds: ``Blocks``)."""
     _push_weight(n)
     _HOIST.depth += hoist
+    since = [(m.cost.blocks, m.cost.blocks.made_so_far) for m in _MODES]
+    saved: set = set()
     try:
-        out = fn()
+        with _saving(saved) if _MODES else contextlib.nullcontext():
+            out = fn()
     finally:
         _HOIST.depth -= hoist
         _pop_weight()
-    if not _MODES or not torch.is_grad_enabled():
+    if not _MODES:
+        return out
+    recompute = torch._C._current_graph_task_id() != -1 \
+        and bool(_SCANS.get(fn.__code__))
+    if recompute:
+        # a rematerialized step, recomputed for its backward: its blocks
+        # are the ones the scan's backward frees
+        scans = _SCANS[fn.__code__].pop()
+        for blocks, scan in scans:
+            blocks.recomputed(scan)
+    else:
+        scans = [(blocks, _Scan(n)) for blocks, _ in since]
+        if torch.is_grad_enabled():
+            _SCANS.setdefault(fn.__code__, []).append(scans)
+    state_in = list(inputs[len(inputs) - carry:]) if carry else []
+    state_out = _tensors(out)[-carry:] if carry else []
+    for (blocks, first), (_, scan) in zip(since, scans):
+        if blocks.open:
+            blocks.stand_for(scan, first, state_in, state_out, saved)
+    if not torch.is_grad_enabled():
         return out
     stop = {t.grad_fn for t in inputs if t.grad_fn is not None}
     seen, todo = set(), [t.grad_fn for t in _tensors(out)]
@@ -718,10 +1051,81 @@ def count_as(n: int, fn: Callable, inputs: Sequence[torch.Tensor],
             continue
         seen.add(node)
         todo.extend(f for f, _ in node.next_functions)
+    if not recompute:
+        for _, scan in scans:
+            scan.left = len(seen)
+    # the state's gradient goes back step by step, out of the first one
+    state = {id(t) for t in state_in} | {id(t.grad_fn) for t in state_in}
     for node in seen:
-        node.register_prehook(lambda *_: _push_weight(n))
-        node.register_hook(lambda *_: _pop_weight())
+        node.register_prehook(functools.partial(_scan_node, scans, True))
+        leaving = [(i, type(f).__name__ == "AccumulateGrad")
+                   for i, (f, _) in enumerate(node.next_functions)
+                   if f is not None and f not in seen and id(f) not in state
+                   and id(getattr(f, "variable", None)) not in state]
+        if leaving and n > 1:
+            node.register_hook(functools.partial(_summed, scans, leaving))
+        node.register_hook(functools.partial(_scan_node, scans, False))
+    for node in stop:
+        node.register_prehook(functools.partial(_scan_done, scans))
     return out
+
+
+@contextlib.contextmanager
+def _saving(saved: set):
+    """The tensors autograd saves inside, and the bases of those that
+    are views, into ``saved`` by identity (``_cdata``; a DTensor's by its
+    block's), on top of whatever saved-tensor hooks are active (a
+    rematerialized block's)."""
+    outer = torch._C._autograd._top_saved_tensors_default_hooks(False)
+
+    def pack(t):
+        b = _block(_unwrap(t))
+        saved.update(x._cdata for x in (b, b._base) if x is not None)
+        return outer[0](t) if outer else t
+
+    def unpack(x):
+        return outer[1](x) if outer else x
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+        yield
+
+
+# the scans of the steps ``count_as`` ran with autograd on, by the step's
+# code, latest last: the one a rematerialized step's recompute is of
+_SCANS: Dict[object, list] = {}
+
+
+def _scan_node(scans, starts: bool, *_):
+    """A node of a ``count_as`` step's backward starts (its weight
+    pushed) or ends (popped; the scan's backward is done with its last
+    node)."""
+    if starts:
+        _push_weight(scans[0][1].n)
+    else:
+        _pop_weight()
+    for blocks, scan in scans:
+        if starts and scan.state == "forward":
+            blocks.backward(scan)
+        elif not starts:
+            scan.left -= 1
+            if not scan.left:
+                blocks.done(scan)
+
+
+def _scan_done(scans, *_):
+    """A node past the step (an input's) starts: its backward is done."""
+    for blocks, scan in scans:
+        blocks.done(scan)
+
+
+def _summed(scans, leaving, grads, _):
+    """A step's gradients that leave it (``grads[i]``, ``(i, into a
+    .grad)`` in ``leaving``): the loop sums its steps' into one buffer
+    (``Blocks.summed``)."""
+    for blocks, scan in scans:
+        for i, into_grad in leaving:
+            if grads[i] is not None and blocks.open:
+                blocks.summed(scan, _block(grads[i]), into_grad)
 
 
 def cut(axis_cut: tuple) -> None:
@@ -733,10 +1137,11 @@ def cut(axis_cut: tuple) -> None:
             m.cost.axis_cut = axis_cut
 
 
-def watch(ts: Sequence[torch.Tensor]) -> None:
-    """``CostMode.watch`` on every active mode (a tensor the step makes)."""
+def watch(ts: Sequence[torch.Tensor], tag) -> None:
+    """``CostMode.watch`` on every active mode of tensors the step makes,
+    read as ``tag``."""
     for m in _MODES:
-        m.watch(ts)
+        m.watch(ts, tag)
 
 
 def count_step(fn: Callable, watch: Sequence[torch.Tensor] = ()) -> Cost:
@@ -749,7 +1154,14 @@ def count_step(fn: Callable, watch: Sequence[torch.Tensor] = ()) -> Cost:
         with warnings.catch_warnings():     # its cost is the point here
             warnings.simplefilter("ignore")
             nodes = torch.autograd.detect_anomaly(check_nan=False)
-    with nodes, CostMode(by_source=BY_SOURCE) as mode:
-        mode.watch(watch)
-        fn()
+    _SCANS.clear()
+    try:
+        with nodes, CostMode(by_source=BY_SOURCE) as mode:
+            mode.watch(watch)
+            for t in watch:
+                mode.cost.blocks.argument(_block(t))
+            fn()
+            mode.cost.blocks.close()
+    finally:
+        _SCANS.clear()
     return mode.cost

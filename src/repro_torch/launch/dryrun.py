@@ -27,6 +27,20 @@ allocates no tensor of the full-size configs.  Per cell, per device:
     output tuple; ``memory.alias_bytes``, those of the read donated
     leaves (parameters and optimizer state for train, the cache for
     prefill and decode) an output of the same block shape takes;
+    ``memory.temp_bytes``, XLA's ``temp_size_in_bytes`` by eager
+    PyTorch's buffer assignment: the most bytes held at once by the
+    blocks the walk's ops return that are neither argument leaves nor
+    part of the outputs (``cost_analysis.Blocks``: a block lives from
+    the op that made it until its storage dies; a scan step that
+    stands for ``n`` holds what the loop would).  It counts no
+    allocator rounding, no cuBLAS workspace and no kernel's internal
+    scratch, and it counts the port's dtypes where the reference's CPU
+    compile runs dots and their activations in f32 (XLA's float
+    normalization); XLA also schedules and rematerializes on its own
+    terms.  The walk keeps the most bytes live at once, arguments
+    included, as ``Cost.peak_bytes``: what ``max_memory_allocated``
+    reads for the same step on one device (on a one-device mesh the
+    walk runs the plain step, as the Trainer runs it there);
   * ``sharding_fallbacks`` — the reference's text, from the same rules;
   * ``flops_per_device``, ``dot_flops_per_device``, ``bytes_per_device``
     (eager, unfused: an upper bound on the reference's fused bytes),
@@ -47,6 +61,7 @@ the reduced configs at the same shapes.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -178,19 +193,19 @@ class _MadeFrom(TorchFunctionMode):
     step's step, the decode step's position): ``torch.full``'s fill or
     ``torch.as_tensor``'s data that is the scalar's very object (the
     walk passes one above CPython's small-int cache, so no literal of
-    the model's is it), each watched by the walk's ``CostMode``."""
+    the model's is it), each watched by the walk's ``CostMode`` and read
+    as this mode (``self in cost.read``), not held."""
 
     def __init__(self, scalar: int):
         super().__init__()
-        self.scalar, self.made = scalar, []
+        self.scalar = scalar
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if func in (torch.full, torch.as_tensor) and any(
                 a is self.scalar for a in (*args, *kwargs.values())):
-            self.made.append(out)
-            cost_analysis.watch([out])
+            cost_analysis.watch([out], self)
         return out
 
 
@@ -200,15 +215,18 @@ def walk_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
     the cache (serve) as DTensors of ``meta`` blocks by their specs, and
     walk the step once under the mesh's rules, as one rank's share.
     Tensors the step makes itself (positions, masks, zeros) are plain
-    and join the DTensors as replicated (``implicit_replication``).
+    and join the DTensors as replicated (``implicit_replication``).  On
+    a mesh of one device the rank holds every tensor whole: the step is
+    walked on plain ``meta`` tensors, as the Trainer runs it there.
 
     The memory is XLA's for the reference's jitted step
     (``step_memory``): XLA drops a parameter the step never reads (a
     cache that prefill overwrites whole, the encoder's weights in a
     decode step, a scalar the step never uses — the step or position
     scalar counts if the walk reads a tensor the step makes from it).
-    Returns (argument bytes by tree, the step's Cost, output and alias
-    bytes).
+    Returns (argument bytes by tree, the step's Cost, output, alias and
+    temp bytes); ``Cost.peak_bytes`` is the most bytes the walk held at
+    once, arguments included.
 
     Where a view unflattens a dim split over a mesh axis into dims the
     axis cannot split whole (``sharding.split_factors``), the step is
@@ -231,20 +249,26 @@ def _walk(cfg: ModelConfig, shape: ShapeConfig, mesh, tc_kw):
     scalar = int(str(1 << 20 if shape.kind == "train"
                      else shape.seq_len - 1))
     made = _MadeFrom(scalar)
-    with sh.activate(mesh, rules, ctx), implicit_replication(), \
-            sh.gspmd_partitioning():
-        sh.place_meta(model, model.param_spec(), mesh, rules, ctx)
-        inputs = sh.place_meta(ispecs, {k: P.Spec(tuple(v.shape), iaxes[k])
-                                        for k, v in ispecs.items()},
-                               mesh, rules, ctx)
+    # on one device a rank holds every tensor whole: the plain step, as
+    # the Trainer runs it on such a mesh
+    one = mesh_lib.n_chips(mesh) == 1
+
+    def place(tree, spec):
+        return tree if one else sh.place_meta(tree, spec, mesh, rules, ctx)
+
+    with sh.activate(mesh, rules, ctx), \
+            contextlib.nullcontext() if one else implicit_replication(), \
+            contextlib.nullcontext() if one else sh.gspmd_partitioning():
+        place(model, model.param_spec())
+        inputs = place(ispecs, {k: P.Spec(tuple(v.shape), iaxes[k])
+                                for k, v in ispecs.items()})
         params = list(model.parameters())
         out: List[Any] = []         # the state the step returns
         rest: List[Any] = []        # its other outputs
         if shape.kind == "train":
             step_fn, opt = make_train_step(model, TrainConfig(**tc_kw))
             ospec = opt.state_spec(model.param_spec())
-            state = sh.place_meta(P.shapes(ospec, "float32"), ospec,
-                                  mesh, rules, ctx)
+            state = place(P.shapes(ospec, "float32"), ospec)
             trees = {"params": params, "inputs": inputs, "opt_state": state}
             donated = _buffers(model) + _buffers(state)
             state_specs = [model.param_spec(), ospec]
@@ -255,10 +279,9 @@ def _walk(cfg: ModelConfig, shape: ShapeConfig, mesh, tc_kw):
                 rest.append(metrics)
         else:
             enc = _enc_len(cfg, shape)
-            cache = sh.place_meta(
+            cache = place(
                 model.init_cache(shape.global_batch, shape.seq_len, enc),
-                model.cache_spec(shape.global_batch, shape.seq_len, enc),
-                mesh, rules, ctx)
+                model.cache_spec(shape.global_batch, shape.seq_len, enc))
             trees = {"params": params, "inputs": inputs, "cache": cache}
             donated = _buffers(cache)
             state_specs = [model.cache_spec(shape.global_batch,
@@ -287,12 +310,14 @@ def _walk(cfg: ModelConfig, shape: ShapeConfig, mesh, tc_kw):
                                            for t in v])
     by_tree, memory = step_memory(leaves, donated, out + rest,
                                   cost.read_of, blocks)
+    cost.held(_leaves(out + rest))
+    memory["temp_bytes"] = cost.temp_bytes
     # XLA's output is a tuple of the reference's leaves (a stacked
     # subtree's leaf one array) with a pointer a leaf
     n_out = sum(len(list(P.tree_items(s))) for s in state_specs) \
         + len(_leaves(rest))
     memory["output_bytes"] += _TUPLE_ENTRY * n_out
-    if any(cost.read_of(t) for t in made.made):
+    if made in cost.read:
         by_tree["step_scalar" if shape.kind == "train"
                 else "index_scalar"] = 4
     return by_tree, cost, memory
@@ -432,7 +457,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
               f"({arg_bytes / 2**30:.2f} GiB; "
               + ", ".join(f"{k} {v:,}" for k, v in by_tree.items())
               + f"); output {memory['output_bytes']:,}, alias "
-              f"{memory['alias_bytes']:,}", flush=True)
+              f"{memory['alias_bytes']:,}, temp {memory['temp_bytes']:,}",
+              flush=True)
+        print(f"  memory: args={arg_bytes / 2**30:.2f}GiB "
+              f"temp={memory['temp_bytes'] / 2**30:.2f}GiB "
+              f"out={memory['output_bytes'] / 2**30:.2f}GiB (per device)",
+              flush=True)
         if cost.replicated_ops:
             print(f"  ops with no DTensor strategy, run replicated: "
                   f"{result['replicated_ops']}", flush=True)

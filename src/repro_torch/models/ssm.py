@@ -127,10 +127,12 @@ def _mlstm_chunkwise(q, k, v, ig, fg, chunk: int, state=None):
             C = laid_out_as(C, "bhsd,bhse->bhde", k, v)
             n = laid_out_as(n, "bhsd->bhd", k)
             m = laid_out_as(m, "bhs->bh", ig)
-            if torch.is_grad_enabled():
-                # the chunk's state comes from the chunk before: its
-                # gradient flows on (the reference's scan computes it)
-                C, n, m = (t.requires_grad_() for t in (C, n, m))
+        if (is_distributed(q) or q.is_meta) and torch.is_grad_enabled():
+            # the chunk's state comes from the chunk before: its
+            # gradient flows on (the reference's scan computes it), and
+            # the one chunk the dry run walks keeps what a later chunk
+            # of the loop keeps for it
+            C, n, m = (t.requires_grad_() for t in (C, n, m))
     else:
         C, n, m = [x.float() for x in state]
 
@@ -176,7 +178,7 @@ def _mlstm_chunkwise(q, k, v, ig, fg, chunk: int, state=None):
         from repro_torch.launch.cost_analysis import count_as
         nch = s // chunk
         out, C, n, m = count_as(nch, lambda: step(0, C, n, m),
-                                [q, k, v, ig, fg, C, n, m])
+                                [q, k, v, ig, fg, C, n, m], carry=3)
         out = carried_grads(out, C, n, m)
         out = out[:, :, None].expand(b, h, nch, chunk, dh).reshape(
             b, h, s, dh)
@@ -359,12 +361,13 @@ def slstm_block(cfg: ModelConfig, p, x: torch.Tensor, cache=None,
         # and counted as the s it stands for
         from repro_torch.launch.cost_analysis import count_as
         state = tuple(carried(t, like=xg) for t in state)
-        if torch.is_grad_enabled() and is_distributed(xg):
+        if torch.is_grad_enabled():
             # the step's state comes from the step before: its gradient
-            # flows on (the reference's scan computes it each step)
+            # flows on (the reference's scan computes it each step), and
+            # the one step walked keeps what a later step keeps for it
             state = tuple(t.detach().requires_grad_() for t in state)
         state = count_as(s, lambda: _slstm_cell(p, xg[:, 0], state, nh),
-                         [xg, *state])
+                         [xg, *state], carry=4)
         hs = carried_grads(state[3], *state[:3])
         hs = hs.to(compute_dtype)[:, None].expand(b, s, d)
     else:

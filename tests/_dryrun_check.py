@@ -70,11 +70,20 @@ def check_cells(arch, shapes, memory_only=False, dot_rtol=0.10):
         assert gm["alias_bytes"] == wm["alias_bytes"], (s, gm, wm)
         # XLA's output adds the output tuple's table: 8 bytes a leaf
         assert 0 <= wm["output_bytes"] - gm["output_bytes"] <= 1024, (gm, wm)
+        # the working memory beyond arguments and outputs, by eager
+        # PyTorch's buffers against XLA's: reported, not held (the
+        # reference's CPU compile runs dots in f32 and schedules on its
+        # own terms); a train or prefill step holds some
+        temp = gm["temp_bytes"]
+        assert isinstance(temp, int) and temp >= 0, gm
+        assert temp > 0 or s.split("_")[0] not in ("train", "prefill"), gm
+        temps = (f"temp {temp:,} / {wm['temp_bytes']:,} "
+                 f"({temp / max(wm['temp_bytes'], 1):.4f})")
         if memory_only:
             print(f"{arch} x {s} per device: argument bytes "
                   f"{gm['argument_bytes']:,}; alias {gm['alias_bytes']:,}; "
                   f"output {gm['output_bytes']:,} / {wm['output_bytes']:,}; "
-                  f"walk {g['step_s']} s")
+                  f"{temps}; walk {g['step_s']} s")
             continue
         assert g["sharding_fallbacks"] == w["sharding_fallbacks"], s
         dot = g["dot_flops_per_device"] / w["dot_flops"]
@@ -116,7 +125,7 @@ def check_cells(arch, shapes, memory_only=False, dot_rtol=0.10):
               + f"; port only {extra:.0f}; "
               f"argument bytes {gm['argument_bytes']:,}; alias "
               f"{gm['alias_bytes']:,}; output {gm['output_bytes']:,} / "
-              f"{wm['output_bytes']:,}; walk {g['step_s']} s")
+              f"{wm['output_bytes']:,}; {temps}; walk {g['step_s']} s")
     return got
 
 
