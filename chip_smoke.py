@@ -157,7 +157,10 @@ elastic checkpoint restore.
               10 %, 1 % and 1 %, no op replicated), and so xlstm-125m x
               train_4k, gemma2-27b x train_4k and deepseek-v3-671b x
               prefill_32k (DRYRUN_XLSTM_REF, DRYRUN_GEMMA_REF,
-              DRYRUN_MLA_REF: dot FLOPs within 1 %); (b) a one-rank
+              DRYRUN_MLA_REF: dot FLOPs within 1 %), and gemma2-2b x
+              train_4k on the 2x16x16 mesh (DRYRUN_POD_REF: the same,
+              its two fallbacks); every train cell's temp bytes within
+              DRYRUN_TEMP_FACTOR of the reference's; (b) a one-rank
               NCCL world (``make_host_mesh()``): the shard_map MoE
               (``expert_sharding="ep_sm"``, deepseek-v3 smoke, float32,
               4 x 4096 tokens) forward and gradients against the card's
@@ -3041,6 +3044,7 @@ DRYRUN_FALLBACKS = ("kv_heads=4 !-> ('model',) (indivisible)",
 # DRYRUN_ELEMENTS_RTOL, a kind the reference lacks under
 # DRYRUN_EXTRA_SHARE of the port's elements
 DRYRUN_REF = {"alias_bytes": 384_224_260, "output_bytes": 384_224_904,
+              "temp_bytes": 86_495_514_968,
               "dot_flops": 445_203_425_001_472,
               "flops": 449_907_023_205_441, "bytes": 14_411_385_345_458,
               "coll_traffic": 126_633_775_156,
@@ -3052,6 +3056,10 @@ DRYRUN_DOT_RTOL = 0.10
 DRYRUN_COLL_FACTOR = 2.0
 DRYRUN_ELEMENTS_RTOL = 0.01
 DRYRUN_EXTRA_SHARE = 1e-3
+# a train cell's temp bytes (its working memory beyond arguments and
+# outputs: eager's buffers against XLA's) at most this factor of the
+# reference's, where the reference's is committed
+DRYRUN_TEMP_FACTOR = 2.5
 # ... and of granite-3-2b x train_4k, whose 32 query heads over 8 KV
 # heads GSPMD splits over "model" cut into 8 x 2 (tests/_dryrun_ref.py
 # on the CPU; the port walks that cell on a mesh so cut and is held to
@@ -3144,18 +3152,34 @@ DRYRUN_MLA_REF = {"argument_bytes": 9_065_799_680,
                   "coll_elements": {"all-reduce(g=16)": 330_242_719_744,
                                     "all-gather(g=16)": 15_569_256_448,
                                     "all-to-all(g=16)": 544_923_975_680}}
+# ... and of gemma2-2b x train_4k on the 2x16x16 mesh ("pod", "data",
+# "model"; the batch over "pod" x "data"), held as DRYRUN_MOE_REF is,
+# with DRYRUN_FALLBACKS
+DRYRUN_POD_REF = {"argument_bytes": 384_486_408,
+                  "alias_bytes": 384_224_260,
+                  "output_bytes": 384_224_904,
+                  "temp_bytes": 43_402_752_280,
+                  "dot_flops": 222_601_712_500_736,
+                  "coll_traffic": 65_399_569_524.5,
+                  "coll_elements": {"all-gather(g=16)": 1_092_354_048,
+                                    "collective-permute(g=512)": 73_617_408,
+                                    "all-reduce(g=32)": 60_109_058,
+                                    "all-reduce(g=16)": 8_067_710_998,
+                                    "all-reduce(g=2)": 8_773_632}}
 MESH_ATOL = 1e-5        # ep_sm vs no mesh: forward (abs), grads (rel)
 MESH_TRAIN_ATOL = 1e-5  # launch.train's losses, mesh vs no mesh
 
 
 def start_dryrun(out: Path, arch: str = "gemma2-2b",
-                 shape: str = "train_4k") -> subprocess.Popen:
-    """Phase 14a's dry run of ``arch`` x ``shape``, started early in a
-    process of its own."""
+                 shape: str = "train_4k",
+                 multi_pod: bool = False) -> subprocess.Popen:
+    """Phase 14a's dry run of ``arch`` x ``shape`` (``multi_pod``: on the
+    2x16x16 mesh), started early in a process of its own."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         arch, "--shape", shape, "--json", str(out)],
+         arch, "--shape", shape, "--json", str(out)]
+        + (["--multi-pod"] if multi_pod else []),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
         cwd=ROOT)
 
@@ -3279,7 +3303,16 @@ def _check_against(cell: dict, ref: dict, dot_rtol: float) -> tuple:
     extra = sum(v for k, v in ge.items() if k not in we)
     assert extra <= DRYRUN_EXTRA_SHARE * sum(ge.values()), ge
     assert cell["replicated_ops"] == {}, cell["replicated_ops"]
+    _check_temp(cell, ref)
     return dot, coll, kinds, extra
+
+
+def _check_temp(cell: dict, ref: dict) -> None:
+    """A train cell's temp bytes within DRYRUN_TEMP_FACTOR of the
+    reference's, where ``ref`` has them."""
+    if "temp_bytes" in ref and cell["shape"].startswith("train"):
+        temp = cell["memory"]["temp_bytes"]
+        assert temp <= DRYRUN_TEMP_FACTOR * ref["temp_bytes"], (temp, ref)
 
 
 def _print_against(label: str, cell: dict, ref: dict, checked: tuple):
@@ -3293,7 +3326,11 @@ def _print_against(label: str, cell: dict, ref: dict, checked: tuple):
           f"reference partition's), collective traffic {coll:.4f} x, "
           f"elements by kind x the reference's "
           f"{ {k: round(r, 4) for k, r in kinds.items()} }, port only "
-          f"{extra:.0f}; replicated ops {cell['replicated_ops']}")
+          f"{extra:.0f}; replicated ops {cell['replicated_ops']}"
+          + (f"; temp bytes {mem['temp_bytes']:,} (reference "
+             f"{ref['temp_bytes']:,}: "
+             f"{mem['temp_bytes'] / ref['temp_bytes']:.4f} x, bound "
+             f"{DRYRUN_TEMP_FACTOR} x)" if "temp_bytes" in ref else ""))
 
 
 def check_dryrun_gqa(proc: subprocess.Popen, path: Path) -> dict:
@@ -3311,12 +3348,17 @@ def check_dryrun_gqa(proc: subprocess.Popen, path: Path) -> dict:
 
 
 def check_dryrun_exact(proc: subprocess.Popen, path: Path, ref: dict,
-                       label: str) -> dict:
-    """A phase 14a cell with no sharding fallbacks against its reference
-    partition (DRYRUN_MOE_REF, DRYRUN_LONG_REF): the GQA cell's checks,
-    its dot FLOPs within DRYRUN_MOE_DOT_RTOL."""
+                       label: str, fallbacks: tuple = ()) -> dict:
+    """A phase 14a cell against its reference partition (DRYRUN_MOE_REF,
+    DRYRUN_LONG_REF): the GQA cell's checks, its dot FLOPs within
+    DRYRUN_MOE_DOT_RTOL; no sharding fallbacks, or ``fallbacks``."""
     cell = _dryrun_cell(proc, path)
-    assert cell["sharding_fallbacks"] == DRYRUN_MOE_FALLBACKS, cell
+    if fallbacks:
+        for line in fallbacks:
+            assert f"[{cell['arch']}/{cell['shape']}] {line}" \
+                in cell["sharding_fallbacks"], cell["sharding_fallbacks"]
+    else:
+        assert cell["sharding_fallbacks"] == DRYRUN_MOE_FALLBACKS, cell
     checked = _check_against(cell, ref, DRYRUN_MOE_DOT_RTOL)
     _print_against(label, cell, ref, checked)
     return cell
@@ -3362,6 +3404,7 @@ def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
         (kinds, ge)
     extra = sum(v for k, v in ge.items() if k not in we)
     assert extra <= DRYRUN_EXTRA_SHARE * sum(ge.values()), ge
+    _check_temp(cell, DRYRUN_REF)
     t = cell["terms"]
     assert t["collective_s"] is not None and t["collective_s"] > 0, t
     print(f"[mesh] (a) dry run gemma2-2b x train_4k on the 16x16 mesh (one "
@@ -3379,7 +3422,11 @@ def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
           f"collective traffic {cell['coll_traffic_per_device']:.4e} B "
           f"({coll:.4f} x the reference's) {cell['coll_breakdown']}, "
           f"elements by kind x the reference's "
-          f"{ {k: round(r, 4) for k, r in kinds.items()} }; "
+          f"{ {k: round(r, 4) for k, r in kinds.items()} }; temp bytes "
+          f"{cell['memory']['temp_bytes']:,} (reference "
+          f"{DRYRUN_REF['temp_bytes']:,}: "
+          f"{cell['memory']['temp_bytes'] / DRYRUN_REF['temp_bytes']:.4f} x, "
+          f"bound {DRYRUN_TEMP_FACTOR} x); "
           f"roofline terms from the H100 data sheet: compute "
           f"{t['compute_s'] * 1e3:.2f} ms ({PEAK_FLOPS_BF16:.3g} FLOP/s "
           f"bf16), memory {t['memory_s'] * 1e3:.2f} ms ({HBM_BW:.3g} B/s), "
@@ -3395,8 +3442,8 @@ def phase_mesh(dev, smi: str, dryrun: subprocess.Popen, dry_json: Path,
         f"{DRYRUN_LONG_SHAPE} on the 16x16 mesh, the queries' heads and "
         "the cache's sequence both over \"model\"")
     assert long_dry["coll_elements"]["collective-permute(g=256)"] > 0
-    for proc, path, ref, label in more:
-        check_dryrun_exact(proc, path, ref, label)
+    for proc, path, ref, label, fallbacks in more:
+        check_dryrun_exact(proc, path, ref, label, fallbacks)
 
     # (b) a one-rank NCCL world on the card
     mesh = make_host_mesh()
@@ -4149,18 +4196,22 @@ def main() -> int:
     atexit.register(lambda: dryrun_long.poll() is None
                     and dryrun_long.kill())
     more = []
-    for name, arch, shape, ref, label in (
+    for name, arch, shape, ref, label, pod in (
+            ("pod", "gemma2-2b", "train_4k", DRYRUN_POD_REF,
+             "the batch over \"pod\" x \"data\"", True),
             ("xlstm", DRYRUN_XLSTM_ARCH, DRYRUN_XLSTM_SHAPE,
-             DRYRUN_XLSTM_REF, "the xLSTM blocks' partition"),
+             DRYRUN_XLSTM_REF, "the xLSTM blocks' partition", False),
             ("gemma", DRYRUN_GEMMA_ARCH, DRYRUN_GEMMA_SHAPE,
-             DRYRUN_GEMMA_REF, "attention's einsums on their blocks"),
+             DRYRUN_GEMMA_REF, "attention's einsums on their blocks", False),
             ("mla", DRYRUN_MLA_ARCH, DRYRUN_MLA_SHAPE, DRYRUN_MLA_REF,
-             "MLA's einsums on their blocks, the cache's pad")):
+             "MLA's einsums on their blocks, the cache's pad", False)):
         path = Path(tmp.name) / f"dryrun_{name}.json"
-        proc = start_dryrun(path, arch, shape)
+        proc = start_dryrun(path, arch, shape, pod)
         atexit.register(lambda p=proc: p.poll() is None and p.kill())
+        mesh = "2x16x16" if pod else "16x16"
         more.append((proc, path, ref,
-                     f"{arch} x {shape} on the 16x16 mesh, {label}"))
+                     f"{arch} x {shape} on the {mesh} mesh, {label}",
+                     DRYRUN_FALLBACKS if pod else ()))
     mem_json = Path(tmp.name) / "memory_walks.json"
     mem_walks = start_memory_walks(mem_json)
     atexit.register(lambda: mem_walks.poll() is None and mem_walks.kill())

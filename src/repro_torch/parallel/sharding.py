@@ -541,13 +541,21 @@ class _Gather(torch.autograd.Function):
     axis is then its use axis, over which its gradient is computed in
     slabs (``weight_grad_slab``).  Backward, as that HLO reduces the
     gradient: its partial sums all-reduced (XLA's CPU pipeline forms no
-    reduce-scatter), moved back to the stored axis or sliced to it."""
+    reduce-scatter), moved back to the stored axis or sliced to it.  A
+    gradient gathered where it is stored and partial over more axes
+    than the FSDP one (the batch over "pod" x "data" on the 2x16x16
+    mesh) is reduced over the FSDP axis and sliced to its block first,
+    and that block then over the rest (the reference's all-reduce over
+    "data" of each FFN weight's gathered gradient, then over "pod" of
+    its shard)."""
 
     @staticmethod
     def forward(ctx, p, dims, gather: bool):
         from torch.distributed.tensor import Replicate
         mesh, stored = p.device_mesh, list(p.placements)
         ctx.stored, ctx.shape, ctx.use = stored, tuple(p.shape), None
+        ctx.fsdp = [m for m, q in enumerate(stored)
+                    if q.is_shard() and q.dim in dims]
         axes = _use_axes(p, dims)
         if axes is not None:
             a, b = axes
@@ -568,6 +576,12 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, g):
         from torch.distributed.tensor import Replicate
         mesh = g.device_mesh
+        partial = {m for m, q in enumerate(g.placements) if q.is_partial()}
+        if ctx.use is None and ctx.fsdp and set(ctx.fsdp) < partial:
+            g = g.redistribute(mesh, [Replicate() if m in ctx.fsdp else q
+                                      for m, q in enumerate(g.placements)])
+            g = g.redistribute(mesh, [ctx.stored[m] if m in ctx.fsdp else q
+                                      for m, q in enumerate(g.placements)])
         g = g.redistribute(mesh, [Replicate() if q.is_partial() else q
                                   for q in g.placements])
         if ctx.use is not None and list(g.placements) == ctx.moved:
@@ -749,10 +763,31 @@ def reduced_product(func, out):
     if not _GSPMD.active or _GSPMD.keep_partial \
             or name not in ("mm", "bmm", "sum") \
             or not isinstance(out, DTensor) \
-            or not any(q.is_partial() for q in out.placements):
+            or not any(q.is_partial() for q in out.placements) \
+            or _reduced_in_stages(out):
         return out
     return out.redistribute(out.device_mesh, [
         Replicate() if q.is_partial() else q for q in out.placements])
+
+
+def _reduced_in_stages(out) -> bool:
+    """Whether ``out``, a product's partial sums, is the gradient of a
+    weight gathered where it is stored (``_Gather``, no use axis) and
+    partial over more mesh dims than its FSDP ones: ``_Gather``'s
+    backward reduces it, over the FSDP axis first."""
+    node = torch._C._current_autograd_node()
+    if type(node).__name__ not in ("MmBackward0", "BmmBackward0"):
+        return False
+    partial = {m for m, q in enumerate(out.placements) if q.is_partial()}
+    for fn, _ in node.next_functions:
+        while fn is not None and type(fn).__name__ in _VIEW_NODES:
+            fn = fn.next_functions[0][0]
+        if fn is not None and type(fn).__name__ == "_GatherBackward" \
+                and fn.use is None and fn.fsdp \
+                and set(fn.fsdp) < partial \
+                and out.numel() == math.prod(fn.shape):
+            return True
+    return False
 
 
 # the autograd nodes between a gathered weight and the product using it
@@ -1689,6 +1724,79 @@ def masked_gather(func, args):
         Replicate() if q.is_partial() else q for q in placements])
 
 
+def gathered_on_blocks(func, args, kwargs):
+    """A ``gather`` of one entry a row (``index.shape[dim] == 1``: the
+    cross-entropy's gold logit) from a DTensor under autograd, as GSPMD
+    partitions its transpose (``_GatherOnBlocks``): the forward is
+    DTensor's own (masked where the operand splits the gathered dim),
+    the operand's gradient a block of its own, scattered where the
+    entry falls in it — no collective and no block of the global shape
+    (DTensor's ``gather_backward`` makes its zeros whole and replicated:
+    (256, 4096, 256000) f32 on gemma2-2b train_4k).  The index must be
+    split as the operand is along every other dim.  None for any other
+    op."""
+    from torch.distributed.tensor import DTensor, Shard
+    if func not in (torch.gather, torch.Tensor.gather) \
+            or not torch.is_grad_enabled():
+        return None
+    names = ("input", "dim", "index")
+    given = dict(zip(names, args), **kwargs)
+    x, dim, index = (given.get(k) for k in names)
+    if set(given) - set(names) or not isinstance(x, DTensor) \
+            or not isinstance(index, DTensor) or not x.requires_grad \
+            or index.ndim != x.ndim:
+        return None
+    dim %= x.ndim
+    if index.shape[dim] != 1 or any(
+            index.shape[d] != x.shape[d] for d in range(x.ndim) if d != dim):
+        return None
+    for qx, qi in zip(x.placements, index.placements):
+        if qx.is_shard(dim) and type(qx) is Shard:
+            ok = qi.is_replicate()
+        else:
+            ok = qi == qx and (qx.is_replicate() or type(qx) is Shard)
+        if not ok:
+            return None
+    return _GatherOnBlocks.apply(x, dim, index)
+
+
+class _GatherOnBlocks(torch.autograd.Function):
+    """``gathered_on_blocks``: each rank's gradient rows (as the index is
+    split) scattered into zeros of the operand's block, where the index,
+    less the block's offset along ``dim``, falls inside it."""
+
+    @staticmethod
+    def forward(ctx, x, dim, index):
+        ctx.dim, ctx.mesh = dim, x.device_mesh
+        ctx.placements, ctx.shape = list(x.placements), x.shape
+        ctx.local = (x._local_tensor.shape, x.dtype)
+        ctx.save_for_backward(index)
+        return torch.gather(x, dim, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+        index, = ctx.saved_tensors
+        dim, mesh, shape = ctx.dim, ctx.mesh, ctx.shape
+        rows = [Replicate() if q.is_shard(dim) else q
+                for q in ctx.placements]
+        if list(g.placements) != rows:
+            g = g.redistribute(mesh, rows)
+        start = compute_local_shape_and_global_offset(
+            shape, mesh, ctx.placements)[1][dim]
+        local, dtype = ctx.local
+        n = local[dim]
+        g = g._local_tensor
+        at = index._local_tensor - start
+        inside = (at >= 0) & (at < n)
+        block = torch.zeros(local, dtype=dtype, device=g.device)
+        block.scatter_add_(dim, torch.clamp(at, 0, n - 1), torch.where(
+            inside, g, torch.zeros((), dtype=dtype, device=g.device)))
+        return _placed(block, mesh, ctx.placements, shape), None, None
+
+
 def _split_off(x, index):
     """``x`` with each split that ``index`` shares (the same mesh dim splits
     both) moved to a mesh dim of the same size on which neither is split
@@ -2388,8 +2496,9 @@ class _GspmdOps(TorchFunctionMode):
     but for ``_STORED_READS`` (the optimizer's update, without autograd,
     reads the stored block), a product with a weight may contract over
     its split (``_contract_split``), a softmax or log-sum-exp keeps a
-    split dim split (``_split_reduction``) and a sort takes its operand
-    whole (``_top_k_whole``)."""
+    split dim split (``_split_reduction``), a sort takes its operand
+    whole (``_top_k_whole``) and a gather of one entry a row takes its
+    gradient on the operand's blocks (``gathered_on_blocks``)."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         from torch.utils._pytree import tree_map
@@ -2404,6 +2513,8 @@ class _GspmdOps(TorchFunctionMode):
         out = _split_reduction(func, args, kwargs)
         if out is None:
             out = _top_k_whole(func, args, kwargs)
+        if out is None:
+            out = gathered_on_blocks(func, args, kwargs)
         if out is not None:
             return out
         if torch.is_grad_enabled() and func not in _STORED_READS \
@@ -2440,8 +2551,12 @@ class _GspmdOps(TorchFunctionMode):
                 args = (args[0], _table_for_lookup(args[0], args[1])) \
                     + tuple(args[2:])
             else:
-                args = (_tokens_for_lookup(args[0], args[1]),) \
-                    + tuple(args[1:])
+                tokens = _tokens_for_lookup(args[0], args[1])
+                if tokens is args[0]:
+                    args = (tokens, _table_for_lookup(
+                        tokens, args[1], among=True)) + tuple(args[2:])
+                else:
+                    args = (tokens,) + tuple(args[1:])
         return func(*args, **kwargs)
 
 
@@ -2795,7 +2910,7 @@ def _einsum_on_blocks(args):
     return y
 
 
-def _table_for_lookup(tokens, table):
+def _table_for_lookup(tokens, table, among: bool = False):
     """The table of an embedding lookup (``lookup_by_table``) whose vocab
     one mesh axis splits and whose rows the tokens' axis splits, as the
     reference's partition of xlstm-125m train_4k reads it: the two
@@ -2803,7 +2918,13 @@ def _table_for_lookup(tokens, table):
     f32[3144,48]), the vocab then gathered over the tokens' axis (an
     all-gather, f32[50304,48]), so that each rank looks its tokens up
     in its columns and the lookup leaves the embedding dim split as
-    the vocab was.  The table as it is for any other lookup."""
+    the vocab was.  ``among``: the tokens split over several axes, the
+    rows' among them (the batch over "pod" x "data" on the 2x16x16
+    mesh, where the reference's gemma2-2b train_4k reads its table so:
+    f32[16000,144] permuted, f32[256000,144] gathered), the gradient's
+    partial sums over them all reduced at once (its f32[256000,144]
+    all-reduce over the 32), then sliced (``_ReducedAtOnce``).  The
+    table as it is for any other lookup."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     if not (_GSPMD.active and isinstance(tokens, DTensor)
             and isinstance(table, DTensor)) or table.ndim != 2:
@@ -2815,9 +2936,13 @@ def _table_for_lookup(tokens, table):
                                      for m in ms)]
     split = [ms for ms in axes if all(type(tokens.placements[m]) is Shard
                                       for m in ms)]
-    if len(vocab) != 1 or rows != split or len(split) != 1:
+    if among:
+        fits = len(rows) == 1 and len(split) > 1 and rows[0] in split
+    else:
+        fits = rows == split and len(split) == 1
+    if len(vocab) != 1 or not fits:
         return table
-    a, b = split[0], vocab[0]
+    a, b = rows[0], vocab[0]
     mesh = table.device_mesh
     if math.prod(mesh.size(m) for m in a) \
             != math.prod(mesh.size(m) for m in b):
@@ -2828,8 +2953,30 @@ def _table_for_lookup(tokens, table):
     for m in b:
         swapped[m] = Shard(1)
     table = _move_split(table, a, b, swapped)
-    return table.redistribute(mesh, [Replicate() if m in a else q
-                                     for m, q in enumerate(swapped)])
+    whole = [Replicate() if m in a else q for m, q in enumerate(swapped)]
+    if among:
+        return _ReducedAtOnce.apply(table, whole)
+    return table.redistribute(mesh, whole)
+
+
+class _ReducedAtOnce(torch.autograd.Function):
+    """``x`` redistributed to ``placements``; its gradient's partial sums
+    all-reduced over every mesh dim at once, then laid out as ``x``
+    (DTensor's own backward would reduce-scatter over the dims ``x``
+    splits and all-reduce over the rest)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = list(x.placements)
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        mesh = g.device_mesh
+        g = g.redistribute(mesh, [Replicate() if q.is_partial() else q
+                                  for q in g.placements])
+        return g.redistribute(mesh, ctx.placements), None
 
 
 def _tokens_for_lookup(tokens, table):

@@ -1,5 +1,5 @@
 """The reference's dry run of one arch's cells on its 16x16 production
-mesh, rebuilt with Auto axes (JAX 0.9 makes Explicit axes, where its own
+mesh (``--multi-pod``: its 2x16x16 one), rebuilt with Auto axes (JAX 0.9 makes Explicit axes, where its own
 ``tests/test_dryrun.py`` fails; nothing in ``src/repro`` changes for
 that): ``run_cell``'s report, plus the partition's dot FLOPs and the
 elements each kind of collective moves, read from the compiled HLO with
@@ -7,6 +7,7 @@ the reference's own ``parse_module``, ``_dot_flops`` and ``_trip_count``.
 Prints ``RESULT`` and the reports as JSON, a cell a key::
 
     PYTHONPATH=src python tests/_dryrun_ref.py gemma2-2b train_4k long_500k
+    PYTHONPATH=src python tests/_dryrun_ref.py --multi-pod gemma2-2b train_4k
 
 With ``DRYRUN_BY_SOURCE=1`` in the environment each report also has
 ``coll_by_source``: each kind's elements and the dot FLOPs by the code
@@ -75,12 +76,14 @@ def _where(ins, source):
         + (source(int(frame.group(1))) if frame else "?")
 
 
-def partition(text):
+def partition(text, devices):
     # the partition's dot FLOPs and the elements each kind of collective
     # moves: every instruction of the module, a while body's times its
     # trip count, a fusion's or call's counted where it is called (the
     # call graph hlo_analysis.ModuleCost walks); with BY_SOURCE, both
-    # split by source
+    # split by source.  A collective without replica groups spans the
+    # mesh's ``devices`` (the reference's own ``coll_breakdown`` labels
+    # it so)
     comps = h.parse_module(text)
     elements = collections.Counter()
     by_source = collections.Counter()
@@ -104,7 +107,7 @@ def partition(text):
                     by_source[f"dot | {_where(ins, source)}"] += f
             for kind in h.COLLECTIVES:
                 if ins.opcode in (kind, kind + "-start"):
-                    g = h._group_size(ins.attrs, 256)
+                    g = h._group_size(ins.attrs, devices)
                     n = trips * h._shape_bytes_elems(ins.type_str)[1]
                     elements[f"{kind}(g={g})"] += n
                     if source:
@@ -125,13 +128,17 @@ def auto_mesh(*, multi_pod=False):
 d.mesh_lib.make_production_mesh = auto_mesh
 texts = []
 analyze = d.analyze
-d.analyze = lambda text, n: (texts.append(text), analyze(text, n))[1]
+d.analyze = lambda text, n: (texts.append((text, n)), analyze(text, n))[1]
+args = sys.argv[1:]
+multi_pod = "--multi-pod" in args
+if multi_pod:
+    args.remove("--multi-pod")
 out = {}
-for s in sys.argv[2:]:
-    out[s] = d.run_cell(sys.argv[1], s, False, verbose=False)
+for s in args[1:]:
+    out[s] = d.run_cell(args[0], s, multi_pod, verbose=False)
     if out[s]["status"] == "ok":     # a skipped or failed cell has no HLO
         out[s]["dot_flops"], out[s]["coll_elements"], by_source = \
-            partition(texts.pop())
+            partition(*texts.pop())
         if BY_SOURCE:
             out[s]["coll_by_source"] = by_source
 print("RESULT " + json.dumps(out))

@@ -1,5 +1,5 @@
 """The port's dry run against the reference's partition, cell by cell, on
-the 16x16 production mesh (CPU).  For each ``arch shape`` cell it runs
+the 16x16 production mesh (``--multi-pod``: the 2x16x16 one; CPU).  For each ``arch shape`` cell it runs
 the reference (``tests/_dryrun_ref.py``: ``run_cell`` plus one SPMD
 partition's dot FLOPs and the elements each kind of collective moves)
 and the port (``repro_torch.launch.dryrun.run_cell``) in a subprocess
@@ -12,6 +12,7 @@ is equal, ``replicated_ops`` and the port's walk seconds::
     PYTHONPATH=src python tests/_dryrun_survey.py                # all cells
     PYTHONPATH=src python tests/_dryrun_survey.py granite-3-2b:train_4k \\
         xlstm-125m:decode_32k --jobs 2 --timeout 600 --json out.json
+    PYTHONPATH=src python tests/_dryrun_survey.py --multi-pod --json pod.json
     python tests/_dryrun_survey.py --compare before.json after.json
 
 A skipped cell reads ``skip``; a cell whose run outlasts ``--timeout``
@@ -45,13 +46,15 @@ import json, os, sys
 from repro_torch.launch import cost_analysis
 from repro_torch.launch.dryrun import run_cell
 cost_analysis.BY_SOURCE = os.environ.get("DRYRUN_BY_SOURCE") == "1"
-out = {s: run_cell(sys.argv[1], s, False, verbose=False)
-       for s in sys.argv[2:]}
+multi_pod = sys.argv[1] == "--multi-pod"
+arch, shapes = sys.argv[1 + multi_pod], sys.argv[2 + multi_pod:]
+out = {s: run_cell(arch, s, multi_pod, verbose=False) for s in shapes}
 print("RESULT " + json.dumps(out))
 """
 
 
 SOURCES = False       # --sources
+MULTI_POD = False     # --multi-pod
 
 
 def _env():
@@ -80,12 +83,13 @@ def _run(cmd, timeout):
 
 def survey_cell(arch, shape, timeout):
     """The reference's and the port's reports of one cell."""
+    flag = ["--multi-pod"] if MULTI_POD else []
     with ThreadPoolExecutor(2) as ex:
         ref = ex.submit(_run, [sys.executable, str(ROOT / "tests" /
                                                    "_dryrun_ref.py"),
-                               arch, shape], timeout)
-        port = ex.submit(_run, [sys.executable, "-c", _PORT, arch, shape],
-                         timeout)
+                               *flag, arch, shape], timeout)
+        port = ex.submit(_run, [sys.executable, "-c", _PORT, *flag, arch,
+                                shape], timeout)
         (w, tw), (g, tg) = ref.result(), port.result()
     w = w.get(shape, w)
     g = g.get(shape, g)
@@ -144,10 +148,11 @@ def source_lines(cell):
 def _verdict(cell):
     """A cell in a few words: its dot FLOPs ratio, the kinds of
     collective off by more than 1 % (or missing, or the port's alone
-    above 0.1 % of its elements), the memory columns that differ."""
+    above 0.1 % of its elements), the memory columns that differ, the
+    temp bytes port / reference, the ops run replicated, the walk s."""
     w, g = cell["ref"], cell["port"]
     if w.get("status") != "ok" or g.get("status") != "ok":
-        return g.get("status", "?"), "", "", ""
+        return g.get("status", "?"), "", "", "", "", ""
     ge, we = g["coll_elements"], w["coll_elements"]
     off = [f"{k.split('(')[0].replace('collective-', 'c')}"
            f"{k[k.index('('):]} " + (f"{ge[k] / we[k]:.3g}" if k in ge
@@ -162,19 +167,24 @@ def _verdict(cell):
             - g["memory"]["output_bytes"] <= 1024:
         mem.append("output")
     dot = g["dot_flops_per_device"] / w["dot_flops"]
+    temp = g["memory"]["temp_bytes"] / max(w["memory"]["temp_bytes"], 1)
     return (f"{dot:.4f}", "; ".join(off) or "all 1 %",
-            ", ".join(mem) or "=", f"{g['step_s']}")
+            ", ".join(mem) or "=", f"{temp:.4f}",
+            ", ".join(f"{k} {v}" for k, v in g["replicated_ops"].items())
+            or "none", f"{g['step_s']}")
 
 
 def compare(before, after):
-    """A markdown row a cell: dot FLOPs, kinds and memory before → after
-    (two ``--json`` files of this script), walk seconds."""
+    """A markdown row a cell: dot FLOPs, kinds, memory, temp bytes and
+    replicated ops before → after (two ``--json`` files of this script;
+    one file twice: its own table), walk seconds."""
     old = {(c["arch"], c["shape"]): c for c in before}
-    print("| cell | dot | kinds off | memory off | walk s |")
-    print("|---|---|---|---|---|")
+    print("| cell | dot | kinds off | memory off | temp | replicated "
+          "| walk s |")
+    print("|---|---|---|---|---|---|---|")
     for c in after:
         b = old.get((c["arch"], c["shape"]))
-        v1, v2 = _verdict(b) if b else ("",) * 4, _verdict(c)
+        v1, v2 = _verdict(b) if b else ("",) * 6, _verdict(c)
         if v2[0] == "skip":
             continue
         cols = [f"{x} → {y}" if x != y else y for x, y in zip(v1, v2)]
@@ -191,9 +201,11 @@ def main(argv=None):
                     help="two --json files: print the table, run nothing")
     ap.add_argument("--sources", action="store_true",
                     help="split each kind and the dot FLOPs by source")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the 2x16x16 mesh, on both sides")
     args = ap.parse_args(argv)
-    global SOURCES
-    SOURCES = args.sources
+    global SOURCES, MULTI_POD
+    SOURCES, MULTI_POD = args.sources, args.multi_pod
     if args.compare:
         before, after = (json.load(open(f)) for f in args.compare)
         return compare(before, after)

@@ -23,6 +23,11 @@ each on a toy op on the 16x16 production mesh (one rank's share,
     by all-to-alls;
   * ``gspmd_fallback``'s pad: along dims no mesh dim splits on the
     blocks, along a split dim gathered first;
+  * ``gathered_on_blocks``: the cross-entropy's gold gather takes its
+    gradient on the logits' blocks (split like the logits, no
+    collective, no block of the global shape); on a 2 x 4 gloo world of
+    real CPU blocks, that gradient assembled equals the unpartitioned
+    one bit for bit;
   * on "model" cut 4 x 4 (``launch.mesh.factor_axis``):
     ``reduced_by_heads`` reduces a product's partial sums over the
     heads' factor, slices the head, then over the other factor (or over
@@ -30,16 +35,22 @@ each on a toy op on the 16x16 production mesh (one rank's share,
     ``_take_split`` leaves an update split over both factors.
 
 The production mesh lives on a dry-run world (the ``fake`` backend), so
-every case runs in one subprocess (its results checked here)."""
+every case runs in one subprocess (its results checked here); the gloo
+world's 8 ranks are this file run as a script (spawn, ``FileStore``)."""
 import json
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+DATA, MODEL = 2, 4                  # the gloo world's mesh
+XENT_SHAPE = (4, 6, 16)             # (batch, seq, vocab)
+XENT_RTOL = 1e-6
 
 _CASES = r"""
 import json
@@ -53,13 +64,14 @@ mesh = m.make_production_mesh()
 R, S = Replicate(), Shard
 
 
-def dt(shape, placements, grad=False):
+def dt(shape, placements, grad=False, dtype=torch.float32):
     local = list(shape)
     for i, p in enumerate(placements):
         if p.is_shard():
             local[p.dim] //= mesh.size(i)
     stride = torch.empty(shape, device="meta").stride()
-    t = DTensor.from_local(torch.empty(local, device="meta"), mesh,
+    t = DTensor.from_local(torch.empty(local, device="meta", dtype=dtype),
+                           mesh,
                            placements, run_check=False,
                            shape=torch.Size(shape), stride=stride)
     return t.detach().requires_grad_(grad)
@@ -142,6 +154,28 @@ with sh.gspmd_partitioning():
     c = ca.count_step(lambda: sh.reduced_by_heads(torch.matmul, xc, wq,
                                                   heads=4, whole=True))
     out["cut"] = list(c.axis_cut)
+    # the cross-entropy of (256, 16, 4096) logits, tokens over "data",
+    # vocab over "model" (or whole), its backward alone; and the gold
+    # gather's alone, as softmax_xent gathers and constrains it
+    from repro_torch.models.model import softmax_xent
+    for name, vocab in (("xent", [S(0), S(2)]), ("xent whole", [S(0), R])):
+        for part in ("", " gold"):
+            logits = dt((256, 16, 4096), vocab, grad=True)
+            targets = dt((256, 16), [S(0), R], dtype=torch.long)
+            with sh.activate(mesh, sh.make_rules("train")):
+                if part:
+                    loss = sh.constrain(torch.gather(
+                        logits, -1, targets[..., None]),
+                        "batch", "seq", None)[..., 0]
+                    dy = dt((256, 16), [S(0), R])
+                    c = ca.count_step(lambda: loss.backward(dy))
+                else:
+                    loss = softmax_xent(logits, targets)
+                    c = ca.count_step(lambda: loss.backward())
+            out[name + part] = {"elements": c.coll_elements,
+                                "replicated": c.replicated_ops,
+                                "peak": c.blocks.peak(),
+                                **where(logits.grad)}
 
 # "model" cut 4 x 4 by the heads
 cut = m.factor_axis(mesh, "model", (4, 4))
@@ -311,3 +345,126 @@ def test_an_update_takes_its_operands_split_on_a_cut_mesh(cases):
     c = cases["update cut"]
     assert c["elements"] == {}
     assert c["placements"] == ["R", "S(0)", "S(0)"] and c["local"] == [256]
+
+
+def test_the_gold_gathers_gradient_is_a_block_of_the_logits(cases):
+    """The gold logit gathered from (256, 16, 4096) f32 logits split
+    (16 x 256) a rank and constrained as ``softmax_xent`` constrains it:
+    its gradient is the logits' (16, 16, 256) block, in the logits'
+    placements, with no collective and no op run replicated, and the
+    backward holds that block and the rows (271,620 B), not the
+    (256, 16, 4096) f32 zeros, 16 MiB, that DTensor's ``gather_backward``
+    makes replicated.  With the vocab whole over "model" the block is
+    (16, 16, 4096), split over "data" alone.  The whole cross-entropy's
+    backward keeps the split too (its one all-reduce is the
+    log-sum-exp's 256 rows, with or without the rule)."""
+    block = 16 * 16 * 256 * 4
+    gold = cases["xent gold"]
+    assert gold["elements"] == {} and gold["replicated"] == {}
+    assert gold["placements"] == ["S(0)", "S(2)"]
+    assert gold["local"] == [16, 16, 256]
+    assert block <= gold["peak"] < 2 * block
+    whole = cases["xent whole gold"]
+    assert whole["elements"] == {} and whole["replicated"] == {}
+    assert whole["placements"] == ["S(0)", "R"]
+    assert whole["local"] == [16, 16, 4096]
+    assert 16 * block <= whole["peak"] < 2 * 16 * block
+    xent = cases["xent"]
+    assert xent["elements"] == {"all-reduce(g=16)": 16 * 16}
+    assert xent["replicated"] == {} and xent["local"] == [16, 16, 256]
+    assert xent["placements"] == ["S(0)", "S(2)"]
+    assert xent["peak"] < 256 * 16 * 4096 * 4 // 16
+    assert cases["xent whole"]["placements"] == ["S(0)", "R"]
+
+
+def _xent_inputs():
+    """Logits, targets (some < 0) and a mask (one row masked), numpy,
+    seeded."""
+    rng = np.random.default_rng(0)
+    logits = rng.standard_normal(XENT_SHAPE).astype(np.float32)
+    targets = rng.integers(0, XENT_SHAPE[2], XENT_SHAPE[:2])
+    targets[0, :2] = -1
+    targets[3, 5] = -100
+    mask = np.ones(XENT_SHAPE[:2], np.int32)
+    mask[1] = 0
+    return logits, targets, mask
+
+
+def _gold_nll(logits, targets, mask):
+    """``softmax_xent``'s gold term alone, as it computes it: the mean
+    over the valid tokens of the gathered logit, negated."""
+    from repro_torch.parallel.sharding import constrain
+    valid = (targets >= 0) & (mask > 0)
+    t = torch.clamp_min(targets, 0).long()
+    gold = constrain(torch.gather(logits, -1, t[..., None]),
+                     "batch", "seq", None)[..., 0]
+    return -torch.sum(gold * valid) / torch.clamp_min(torch.sum(valid), 1)
+
+
+def _xent_grads(logits, targets, mask):
+    """The logits' gradients of ``softmax_xent`` and of its gold term."""
+    from repro_torch.models.model import softmax_xent
+    return [torch.autograd.grad(f(logits, targets, mask), logits)[0]
+            for f in (softmax_xent, _gold_nll)]
+
+
+def _worker(rank: int, store: str, out_dir: str):
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, DATA * MODEL),
+                            rank=rank, world_size=DATA * MODEL)
+    try:
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.parallel import sharding as sh
+        mesh = make_host_mesh(data=DATA, model=MODEL, device="cpu")
+        logits, targets, mask = (torch.from_numpy(a) for a in _xent_inputs())
+        rows = [Shard(0), Replicate()]
+        x = DTensor.from_local(logits, mesh, [Replicate()] * 2).redistribute(
+            mesh, [Shard(0), Shard(2)]).detach().requires_grad_()
+        t, m = (DTensor.from_local(a, mesh, [Replicate()] * 2).redistribute(
+            mesh, rows) for a in (targets, mask))
+        with sh.activate(mesh, sh.make_rules("train")), \
+                sh.gspmd_partitioning():
+            grads = _xent_grads(x, t, m)
+        for g in grads:
+            assert list(g.placements) == [Shard(0), Shard(2)], g.placements
+            assert tuple(g.to_local().shape) == (2, 6, 4)
+        full = [g.full_tensor().numpy() for g in grads]
+        np.savez(Path(out_dir) / f"rank{rank}.npz", xent=full[0],
+                 gold=full[1])
+    finally:
+        dist.destroy_process_group()
+
+
+def test_the_gold_gathers_gradient_on_a_gloo_world_is_bit_exact(tmp_path):
+    """On a 2 x 4 ("data", "model") gloo world of real CPU blocks, (4, 6,
+    16) f32 logits split over both: the gold term's gradient assembled
+    from every rank's block equals ``torch.autograd.grad`` of the
+    unpartitioned term bit for bit (targets < 0 and a masked row
+    included), and the whole ``softmax_xent``'s within ``XENT_RTOL`` of
+    its largest magnitude (its log-sum-exp is reduced over the vocab's
+    blocks, in another order)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + str(ROOT / "tests")
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    world = subprocess.run(
+        [sys.executable, __file__, str(tmp_path / "store"), str(tmp_path)],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    assert world.returncode == 0, world.stderr[-3000:]
+    logits, targets, mask = (torch.from_numpy(a) for a in _xent_inputs())
+    want = _xent_grads(logits.requires_grad_(), targets, mask)
+    want = [w.numpy() for w in want]
+    # 24 tokens: row 1 masked (6), three targets < 0
+    assert (want[1] != 0).sum() == 24 - 6 - 3
+    for rank in range(DATA * MODEL):
+        got = np.load(tmp_path / f"rank{rank}.npz")
+        np.testing.assert_array_equal(got["gold"], want[1])
+        err = np.abs(got["xent"] - want[0]).max() / np.abs(want[0]).max()
+        assert err <= XENT_RTOL, (rank, err)
+
+
+if __name__ == "__main__":
+    import torch.multiprocessing as mp
+    mp.start_processes(_worker, args=(sys.argv[1], sys.argv[2]),
+                       nprocs=DATA * MODEL, start_method="spawn")
