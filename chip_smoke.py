@@ -157,9 +157,14 @@ elastic checkpoint restore.
               10 %, 1 % and 1 %, no op replicated), and so xlstm-125m x
               train_4k, gemma2-27b x train_4k and deepseek-v3-671b x
               prefill_32k (DRYRUN_XLSTM_REF, DRYRUN_GEMMA_REF,
-              DRYRUN_MLA_REF: dot FLOPs within 1 %), and gemma2-2b x
-              train_4k on the 2x16x16 mesh (DRYRUN_POD_REF: the same,
-              its two fallbacks); every train cell's temp bytes within
+              DRYRUN_MLA_REF: dot FLOPs within 1 %), and on the
+              2x16x16 mesh gemma2-2b x train_4k (DRYRUN_POD_REF: the
+              same, its two fallbacks), whisper-base x train_4k (each
+              norm's gradient reduced once in the backward;
+              DRYRUN_POD_WHISPER_REF, its three fallbacks) and gemma2-27b
+              x long_500k (the queries gathered by way of "pod" x
+              "data"; DRYRUN_POD_LONG_REF); every train cell's temp bytes
+              within
               DRYRUN_TEMP_FACTOR of the reference's; (b) a one-rank
               NCCL world (``make_host_mesh()``): the shard_map MoE
               (``expert_sharding="ep_sm"``, deepseek-v3 smoke, float32,
@@ -3166,6 +3171,35 @@ DRYRUN_POD_REF = {"argument_bytes": 384_486_408,
                                     "all-reduce(g=32)": 60_109_058,
                                     "all-reduce(g=16)": 8_067_710_998,
                                     "all-reduce(g=2)": 8_773_632}}
+# ... and of whisper-base x train_4k on the 2x16x16 mesh (each norm's
+# scale's and bias's gradient all-reduced once over "pod" x "data" in
+# the backward) and of gemma2-27b x long_500k there (each layer's
+# queries regrouped over "model", moved to "pod" x "data" and
+# all-reduced over the 32), held as DRYRUN_MOE_REF is
+DRYRUN_POD_WHISPER_REF = {"argument_bytes": 69_553_544,
+                          "alias_bytes": 35_736_964,
+                          "output_bytes": 35_737_872,
+                          "temp_bytes": 27_559_601_440,
+                          "dot_flops": 27_529_517_727_744,
+                          "coll_traffic": 3_423_829_804,
+                          "coll_elements": {
+                              "collective-permute(g=512)": 10_177_664,
+                              "all-gather(g=16)": 84_226_560,
+                              "all-reduce(g=32)": 4_539_458,
+                              "all-reduce(g=16)": 404_226_071,
+                              "all-reduce(g=2)": 98_304}}
+DRYRUN_POD_WHISPER_FALLBACKS = ("kv_heads=8 !-> ('model',) (indivisible)",
+                                "heads=8 !-> ('model',) (indivisible)",
+                                "vocab=51865 !-> ('model',) (indivisible)")
+DRYRUN_POD_LONG_REF = {"argument_bytes": 13_035_267_080,
+                       "alias_bytes": 6_225_288_192,
+                       "output_bytes": 6_225_288_252,
+                       "dot_flops": 10_014_425_088,
+                       "coll_traffic": 5_679_800,
+                       "coll_elements": {"all-reduce(g=16)": 443_264,
+                                         "all-gather(g=16)": 188_448,
+                                         "collective-permute(g=512)": 47_104,
+                                         "all-reduce(g=32)": 188_416}}
 MESH_ATOL = 1e-5        # ep_sm vs no mesh: forward (abs), grads (rel)
 MESH_TRAIN_ATOL = 1e-5  # launch.train's losses, mesh vs no mesh
 
@@ -4196,22 +4230,29 @@ def main() -> int:
     atexit.register(lambda: dryrun_long.poll() is None
                     and dryrun_long.kill())
     more = []
-    for name, arch, shape, ref, label, pod in (
+    for name, arch, shape, ref, label, pod, fallbacks in (
             ("pod", "gemma2-2b", "train_4k", DRYRUN_POD_REF,
-             "the batch over \"pod\" x \"data\"", True),
+             "the batch over \"pod\" x \"data\"", True, DRYRUN_FALLBACKS),
+            ("pod_whisper", "whisper-base", "train_4k",
+             DRYRUN_POD_WHISPER_REF, "each norm's gradient reduced once",
+             True, DRYRUN_POD_WHISPER_FALLBACKS),
+            ("pod_long", "gemma2-27b", "long_500k", DRYRUN_POD_LONG_REF,
+             "the queries gathered by way of \"pod\" x \"data\"", True,
+             ()),
             ("xlstm", DRYRUN_XLSTM_ARCH, DRYRUN_XLSTM_SHAPE,
-             DRYRUN_XLSTM_REF, "the xLSTM blocks' partition", False),
+             DRYRUN_XLSTM_REF, "the xLSTM blocks' partition", False, ()),
             ("gemma", DRYRUN_GEMMA_ARCH, DRYRUN_GEMMA_SHAPE,
-             DRYRUN_GEMMA_REF, "attention's einsums on their blocks", False),
+             DRYRUN_GEMMA_REF, "attention's einsums on their blocks", False,
+             ()),
             ("mla", DRYRUN_MLA_ARCH, DRYRUN_MLA_SHAPE, DRYRUN_MLA_REF,
-             "MLA's einsums on their blocks, the cache's pad", False)):
+             "MLA's einsums on their blocks, the cache's pad", False, ())):
         path = Path(tmp.name) / f"dryrun_{name}.json"
         proc = start_dryrun(path, arch, shape, pod)
         atexit.register(lambda p=proc: p.poll() is None and p.kill())
         mesh = "2x16x16" if pod else "16x16"
         more.append((proc, path, ref,
                      f"{arch} x {shape} on the {mesh} mesh, {label}",
-                     DRYRUN_FALLBACKS if pod else ()))
+                     fallbacks))
     mem_json = Path(tmp.name) / "memory_walks.json"
     mem_walks = start_memory_walks(mem_json)
     atexit.register(lambda: mem_walks.poll() is None and mem_walks.kill())

@@ -745,20 +745,29 @@ def reduced_product(func, out):
     gradient (its sum over the broadcast dims: MLA's key-rope gradient
     summed over the heads, into the latent's) and a norm's (the
     gradient of its (..., 1) scale, summed over xlstm-125m's d_model
-    split over "model"): GSPMD reduces a partial sum before another op
-    consumes it, where DTensor would carry it on through linear ops (a
-    norm's backward, the latent's product) and reduce it at each later
-    consumer."""
+    split over "model"; of its (d_model,) scale and bias, summed over
+    the tokens, over every mesh axis that splits them at once: the
+    reference's all-reduce over "pod" x "data" in the backward of each
+    norm of whisper-base train_4k): GSPMD reduces a partial sum before
+    another op consumes it, where DTensor would carry it on through
+    linear ops (a norm's backward, the latent's product, the gradient's
+    cast) and reduce it at each later consumer (the optimizer's three
+    reads of a norm's gradient)."""
     from torch.distributed.tensor import DTensor, Replicate
     name = func.__name__.split(".")[0]
     if name == "sum":
         node = torch._C._current_autograd_node()
         kind = type(node).__name__
-        # a broadcast's gradient; or a product's with an operand that a
+        # a broadcast's gradient; a product's with an operand that a
         # feature dim broadcasts (a norm's (..., 1) scale), summed over
-        # that dim
-        if not (kind == "ExpandBackward0" or kind == "MulBackward0"
-                and out.ndim > 1 and out.shape[-1] == 1):
+        # that dim; or a product's or a sum's with a vector operand that
+        # every leading dim broadcasts (a norm's scale or bias), summed
+        # over them
+        if not (kind == "ExpandBackward0"
+                or kind == "MulBackward0" and out.ndim > 1
+                and out.shape[-1] == 1
+                or kind in ("MulBackward0", "AddBackward0")
+                and out.ndim > 1 and math.prod(out.shape[:-1]) == 1):
             return out
     if not _GSPMD.active or _GSPMD.keep_partial \
             or name not in ("mm", "bmm", "sum") \
@@ -1909,13 +1918,18 @@ def partial_scatter_add(func, args):
                                    for q in placements])
 
 
+def _free_dims(mesh, m: int, ts) -> Tuple[int, ...]:
+    """Every mesh dim other than ``m`` on which each DTensor of ``ts`` is
+    replicated, major first (the long-context decode's "data", and
+    "pod" on the 2x16x16 mesh, which its batch of one leaves free)."""
+    return tuple(f for f in range(mesh.ndim) if f != m
+                 and all(t.placements[f].is_replicate() for t in ts))
+
+
 def _free_dim(mesh, m: int, ts) -> Optional[int]:
-    """A mesh dim other than ``m``, of its size, on which every DTensor of
-    ``ts`` is replicated (the long-context decode's "data", which its
-    batch of one leaves free), or None."""
-    return next((f for f in range(mesh.ndim) if f != m
-                 and mesh.size(f) == mesh.size(m)
-                 and all(t.placements[f].is_replicate() for t in ts)), None)
+    """A mesh dim of ``_free_dims`` of ``m``'s size, or None."""
+    return next((f for f in _free_dims(mesh, m, ts)
+                 if mesh.size(f) == mesh.size(m)), None)
 
 
 def _einsum_args(func, args):
@@ -1944,8 +1958,11 @@ def _whole_over_free(eq, ops):
     long_500k), as GSPMD partitions it: the smaller operand's split
     moved to a free mesh dim of that size (a collective-permute, the
     reference's f32[1,1,1,2,128] a layer) and gathered there (an
-    all-gather), so the larger keeps its split.  The operands as they
-    are where there is no such conflict or no free mesh dim."""
+    all-gather), so the larger keeps its split; where the free mesh
+    dims together have more ranks than the conflicting one ("pod" x
+    "data" on the 2x16x16 mesh), gathered by way of all of them
+    (``_whole_by_free_dims``).  The operands as they are where there is
+    no such conflict or no free mesh dim."""
     from torch.distributed.tensor import DTensor, Replicate
     if not ops or not all(isinstance(x, DTensor) for x in ops) \
             or factored_axes(ops[0].device_mesh):
@@ -1960,16 +1977,85 @@ def _whole_over_free(eq, ops):
             continue
         small = min(split, key=lambda i: ops[i].numel())
         x = ops[small]
+        if sum(q.is_shard() for q in x.placements) != 1:
+            return ops
+        ops = list(ops)
+        free = _free_dims(mesh, m, ops)
+        ranks = math.prod(mesh.size(f) for f in free)
+        if ranks > mesh.size(m) and ranks % mesh.size(m) == 0:
+            ops[small] = _whole_by_free_dims(x, m, free)
+            return ops
         f = _free_dim(mesh, m, ops)
-        if f is None or sum(q.is_shard() for q in x.placements) != 1:
+        if f is None:
             return ops
         moved = list(x.placements)
         moved[m], moved[f] = Replicate(), moved[m]
-        ops = list(ops)
         ops[small] = _move_split(x, (m,), (f,), moved).redistribute(
             mesh, [Replicate()] * mesh.ndim)
         return ops
     return ops
+
+
+def _whole_by_free_dims(x, m: int, free):
+    """``x``, split along one dim over the mesh dim ``m`` alone, made whole
+    by way of the free mesh dims ``free``, whose ranks are p > 1 times
+    ``m``'s, as GSPMD does it (the reference's gemma2-27b and
+    recurrentgemma-9b long_500k on the 2x16x16 mesh, each layer's
+    queries: "pod" x "data", 32 ranks, against "model"'s 16 blocks):
+
+      * the blocks regrouped over ``m`` onto its first 1/p ranks, rank t
+        taking blocks p t .. p t + p - 1 (p collective-permutes, a rank
+        that takes none sending to itself) and keeping the one of its
+        index over the free dims' major ranks;
+      * moved so that the rank at index i over ``free`` holds block i,
+        whatever its index over ``m`` (one collective-permute: with the
+        two before, the reference's three f32[1,1,1,2,128] a layer);
+      * gathered over ``free`` at once by an all-reduce of the blocks
+        padded with zeros, a rank past the last block adding zeros (its
+        f32[1,1,16,2,128] all-reduce over the 32), not by an all-gather
+        over one free dim of ``m``'s ranks (``_whole_over_free``'s way
+        where the free dims have no more ranks than ``m``)."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh, d = x.device_mesh, x.placements[m].dim
+    n = mesh.size(m)
+    p = math.prod(mesh.size(f) for f in free) // n
+    coord = list(mesh.get_coordinate())
+    mi, fi = coord[m], _flat_coordinate(mesh, free, coord)
+
+    def rank(at_m, at_free):
+        c = list(coord)
+        c[m] = at_m
+        for f in reversed(free):
+            c[f], at_free = at_free % mesh.size(f), at_free // mesh.size(f)
+        return _flat_coordinate(mesh, range(mesh.ndim), c)
+
+    def permute(block, to, frm):
+        rows = block.movedim(d, 0).contiguous()
+        send, recv = [0] * mesh.size(), [0] * mesh.size()
+        send[to] = recv[frm] = rows.shape[0]
+        rows = _funcol().wait_tensor(_funcol().all_to_all_single(
+            rows, recv, send, _mesh_group(mesh)))
+        return rows.movedim(0, d)
+
+    block = x._local_tensor
+    kept = block
+    for j in range(p):
+        got = permute(block, rank(mi // p if mi % p == j else mi, fi),
+                      rank(p * mi + j if mi < n // p else mi, fi))
+        if mi < n // p and j == fi // n:
+            kept = got
+    # the rank at (mi, fi) sends to index mi p + fi // n over the free
+    # dims, fi % n over m; so the rank at (mi', fi') takes from
+    # (fi' // p, (fi' % p) n + mi')
+    moved = permute(kept, rank(fi % n, mi * p + fi // n),
+                    rank(fi // p, (fi % p) * n + mi))
+    size = block.shape[d]
+    whole = torch.zeros(x.shape, dtype=block.dtype, device=block.device)
+    if fi < n:
+        whole.narrow(d, fi * size, size).copy_(moved)
+    return _placed(whole, mesh, [Partial() if k in free else Replicate()
+                                 for k in range(mesh.ndim)], x.shape) \
+        .redistribute(mesh, [Replicate()] * mesh.ndim)
 
 
 def product_as(like: torch.Tensor, func, *args) -> torch.Tensor:

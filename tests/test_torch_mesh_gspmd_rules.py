@@ -1,7 +1,8 @@
 """The rules by which ``sharding.gspmd_partitioning`` partitions the
 long-context decode's attention and RG-LRU gates and the training
-step's gate backward and update as the reference's partitioner does,
-each on a toy op on the 16x16 production mesh (one rank's share,
+step's gate backward, norms and update as the reference's partitioner
+does, each on a toy op on the 16x16 production mesh or the 2x16x16
+one (one rank's share,
 ``launch.cost_analysis.count_step`` over DTensors of ``meta`` blocks):
 
   * ``_whole_over_free``: a product whose operands split different
@@ -32,7 +33,13 @@ each on a toy op on the 16x16 production mesh (one rank's share,
     ``reduced_by_heads`` reduces a product's partial sums over the
     heads' factor, slices the head, then over the other factor (or over
     both at once, then slices), and asks an uncut mesh for the cut;
-    ``_take_split`` leaves an update split over both factors.
+    ``_take_split`` leaves an update split over both factors;
+  * ``reduced_product``: a norm's scale's and bias's gradients, sums
+    over the tokens, are all-reduced once in the backward, over every
+    axis that splits the tokens (on 16x16 and 2x16x16), and AdamW reads
+    them without reducing them again;
+  * on 2x16x16, ``_whole_by_free_dims``: the decode scores' queries
+    gathered by way of "pod" x "data" together.
 
 The production mesh lives on a dry-run world (the ``fake`` backend), so
 every case runs in one subprocess (its results checked here); the gloo
@@ -208,6 +215,49 @@ with sh.gspmd_partitioning():
     with torch.no_grad():
         out["update cut"] = cost(lambda: p.add_(gp))
     out["update cut"].update(where(p))
+
+# a norm's (512,) parameters, their gradients summed over (256, 64)
+# tokens; on 16x16 the tokens over "data", on 2x16x16 over "pod" x
+# "data"; and AdamW's update reading the scale's gradient
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.models.layers import layer_norm, rms_norm
+from repro_torch.optim.optimizers import AdamW, clip_by_global_norm
+for pod in (False, True):
+    mesh = m.make_production_mesh(multi_pod=pod)
+    tag = " pod" if pod else ""
+    tokens, whole = [S(0)] * (mesh.ndim - 1) + [R], [R] * mesh.ndim
+    with sh.gspmd_partitioning(), implicit_replication():
+        x = dt((256, 64, 512), tokens, grad=True)
+        dy = dt((256, 64, 512), tokens)
+        scale = dt((512,), whole, grad=True)
+        out["rms norm" + tag] = cost(lambda: rms_norm(
+            {"scale": scale}, x, 1e-6).backward(dy))
+        out["rms norm" + tag].update(where(scale.grad))
+        ln = {"scale": dt((512,), whole, grad=True),
+              "bias": dt((512,), whole, grad=True)}
+        out["layer norm" + tag] = cost(lambda: layer_norm(
+            ln, x, 1e-6).backward(dy))
+        out["layer norm" + tag]["grads"] = [where(ln["scale"].grad),
+                                            where(ln["bias"].grad)]
+        state = {"slots": {"scale": {"m": dt((512,), whole),
+                                     "v": dt((512,), whole)}},
+                 "count": dt((), whole, dtype=torch.int32)}
+
+        def update():
+            with torch.no_grad():
+                grads, _ = clip_by_global_norm({"scale": scale.grad}, 1.0)
+                AdamW().update(grads, state, {"scale": scale},
+                               dt((), whole))
+        out["adamw" + tag] = cost(update)
+        if pod:
+            # the long-context decode's scores: batch one, "pod" and
+            # "data" free
+            q = dt((1, 1, 16, 2, 128), [R, R, S(2)])
+            k = dt((1, 4096, 16, 128), [R, R, S(1)])
+            res = {}
+            out["scores pod"] = cost(lambda: res.setdefault(
+                "y", torch.einsum("bsngd,btnd->bnsgt", q, k)))
+            out["scores pod"].update(where(res["y"]))
 print("RESULT " + json.dumps(out))
 """
 
@@ -345,6 +395,50 @@ def test_an_update_takes_its_operands_split_on_a_cut_mesh(cases):
     c = cases["update cut"]
     assert c["elements"] == {}
     assert c["placements"] == ["R", "S(0)", "S(0)"] and c["local"] == [256]
+
+
+@pytest.mark.parametrize("tag,group", [("", 16), (" pod", 32)])
+def test_a_norms_gradient_is_reduced_once_where_it_is_made(cases, tag, group):
+    """A (512,) norm parameter over (256, 64, 512) tokens: its gradient,
+    the sum over the tokens, is all-reduced in the backward, over every
+    mesh axis that splits them at once ("data", or "pod" x "data" on
+    the 2x16x16 mesh), and leaves it whole: ``rms_norm``'s (1 + scale)
+    one vector, ``layer_norm``'s scale and bias two; the inputs'
+    gradient moves nothing."""
+    rms = cases["rms norm" + tag]
+    assert rms["elements"] == {f"all-reduce(g={group})": 512}
+    assert set(rms["placements"]) == {"R"} and rms["local"] == [512]
+    ln = cases["layer norm" + tag]
+    assert ln["elements"] == {f"all-reduce(g={group})": 2 * 512}
+    for g in ln["grads"]:
+        assert set(g["placements"]) == {"R"} and g["local"] == [512]
+
+
+@pytest.mark.parametrize("tag", ["", " pod"])
+def test_adamw_reads_a_norms_gradient_as_it_was_reduced(cases, tag):
+    """The clip's norm and AdamW's two moments read the scale's gradient
+    three times, and reduce none of it again (DTensor would all-reduce
+    a gradient left partial at each read: 3 x 512 elements): the
+    update's one collective is the global norm's scalar, over the
+    whole mesh."""
+    assert cases["adamw" + tag]["elements"] == {
+        f"all-reduce(g={256 * (2 if tag else 1)})": 1}
+
+
+def test_decode_scores_gather_the_queries_by_both_free_axes(cases):
+    """On 2x16x16, with the batch of one leaving "pod" and "data" free,
+    q's (1, 1, 1, 2, 128) block is regrouped over "model" (two
+    collective-permutes), moved to the 32 ranks of "pod" x "data" (one
+    more) and gathered there by an all-reduce of the 16 x 2 x 128
+    queries over the 32 (the reference's gemma2-27b long_500k), not by
+    an all-gather over "data" alone; the keys keep their sequence
+    split."""
+    c = cases["scores pod"]
+    assert c["elements"] == {"collective-permute(g=512)": 3 * 256,
+                             "all-reduce(g=32)": 16 * 2 * 128}
+    assert c["dot_flops"] == 2 * 16 * 2 * 128 * 256
+    assert c["placements"] == ["R", "R", "S(4)"]
+    assert c["local"] == [1, 16, 1, 2, 256]
 
 
 def test_the_gold_gathers_gradient_is_a_block_of_the_logits(cases):

@@ -74,12 +74,14 @@ r = run_cell(sys.argv[1], "train_4k", False, opt_override={"n_layers": 2},
 print("RESULT " + json.dumps({"status": r["status"], **seen}))
 """
 
-# the parent tree's walks of these cells on torch 2.13 (its pad strategy
-# in place), which this tree reads on every torch
+# the walks of these cells on torch 2.13 with its pad strategy in place,
+# which the walk reads on every torch (recurrentgemma-9b's all-reduce
+# elements less its norms' gradients, reduced once in the backward
+# rather than at each read in the optimizer)
 WALKED = {
     ("recurrentgemma-9b", "train_4k"): {
         "dot_flops_per_device": 312948497055744.0,
-        "coll_elements": {"all-reduce(g=16)": 102459878431.0,
+        "coll_elements": {"all-reduce(g=16)": 102459154463.0,
                           "all-gather(g=16)": 28940173312.0,
                           "all-to-all(g=16)": 536870912.0,
                           "collective-permute(g=256)": 4784128.0,
