@@ -163,8 +163,11 @@ elastic checkpoint restore.
               norm's gradient reduced once in the backward;
               DRYRUN_POD_WHISPER_REF, its three fallbacks) and gemma2-27b
               x long_500k (the queries gathered by way of "pod" x
-              "data"; DRYRUN_POD_LONG_REF); every train cell's temp bytes
-              within
+              "data"; DRYRUN_POD_LONG_REF), and deepseek-v3-671b x
+              decode_32k and prefill_32k (the MoE on a batch over "pod" x
+              "data"; DRYRUN_POD_MOE_DECODE_REF,
+              DRYRUN_POD_MOE_PREFILL_REF, the prefill's one fallback);
+              every train cell's temp bytes within
               DRYRUN_TEMP_FACTOR of the reference's; (b) a one-rank
               NCCL world (``make_host_mesh()``): the shard_map MoE
               (``expert_sharding="ep_sm"``, deepseek-v3 smoke, float32,
@@ -3200,6 +3203,42 @@ DRYRUN_POD_LONG_REF = {"argument_bytes": 13_035_267_080,
                                          "all-gather(g=16)": 188_448,
                                          "collective-permute(g=512)": 47_104,
                                          "all-reduce(g=32)": 188_416}}
+# ... and of deepseek-v3-671b's decode and prefill on the 2x16x16 mesh,
+# the MoE on a batch split over "pod" x "data": the decode's scores and
+# expert ids gathered over the 32 at once, its tokens joined with the
+# zero row by all-to-alls over the 32, gathered into the buckets by an
+# all-reduce over "pod" x "model" and combined on blocks over "pod" x
+# "model"; the prefill's rows taken into the chunk loop's layout by a
+# collective-permute and an all-gather over "pod", and laid out as the
+# batch again by a collective-permute (tests/_dryrun_ref.py --multi-pod
+# on the CPU), each held as DRYRUN_MOE_REF is
+DRYRUN_POD_MOE_ARCH = "deepseek-v3-671b"
+DRYRUN_POD_MOE_DECODE_REF = {"argument_bytes": 18_276_229_140,
+                             "alias_bytes": 9_210_691_584,
+                             "output_bytes": 9_210_691_672,
+                             "dot_flops": 236_741_591_040,
+                             "coll_traffic": 1_719_744_096,
+                             "coll_elements": {
+                                 "all-reduce(g=16)": 112_035_840,
+                                 "all-to-all(g=32)": 3_748_864,
+                                 "all-gather(g=32)": 1_959_936,
+                                 "all-reduce(g=32)": 106_549_248,
+                                 "collective-permute(g=512)": 7_899_136,
+                                 "all-gather(g=16)": 128}}
+DRYRUN_POD_MOE_PREFILL_REF = {"argument_bytes": 9_065_668_608,
+                              "alias_bytes": 0,
+                              "output_bytes": 2_302_689_128,
+                              "dot_flops": 677_372_292_988_928,
+                              "coll_traffic": 4_579_988_471_808,
+                              "coll_elements": {
+                                  "all-reduce(g=16)": 301_352_353_792,
+                                  "collective-permute(g=512)":
+                                  40_875_950_080,
+                                  "all-gather(g=2)": 27_246_198_784,
+                                  "all-gather(g=16)": 15_569_256_448,
+                                  "all-to-all(g=16)": 544_923_975_680}}
+DRYRUN_POD_MOE_PREFILL_FALLBACKS = (
+    "batch=16 !-> ('pod', 'data') (indivisible)",)
 MESH_ATOL = 1e-5        # ep_sm vs no mesh: forward (abs), grads (rel)
 MESH_TRAIN_ATOL = 1e-5  # launch.train's losses, mesh vs no mesh
 
@@ -4239,6 +4278,13 @@ def main() -> int:
             ("pod_long", "gemma2-27b", "long_500k", DRYRUN_POD_LONG_REF,
              "the queries gathered by way of \"pod\" x \"data\"", True,
              ()),
+            ("pod_moe_decode", DRYRUN_POD_MOE_ARCH, "decode_32k",
+             DRYRUN_POD_MOE_DECODE_REF,
+             "the flat MoE over \"pod\" x \"data\" at once", True, ()),
+            ("pod_moe_prefill", DRYRUN_POD_MOE_ARCH, "prefill_32k",
+             DRYRUN_POD_MOE_PREFILL_REF,
+             "the chunked MoE's rows as the reference's scan reads them",
+             True, DRYRUN_POD_MOE_PREFILL_FALLBACKS),
             ("xlstm", DRYRUN_XLSTM_ARCH, DRYRUN_XLSTM_SHAPE,
              DRYRUN_XLSTM_REF, "the xLSTM blocks' partition", False, ()),
             ("gemma", DRYRUN_GEMMA_ARCH, DRYRUN_GEMMA_SHAPE,

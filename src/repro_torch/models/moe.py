@@ -49,7 +49,8 @@ from repro_torch.models.layers import ffn, ffn_spec
 from repro_torch.models.params import Spec
 from repro_torch.parallel.sharding import (PartitionSpec, ShardMap,
                                           active_mesh, constrain, gather_sum,
-                                          laid_out_as, take_rows)
+                                          rows_in_chunks, rows_laid_out_as,
+                                          take_rows)
 
 ROW_LEN = 4096          # tokens per dispatch row (<= one sequence)
 ROWS_PER_CHUNK = 16     # rows processed per step (1 per data shard)
@@ -410,7 +411,7 @@ def _moe_chunked_shardmap(cfg, p, x, compute_dtype):
         return sm.rows_out(y_c, rows, x_c), a, l
 
     ys, aux, load = _chunk_loop(nc, step, x, [xrc])
-    y = laid_out_as(ys.reshape(b, s, d), x)
+    y = rows_laid_out_as(ys.reshape(b, s, d), x)
     return y.to(x.dtype), aux / nc, load / nc
 
 
@@ -426,7 +427,7 @@ def _moe_chunked(cfg, p, x, compute_dtype):
     nc = max(1, n_rows // ROWS_PER_CHUNK)
     r = n_rows // nc
     assert r * nc == n_rows, (n_rows, nc)
-    xrc = xr.reshape(r, nc, row_len, d)
+    xrc = rows_in_chunks(xr, r, nc)                      # (r, nc, L, d)
     cap = max(1, math.ceil(CAPACITY_FACTOR * row_len * k / e))
 
     def step(c):
@@ -441,4 +442,4 @@ def _moe_chunked(cfg, p, x, compute_dtype):
         return _combine_row(buf_tok, buf_w, y_e, row_len, k), aux, load
 
     ys, aux, load = _chunk_loop(nc, step, x, [xrc])
-    return laid_out_as(ys.reshape(b, s, d), x), aux / nc, load / nc
+    return rows_laid_out_as(ys.reshape(b, s, d), x), aux / nc, load / nc

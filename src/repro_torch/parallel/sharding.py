@@ -721,13 +721,104 @@ class ShardMap:
                                   run_check=False)
 
 
-def laid_out_as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """``x`` (a DTensor of ``like``'s shape) placed as ``like`` is, by way
-    of the whole where their placements differ: the chunked MoE's rows,
-    split over "data" alone where the batch is split over ("pod",
-    "data"), rejoined as the batch is split.  DTensor's own move between
-    the two runs through a strided split whose every redistribution its
-    planner sizes by splitting an index tensor of the whole dim (tens of
+def _row_split(x) -> Optional[Tuple[int, ...]]:
+    """The mesh dims that split dim 0 of the DTensor ``x`` (major first),
+    where nothing else is split or partial; else None."""
+    from torch.distributed.tensor import Shard
+    over = tuple(m for m, q in enumerate(x.placements) if q.is_shard())
+    if any(x.placements[m] != Shard(0) for m in over) \
+            or any(q.is_partial() for q in x.placements):
+        return None
+    return over
+
+
+def _send_block(block, mesh, over, to: int, frm: int):
+    """``block`` sent to the rank at index ``to`` over the mesh dims
+    ``over``, the one from index ``frm`` received: one
+    collective-permute (its whole block to one rank)."""
+    send, recv = [0] * mesh.size(), [0] * mesh.size()
+    send[_rank_along(mesh, over, to)] = block.shape[0]
+    recv[_rank_along(mesh, over, frm)] = block.shape[0]
+    return _funcol().wait_tensor(_funcol().all_to_all_single(
+        block.contiguous(), recv, send, _mesh_group(mesh)))
+
+
+def rows_in_chunks(x: torch.Tensor, r: int, nc: int) -> torch.Tensor:
+    """``x`` (n_rows, ...) viewed as (r, nc, ...): the chunked MoE's rows,
+    chunk c the rows c, nc + c, ...  Under ``gspmd_partitioning``, where
+    the rows are split over more ranks than ``r`` (256 rows over the 32
+    of "pod" x "data", r = 16: GSPMD's view cuts "data" 8 x 2, and its
+    scan then takes each chunk's rows over "data" alone), laid out as
+    the reference's scan reads them (``_RowsInChunks``): each chunk's
+    rows over the minor mesh dims that split ``r`` ("data"), the chunks
+    whole, the major mesh dims ("pod") replicating them.  Elsewhere the
+    view (DTensor places it)."""
+    if _GSPMD.active and is_distributed(x):
+        over = _row_split(x)
+        if over:
+            mesh = x.device_mesh
+            n = math.prod(mesh.size(m) for m in over)
+            keep = next((over[i:] for i in range(len(over))
+                         if math.prod(mesh.size(m) for m in over[i:]) == r),
+                        None)
+            if n > r and keep and nc == n // r * (x.shape[0] // n):
+                return _RowsInChunks.apply(x, r, nc, over, len(over)
+                                           - len(keep))
+    return x.reshape(r, nc, *x.shape[1:])
+
+
+class _RowsInChunks(torch.autograd.Function):
+    """The rows (split over the mesh dims ``over``, ``f`` major ones of
+    them left to replicate the chunks) laid out as (r, nc, ...) for the
+    chunk loop, as the reference's partition moves them before its scan
+    (deepseek-v3-671b prefill_32k on the 2x16x16 mesh: an f32[8,1,4096,
+    7168] collective-permute and an f32[16,1,4096,7168] all-gather over
+    "pod" a layer): the rank at index k over ``over`` holds row k // p
+    of each chunk, for chunks (k % p) B .. (k % p + 1) B (p ranks of
+    the major dims, B rows a rank); it sends them to the rank at that
+    index over the major dims and k // p over the minor ones (one
+    collective-permute), and the p parts are all-gathered over the
+    major dims.  Backward: the parts taken back (a slice, or a
+    reduce-scatter of a gradient partial over the major dims), each
+    sent to the rank it came from."""
+
+    @staticmethod
+    def forward(ctx, x, r, nc, over, f):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = x.device_mesh
+        # the inverse of ``_RowsRegrouped``'s permute
+        back, to, _, _ = _regrouping(mesh, over, f)
+        block = _send_block(x._local_tensor, mesh, over, to, back)
+        parts = [q if m not in over else Shard(1) if m in over[:f]
+                 else Shard(0) for m, q in enumerate(x.placements)]
+        y = _placed(block.reshape(1, -1, *block.shape[1:]), mesh, parts,
+                    (r, nc) + tuple(x.shape[1:]))
+        ctx.args = (list(x.placements), tuple(x.shape), parts, over, f)
+        return y.redistribute(mesh, [Replicate() if m in over[:f] else q
+                                     for m, q in enumerate(parts)])
+
+    @staticmethod
+    def backward(ctx, g):
+        placements, shape, parts, over, f = ctx.args
+        mesh = g.device_mesh
+        back, to, _, _ = _regrouping(mesh, over, f)
+        block = g.redistribute(mesh, parts)._local_tensor
+        block = _send_block(block.reshape(-1, *block.shape[2:]), mesh, over,
+                            back, to)
+        return (_placed(block, mesh, placements, shape), None, None, None,
+                None)
+
+
+def rows_laid_out_as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` (a DTensor of ``like``'s shape) placed as ``like`` is: the
+    chunked MoE's rows, split over "data" alone where the batch is split
+    over ("pod", "data"), rejoined as the batch is split.  Under
+    ``gspmd_partitioning``, where ``like`` splits dim 0 over mesh dims
+    whose minor ones split ``x`` there and whose major ones replicate
+    it, as the reference's scan leaves them (``_RowsRegrouped``); else
+    by way of the whole: DTensor's own move between the two runs
+    through a strided split whose every redistribution its planner
+    sizes by splitting an index tensor of the whole dim (tens of
     seconds a walk); the whole is an all-gather, then a slice.  ``x`` as
     it is where the placements agree or ``x`` is a plain tensor."""
     from torch.distributed.tensor import Replicate
@@ -735,8 +826,63 @@ def laid_out_as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
             or list(x.placements) == list(like.placements):
         return x
     mesh = x.device_mesh
+    if _GSPMD.active:
+        over, mine = _row_split(like), _row_split(x)
+        f = len(over or ()) - len(mine or ())
+        if over and mine and f > 0 and over[f:] == mine \
+                and x.shape[0] % math.prod(mesh.size(m) for m in over) == 0:
+            return _RowsRegrouped.apply(x, list(like.placements), over, f)
     return x.redistribute(mesh, [Replicate()] * mesh.ndim).redistribute(
         mesh, like.placements)
+
+
+class _RowsRegrouped(torch.autograd.Function):
+    """Rows split over the minor mesh dims of ``over`` and replicated
+    over its ``f`` major ones, split over all of ``over`` (major first),
+    as the reference's chunk loop leaves its output (deepseek-v3-671b
+    prefill_32k on the 2x16x16 mesh: each chunk's combined rows, an
+    f32[1,4097,7168] collective-permute a chunk): the rank at index i
+    over the major dims and j over the minor ones sends its whole block
+    to the rank at index j p + i over ``over`` (p ranks of the major
+    dims), which keeps its part of it.  Backward: each rank's block of
+    the gradient, zero-padded to the whole block it came in, sent back;
+    the gradient partial over the major dims."""
+
+    @staticmethod
+    def forward(ctx, x, placements, over, f):
+        mesh = x.device_mesh
+        to, frm, part, p = _regrouping(mesh, over, f)
+        block = _send_block(x._local_tensor, mesh, over, to, frm)
+        b = block.shape[0] // p
+        ctx.args = (list(x.placements), over, f)
+        return _placed(block.narrow(0, part * b, b), mesh, placements,
+                       x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial
+        placements, over, f = ctx.args
+        mesh = g.device_mesh
+        to, frm, part, p = _regrouping(mesh, over, f)
+        block = g._local_tensor
+        whole = block.new_zeros((block.shape[0] * p, *block.shape[1:]))
+        whole.narrow(0, part * block.shape[0], block.shape[0]).copy_(block)
+        back = _send_block(whole, mesh, over, frm, to)
+        return (_placed(back, mesh, [Partial() if m in over[:f] else q
+                                     for m, q in enumerate(placements)],
+                        g.shape), None, None, None)
+
+
+def _regrouping(mesh, over, f: int):
+    """``_RowsRegrouped``'s forward permute for this rank: the index over
+    ``over`` it sends to and the one it receives from, the part of the
+    received block it keeps, and the ranks p of the major dims."""
+    major, minor = over[:f], over[f:]
+    p = math.prod(mesh.size(m) for m in major)
+    n = math.prod(mesh.size(m) for m in minor)
+    k = _flat_coordinate(mesh, over)
+    to = _flat_coordinate(mesh, minor) * p + _flat_coordinate(mesh, major)
+    return to, (k % p) * n + k // p, k % p, p
 
 
 def reduced_product(func, out):
@@ -1276,6 +1422,48 @@ def _rank_along(mesh, over, i: int) -> int:
     return _flat_coordinate(mesh, range(mesh.ndim), coord)
 
 
+def _dims_group(mesh, dims):
+    """The process group of the ranks that differ from this one in the
+    mesh dims ``dims`` alone, ranked major first: one collective over
+    several mesh dims at once, as XLA issues it over "pod" x "data"
+    (DTensor issues one over each mesh dim in turn).  A single mesh
+    dim's own group; the subgroups made once a mesh and ``dims``, every
+    one on every rank, in one order."""
+    dims = tuple(dims)
+    if len(dims) == 1:
+        return mesh.get_group(dims[0])
+    groups = mesh.__dict__.setdefault("_dims_groups", {})
+    if dims not in groups:
+        import torch.distributed as dist
+        grid = mesh.mesh.permute(
+            [m for m in range(mesh.ndim) if m not in dims] + list(dims))
+        mine, _ = dist.new_subgroups_by_enumeration(
+            grid.reshape(-1, math.prod(mesh.size(m) for m in dims)).tolist())
+        groups[dims] = mine
+    return groups[dims]
+
+
+def _whole_at_once(x):
+    """The DTensor ``x`` replicated, each dim that several mesh dims split
+    evenly gathered over them in one all-gather (XLA's all-gather of a
+    dim split over "pod" x "data", over the 32 at once), any other
+    split gathered by DTensor."""
+    from torch.distributed.tensor import Replicate
+    mesh, block = x.device_mesh, x._local_tensor
+    placements = list(x.placements)
+    for d in range(x.ndim):
+        over = [m for m, q in enumerate(placements) if q.is_shard(d)]
+        if len(over) < 2 or x.shape[d] % math.prod(
+                mesh.size(m) for m in over):
+            continue
+        block = _all_gather(block, d, _dims_group(mesh, over))
+        for m in over:
+            placements[m] = Replicate()
+    if placements != list(x.placements):
+        x = _placed(block, mesh, placements, x.shape)
+    return x.redistribute(mesh, [Replicate()] * mesh.ndim)
+
+
 def _permuted_part(block, mesh, over, dim, b, o, b2, me):
     """This rank's block of one part (``_permute_plan``): each permute of
     the plan issued (every rank issues it, as XLA's SPMD program does;
@@ -1515,11 +1703,13 @@ def _gather_sum_blocks(src, index):
     as GSPMD partitions the reference's scatter-add of the decode's
     expert outputs into its token rows: the output rows split over a
     mesh dim of that size on which both are whole (the scatter's
-    operand; a slice of the index), each rank summing the terms its
-    block of ``src`` holds, the partial sums all-reduced over the
-    rows' mesh dim, and the output's split moved to that mesh dim (a
-    collective-permute).  None where src's rows are not split over one
-    mesh dim, or no such other mesh dim exists."""
+    operand; a slice of the index) and over every other mesh dim on
+    which both are whole ("pod" on the 2x16x16 mesh: the output's rows
+    over "pod" x "model"), each rank summing the terms its block of
+    ``src`` holds, the partial sums all-reduced over the rows' mesh
+    dim, and the output's split moved from the same-size mesh dim to
+    that one (a collective-permute).  None where src's rows are not
+    split over one mesh dim, or no such other mesh dim exists."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
@@ -1534,8 +1724,9 @@ def _gather_sum_blocks(src, index):
                  and mesh.size(f) == mesh.size(m)), None)
     if free is None:
         return None
-    rows = [Replicate()] * mesh.ndim
-    rows[free] = Shard(0)
+    rows = [Shard(0) if f == free or f != m and q.is_replicate()
+            and index.placements[f].is_replicate() else Replicate()
+            for f, q in enumerate(src.placements)]
     at = index.redistribute(mesh, rows)._local_tensor
     block = src._local_tensor
     start = compute_local_shape_and_global_offset(
@@ -1552,8 +1743,8 @@ def _gather_sum_blocks(src, index):
     partial[m] = Partial()
     shape = (index.shape[0], src.shape[1])
     y = _placed(y, mesh, partial, shape).redistribute(mesh, rows)
-    moved = [Replicate()] * mesh.ndim
-    moved[m] = Shard(0)
+    moved = list(rows)
+    moved[m], moved[free] = Shard(0), Replicate()
     return _move_split(y, (free,), (m,), moved)
 
 
@@ -1594,10 +1785,12 @@ def halo_slice(func, args):
     mesh, total = x.device_mesh, x.shape[dim]
     end = total if end is None else min(end, total)
     split = [m for m, q in enumerate(x.placements) if q.is_shard(dim)]
-    if start not in (0, None) or step != 1 or len(split) != 1 \
-            or type(x.placements[split[0]]) is not Shard \
+    if start not in (0, None) or step != 1 or not split \
+            or any(type(x.placements[m]) is not Shard for m in split) \
             or factored_axes(mesh):
         return None
+    if len(split) > 1:
+        return _recut(x, split, dim, end)
     m = split[0]
     n = mesh.size(m)
     big, small = -(-total // n), end // n
@@ -1621,14 +1814,85 @@ def halo_slice(func, args):
     return _placed(local, mesh, list(x.placements), shape)
 
 
+def _recut_plan(n: int, b: int, b2: int):
+    """XLA's collective-permutes that re-cut a dim split over ``n`` ranks
+    in padded blocks of ``b`` into blocks of ``b2`` < ``b`` (a slice of
+    its leading ``n * b2``): rank t's new block, rows b2 t .. b2 t + b2,
+    starts in the block of rank s = b2 t // b and may end in the next.
+    The first parts grouped as ``_permute_plan`` groups them (each
+    source's targets but itself, in order, the k-th of each making the
+    k-th permute, whose window runs from the least offset it sends to
+    the greatest plus ``b2``, within the block), then the second parts
+    so, each window from the block's start.  Returns [(window start,
+    width, {source: target})], each rank's (source, offset, length) of
+    its first part, and each rank's permute of each part (None: its
+    own block)."""
+    where, firsts, seconds = [], {}, {}
+    for t in range(n):
+        s, off = divmod(b2 * t, b)
+        where.append((s, off, min(b2, b - off)))
+        if s != t:
+            firsts.setdefault(s, []).append(t)
+        if where[t][2] < b2 and s + 1 != t:
+            seconds.setdefault(s + 1, []).append(t)
+    plan, of_target = [], [[None, None] for _ in range(n)]
+    for part, targets in enumerate((firsts, seconds)):
+        for k in range(max(map(len, targets.values()), default=0)):
+            pairs = {s: ts[k] for s, ts in targets.items() if len(ts) > k}
+            if part == 0:
+                offs = [where[t][1] for t in pairs.values()]
+                lo, hi = min(offs), min(max(offs) + b2, b)
+            else:
+                lo, hi = 0, max(b2 - where[t][2] for t in pairs.values())
+            plan.append((lo, hi - lo, pairs))
+            for t in pairs.values():
+                of_target[t][part] = len(plan) - 1
+    return plan, where, of_target
+
+
+def _recut(x, over, dim: int, end: int):
+    """``x[:end]`` along ``dim``, which the mesh dims ``over`` (several)
+    split in padded blocks, cut to the blocks ``end`` leaves, as GSPMD
+    re-cuts them (``_recut_plan``: the decode's 129 combined rows over
+    the 32 of "pod" x "data", 5 a rank, cut to its 128 tokens, 4 a
+    rank, by f32[5,7168], f32[1,7168] and f32[3,7168]
+    collective-permutes).  None where ``end`` is not split evenly."""
+    mesh = x.device_mesh
+    n = math.prod(mesh.size(m) for m in over)
+    b, b2 = -(-x.shape[dim] // n), end // n
+    if end % n or b2 >= b:
+        return None
+    plan, where, of_target = _recut_plan(n, b, b2)
+    me = _flat_coordinate(mesh, over)
+    block = x._local_tensor
+    block = F.pad(block, [0, 0] * (block.ndim - 1 - dim)
+                  + [0, b - block.shape[dim]])
+    s, off, length = where[me]
+    parts = [block.narrow(dim, off, length) if s == me else None,
+             block.narrow(dim, 0, b2 - length) if s + 1 == me else None]
+    for k, (lo, width, pairs) in enumerate(plan):
+        frm = next((src for src, t in pairs.items() if t == me), me)
+        got = _send_block(block.narrow(dim, lo, width).movedim(dim, 0),
+                          mesh, over, pairs.get(me, me), frm).movedim(0, dim)
+        if of_target[me][0] == k:
+            parts[0] = got.narrow(dim, off - lo, length)
+        if of_target[me][1] == k:
+            parts[1] = got.narrow(dim, 0, b2 - length)
+    local = parts[0] if length == b2 else torch.cat(parts, dim=dim)
+    shape = list(x.shape)
+    shape[dim] = end
+    return _placed(local, mesh, list(x.placements), shape)
+
+
 def uneven_cat(func, args):
-    """A concatenation along a dim one operand splits over one mesh dim
-    whose result that mesh dim does not divide (the decode's tokens and
-    the zero row: 129 rows over 16), as GSPMD partitions it: the split
-    moved to the last other dim the mesh dim divides (an all-to-all),
-    the blocks joined there, and the split moved back with the joined
-    dim padded to a multiple of the mesh dim (an all-to-all).  The other
-    operands are whole.  None for any other op."""
+    """A concatenation along a dim one operand splits over mesh dims
+    that do not divide the result (the decode's tokens and the zero
+    row: 129 rows over 16, or over the 32 of "pod" x "data"), as GSPMD
+    partitions it: the split moved to the last other dim they divide
+    (an all-to-all over them at once), the blocks joined there, and the
+    split moved back with the joined dim padded to a multiple of their
+    ranks (an all-to-all).  The other operands are whole.  None for any
+    other op."""
     from torch.distributed.tensor import DTensor, Shard
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
@@ -1645,19 +1909,18 @@ def uneven_cat(func, args):
     dim %= x.ndim
     mesh = x.device_mesh
     split = [m for m, q in enumerate(x.placements) if q.is_shard()]
-    if len(split) != 1 or x.placements[split[0]] != Shard(dim) \
+    if not split or any(x.placements[m] != Shard(dim) for m in split) \
             or any(isinstance(t, DTensor) and t is not x and any(
                 not q.is_replicate() for q in t.placements) for t in ts):
         return None
-    m = split[0]
-    n = mesh.size(m)
+    n = math.prod(mesh.size(m) for m in split)
     total = sum(t.shape[dim] for t in ts)
     other = next((d for d in reversed(range(x.ndim)) if d != dim
                   and all(t.shape[d] % n == 0 for t in ts)), None)
     if total % n == 0 or other is None:
         return None
-    group = mesh.get_group(m).group_name
-    at = mesh.get_coordinate()[m]
+    group = _dims_group(mesh, split).group_name
+    at = _flat_coordinate(mesh, split)
     pieces = []
     for t in ts:
         if t is x:
@@ -1825,15 +2088,16 @@ def _split_off(x, index):
 
 class _SortWhole(torch.autograd.Function):
     """``torch.sort`` of a split DTensor on its operand gathered whole, each
-    rank keeping its block of the results; the backward scatters each
-    rank's block of the values' gradient to its rows' sorted positions,
-    where it stands (every row's gradient is in the rank's block)."""
+    rank keeping its block of the results (a dim split over several
+    mesh dims gathered over them at once, ``_whole_at_once``); the
+    backward scatters each rank's block of the values' gradient to its
+    rows' sorted positions, where it stands (every row's gradient is in
+    the rank's block)."""
 
     @staticmethod
     def forward(ctx, x, dim, descending, stable):
-        from torch.distributed.tensor import Replicate
         mesh, keep = x.device_mesh, list(x.placements)
-        whole = x.redistribute(mesh, [Replicate()] * mesh.ndim)
+        whole = _whole_at_once(x)
         vals, ids = torch.sort(whole, dim=dim, descending=descending,
                                stable=stable)
         ids = ids.redistribute(mesh, keep)
@@ -1874,6 +2138,23 @@ def _top_k_whole(func, args, kwargs):
     return torch.return_types.sort(_SortWhole.apply(
         x, dim, given.get("descending", False),
         given.get("stable", False) or False))
+
+
+def _sorted_whole(func, args, kwargs):
+    """A sort or argsort of a DTensor along a dim that several mesh dims
+    split (the decode's dispatch: its 1,024 expert ids over "pod" x
+    "data"), as XLA partitions it: the operand gathered over them in
+    one all-gather (``_whole_at_once``), sorted whole on every rank.
+    None for any other op (DTensor gathers a dim split over one)."""
+    from torch.distributed.tensor import DTensor
+    x = args[0] if args else None
+    if func not in (torch.sort, torch.Tensor.sort, torch.argsort,
+                    torch.Tensor.argsort) or not isinstance(x, DTensor):
+        return None
+    dim = dict(zip(("dim",), args[1:]), **kwargs).get("dim", -1) % x.ndim
+    if sum(q.is_shard(dim) for q in x.placements) < 2:
+        return None
+    return func(_whole_at_once(x), *args[1:], **kwargs)
 
 
 def partial_scatter_add(func, args):
@@ -2599,6 +2880,8 @@ class _GspmdOps(TorchFunctionMode):
         out = _split_reduction(func, args, kwargs)
         if out is None:
             out = _top_k_whole(func, args, kwargs)
+        if out is None:
+            out = _sorted_whole(func, args, kwargs)
         if out is None:
             out = gathered_on_blocks(func, args, kwargs)
         if out is not None:

@@ -39,7 +39,15 @@ one (one rank's share,
     axis that splits the tokens (on 16x16 and 2x16x16), and AdamW reads
     them without reducing them again;
   * on 2x16x16, ``_whole_by_free_dims``: the decode scores' queries
-    gathered by way of "pod" x "data" together.
+    gathered by way of "pod" x "data" together;
+  * the MoE with its batch over "pod" x "data", on a small 3-D mesh:
+    the chunked MoE's rows taken into chunks as the reference's scan
+    reads them (``rows_in_chunks``) and its output laid out as the
+    batch (``rows_laid_out_as``), a sort over both axes gathered in
+    one all-gather (``_whole_at_once``), the decode's join of its
+    tokens and zero row (``uneven_cat``), its buckets, its combine on
+    the blocks of both free axes (``_gather_sum_blocks``) and the cut
+    to its tokens (``_recut``).
 
 The production mesh lives on a dry-run world (the ``fake`` backend), so
 every case runs in one subprocess (its results checked here); the gloo
@@ -258,19 +266,103 @@ for pod in (False, True):
             out["scores pod"] = cost(lambda: res.setdefault(
                 "y", torch.einsum("bsngd,btnd->bnsgt", q, k)))
             out["scores pod"].update(where(res["y"]))
+
 print("RESULT " + json.dumps(out))
 """
 
 
-@pytest.fixture(scope="module")
-def cases():
+# the MoE on a small 3-D mesh ("pod" 2 x "data" 4 x "model" 4), its
+# batch split over "pod" x "data"
+_POD_CASES = r"""
+import json
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from repro_torch.launch import cost_analysis as ca
+from repro_torch.launch import mesh as m
+from repro_torch.models import moe
+from repro_torch.parallel import sharding as sh
+
+m.init_dry_run_world()
+mesh = DeviceMesh("cpu", torch.arange(32).reshape(2, 4, 4),
+                  mesh_dim_names=("pod", "data", "model"))
+R, S = Replicate(), Shard
+BATCH = [S(0), S(0), R]
+out = {}
+
+
+def dt(shape, placements, dtype=torch.float32):
+    local = list(shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            local[p.dim] //= mesh.size(i)
+    return DTensor.from_local(
+        torch.empty(local, device="meta", dtype=dtype), mesh, placements,
+        run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def where(t):
+    return {"placements": [str(p) for p in t.placements],
+            "local": list(t.to_local().shape)}
+
+
+def case(name, fn):
+    res = {}
+    c = ca.count_step(lambda: res.setdefault("y", fn()))
+    out[name] = {"elements": c.coll_elements,
+                 "replicated": c.replicated_ops}
+    y = res["y"]
+    out[name].update(where(y[0] if isinstance(y, tuple) else y))
+    return y
+
+
+with sh.gspmd_partitioning():
+    # the chunked MoE's output, its (8, 16, 32) rows split over "data"
+    # alone and replicated over "pod", laid out as the batch
+    rows = dt((8, 16, 32), [R, S(0), R])
+    case("pod rows back", lambda: moe.rows_laid_out_as(
+        rows, dt((8, 16, 32), BATCH)))
+    # 32 rows of (4, 8) taken into 4 chunk rows x 8 chunks
+    case("pod chunks", lambda: sh.rows_in_chunks(
+        dt((32, 4, 8), BATCH), 4, 8))
+    # the top-k of (16, 32) scores, and the argsort of 64 expert ids,
+    # over the tokens split over "pod" x "data"
+    case("pod top-k", lambda: moe._top_k(dt((16, 32), BATCH), 4))
+    case("pod argsort", lambda: torch.argsort(
+        dt((64,), BATCH, dtype=torch.long), dim=-1, stable=True))
+    # the decode's 16 tokens and the zero row joined, gathered into 8
+    # experts' buckets of 4 split over "data"; 32 expert rows combined
+    # into the 17 rows by a whole index, then cut to the 16 tokens
+    xf = dt((16, 8), BATCH)
+    x_pad = case("pod cat", lambda: torch.cat([xf, xf.new_zeros((1, 8))]))
+    case("pod buckets", lambda: sh.take_rows(
+        x_pad, dt((8, 4), [R, S(0), R], dtype=torch.long)))
+    y = case("pod combine", lambda: sh.gather_sum(
+        dt((32, 8), [R, S(0), R]), dt((17, 2), [R, R, R], dtype=torch.long)))
+    case("pod cut", lambda: y[:16])
+print("RESULT " + json.dumps(out))
+"""
+
+
+def _run(snippet):
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
-    proc = subprocess.run([sys.executable, "-c", _CASES], capture_output=True,
+    proc = subprocess.run([sys.executable, "-c", snippet], capture_output=True,
                           text=True, timeout=300, env=env, cwd=ROOT)
     line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
     assert line, proc.stderr[-3000:]
     return json.loads(line[0][len("RESULT "):])
+
+
+@pytest.fixture(scope="module")
+def cases():
+    return _run(_CASES)
+
+
+@pytest.fixture(scope="module")
+def pod_cases():
+    return _run(_POD_CASES)
 
 
 def test_conflicting_splits_make_the_smaller_whole_by_the_free_axis(cases):
@@ -469,6 +561,84 @@ def test_the_gold_gathers_gradient_is_a_block_of_the_logits(cases):
     assert xent["placements"] == ["S(0)", "S(2)"]
     assert xent["peak"] < 256 * 16 * 4096 * 4 // 16
     assert cases["xent whole"]["placements"] == ["S(0)", "R"]
+
+
+def test_moe_rows_come_back_laid_out_as_the_batch(pod_cases):
+    """On a small 3-D mesh ("pod" 2 x "data" 4 x "model" 4) the chunked
+    MoE's output, (8, 16, 32) rows split over "data" alone and
+    replicated over "pod", comes back laid out as the batch, over "pod"
+    x "data", by the function ``models/moe.py`` calls
+    (``moe.rows_laid_out_as``; the name once resolved to the mLSTM
+    state's layout, which returned the rows as they were): each rank
+    sends its whole (2, 16, 32) block to one rank, which keeps its half
+    (one collective-permute, as the reference's chunk loop sends each
+    chunk's combined rows)."""
+    c = pod_cases["pod rows back"]
+    assert c["placements"] == ["S(0)", "S(0)", "R"]
+    assert c["local"] == [1, 16, 32]
+    assert c["elements"] == {"collective-permute(g=32)": 2 * 16 * 32}
+    assert c["replicated"] == {}
+
+
+def test_rows_split_over_two_axes_are_placed_as_chunks(pod_cases):
+    """32 rows split over "pod" x "data" (4 a rank) taken into 4 chunk
+    rows x 8 chunks, fewer chunk rows than the 8 ranks: placed, not run
+    replicated, as the reference's scan reads them — each chunk's rows
+    over "data", the chunks whole — by one collective-permute of the
+    rank's 4 rows and an all-gather of the 8 chunks over "pod"."""
+    c = pod_cases["pod chunks"]
+    assert c["replicated"] == {}
+    assert c["placements"] == ["R", "S(0)", "R"]
+    assert c["local"] == [1, 8, 4, 8]
+    assert c["elements"] == {"collective-permute(g=32)": 4 * 4 * 8,
+                             "all-gather(g=2)": 8 * 4 * 8}
+
+
+@pytest.mark.parametrize("name,elements", [("pod top-k", 16 * 32),
+                                           ("pod argsort", 64)])
+def test_a_sort_over_two_axes_gathers_once(pod_cases, name, elements):
+    """The top-k of (16, 32) scores, and the argsort of 64 expert ids,
+    whose tokens split over "pod" x "data": the operand gathered over
+    the 8 ranks in one all-gather (DTensor gathers over "data", then
+    "pod")."""
+    c = pod_cases[name]
+    assert c["elements"] == {"all-gather(g=8)": elements}
+    assert c["replicated"] == {}
+
+
+def test_the_decode_join_and_buckets_go_over_both_axes(pod_cases):
+    """The 16 tokens over "pod" x "data" joined with the zero row: moved
+    to the feature dim by one all-to-all over the 8 (2 x 8), joined,
+    moved back padded to 24 rows (3 x 8), 3 rows a rank.  Gathered into
+    8 experts' buckets of 4 split over "data": the rows' "data" split
+    moved to "model" (a collective-permute of the 3 rows), each rank's
+    gathered rows all-reduced over "pod" x "model" at once (2 x 4 x 8),
+    the product of the mesh dims that split the rows."""
+    cat = pod_cases["pod cat"]
+    assert cat["elements"] == {"all-to-all(g=8)": 2 * 8 + 3 * 8}
+    assert cat["placements"] == ["S(0)", "S(0)", "R"]
+    assert cat["local"] == [3, 8]
+    b = pod_cases["pod buckets"]
+    assert b["elements"] == {"collective-permute(g=32)": 3 * 8,
+                             "all-reduce(g=8)": 2 * 4 * 8}
+    assert b["placements"] == ["R", "S(0)", "R"]
+
+
+def test_the_decode_combine_reduces_on_blocks_over_both_free_axes(pod_cases):
+    """32 expert rows split over "data" combined into 17 token rows by a
+    whole index: the output's rows over "pod" x "model" (3 a rank of
+    the 8 blocks), each block's partial sums all-reduced over "data"
+    and moved to "pod" x "data" by one collective-permute; cut to the
+    16 tokens, 2 a rank, by XLA's re-cut (``_recut_plan``: permutes of
+    3, 1 and 1 rows)."""
+    c = pod_cases["pod combine"]
+    assert c["elements"] == {"all-reduce(g=4)": 3 * 8,
+                             "collective-permute(g=32)": 3 * 8}
+    assert c["placements"] == ["S(0)", "S(0)", "R"] and c["local"] == [3, 8]
+    cut = pod_cases["pod cut"]
+    assert cut["elements"] == {"collective-permute(g=32)": (3 + 1 + 1) * 8}
+    assert cut["placements"] == ["S(0)", "S(0)", "R"]
+    assert cut["local"] == [2, 8]
 
 
 def _xent_inputs():
