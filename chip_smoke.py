@@ -166,7 +166,11 @@ elastic checkpoint restore.
               "data"; DRYRUN_POD_LONG_REF), and deepseek-v3-671b x
               decode_32k and prefill_32k (the MoE on a batch over "pod" x
               "data"; DRYRUN_POD_MOE_DECODE_REF,
-              DRYRUN_POD_MOE_PREFILL_REF, the prefill's one fallback);
+              DRYRUN_POD_MOE_PREFILL_REF, the prefill's one fallback),
+              and xlstm-125m x long_500k and train_4k (the up
+              projections and the sLSTM state over "pod" x "data", the
+              lookup's gradient reduced once; DRYRUN_POD_XLSTM_LONG_REF,
+              DRYRUN_POD_XLSTM_TRAIN_REF);
               every train cell's temp bytes within
               DRYRUN_TEMP_FACTOR of the reference's; (b) a one-rank
               NCCL world (``make_host_mesh()``): the shard_map MoE
@@ -3203,6 +3207,42 @@ DRYRUN_POD_LONG_REF = {"argument_bytes": 13_035_267_080,
                                          "all-gather(g=16)": 188_448,
                                          "collective-permute(g=512)": 47_104,
                                          "all-reduce(g=32)": 188_416}}
+# ... and of xlstm-125m's long-context decode and training step on the
+# 2x16x16 mesh: the decode's up projections contracted, and the
+# unembedding's input and the sLSTM state gathered, over the 32 of
+# "pod" x "data"; the step's lookup gradient all-reduced over the 32 at
+# once in the backward, each up projection's weight gradient over
+# "data", then "pod", and the sLSTM gates' gradients gathered whole
+# over "model" (tests/_dryrun_ref.py --multi-pod on the CPU), each held
+# as DRYRUN_MOE_REF is
+DRYRUN_POD_XLSTM_ARCH = "xlstm-125m"
+DRYRUN_POD_XLSTM_LONG_REF = {"argument_bytes": 61_319_716,
+                             "alias_bytes": 3_456,
+                             "output_bytes": 903_852,
+                             "dot_flops": 8_338_176,
+                             "coll_traffic": 212_803.5,
+                             "coll_elements": {
+                                 "all-reduce(g=16)": 15_193,
+                                 "collective-permute(g=512)": 16_854,
+                                 "all-gather(g=32)": 1_920,
+                                 "all-reduce(g=32)": 3_072,
+                                 "all-reduce(g=4)": 12,
+                                 "all-gather(g=16)": 32}}
+DRYRUN_POD_XLSTM_TRAIN_REF = {"argument_bytes": 79_327_944,
+                              "alias_bytes": 36_091_588,
+                              "output_bytes": 38_777_640,
+                              "temp_bytes": 2_201_532_440,
+                              "dot_flops": 2_332_418_899_968,
+                              "coll_traffic": 47_709_123_957.5,
+                              "coll_elements": {
+                                  "all-gather(g=16)": 2_980_589_568,
+                                  "collective-permute(g=512)": 733_256_448,
+                                  "all-reduce(g=32)": 911_050_046,
+                                  "all-reduce(g=16)": 1_541_969_946,
+                                  "all-reduce(g=4)": 1_754_530_563,
+                                  "all-gather(g=4)": 1_324_351_488,
+                                  "all-reduce(g=2)": 344_448,
+                                  "all-to-all(g=16)": 125_829_120}}
 # ... and of deepseek-v3-671b's decode and prefill on the 2x16x16 mesh,
 # the MoE on a batch split over "pod" x "data": the decode's scores and
 # expert ids gathered over the 32 at once, its tokens joined with the
@@ -4285,6 +4325,14 @@ def main() -> int:
              DRYRUN_POD_MOE_PREFILL_REF,
              "the chunked MoE's rows as the reference's scan reads them",
              True, DRYRUN_POD_MOE_PREFILL_FALLBACKS),
+            ("pod_xlstm_long", DRYRUN_POD_XLSTM_ARCH, "long_500k",
+             DRYRUN_POD_XLSTM_LONG_REF,
+             "the up projections and the sLSTM state over \"pod\" x "
+             "\"data\"", True, ()),
+            ("pod_xlstm_train", DRYRUN_POD_XLSTM_ARCH, "train_4k",
+             DRYRUN_POD_XLSTM_TRAIN_REF,
+             "the lookup's gradient reduced once, the gates' gathered",
+             True, ()),
             ("xlstm", DRYRUN_XLSTM_ARCH, DRYRUN_XLSTM_SHAPE,
              DRYRUN_XLSTM_REF, "the xLSTM blocks' partition", False, ()),
             ("gemma", DRYRUN_GEMMA_ARCH, DRYRUN_GEMMA_SHAPE,

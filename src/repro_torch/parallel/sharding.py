@@ -485,22 +485,34 @@ def _flat_coordinate(mesh, dims, coord=None) -> int:
 
 def _move_split(x, a: Tuple[int, ...], b: Tuple[int, ...], placements):
     """``x``'s split moved from the mesh dims ``a`` (one mesh axis: one
-    dim, or a factored axis's) to the mesh dims ``b`` of the same size —
-    the rank at index i over ``a`` and j over ``b`` takes the block of
-    the rank at j over ``a`` and i over ``b`` — as ``placements``: one
-    collective-permute, issued as the all-to-all that sends the whole
-    block to one rank (``launch.cost_analysis`` counts it as a
-    collective-permute)."""
+    dim, or a factored axis's) to the mesh dims ``b``, whose ranks are
+    p >= 1 times ``a``'s — the rank at index i over ``a`` and j over
+    ``b`` sends part j mod p of its block (cut in p along the split dim)
+    to the rank at j // p over ``a`` and i p + j mod p over ``b``, so
+    that the rank at index k over ``b`` holds part k of the dim (p = 1:
+    it takes the block of the rank at j over ``a`` and i over ``b``; p
+    = 2: an xLSTM residual's "model" split moved to "pod" x "data" in
+    halves, the reference's f32[1,1,24] of xlstm-125m long_500k) — as
+    ``placements``: one collective-permute, issued as the all-to-all
+    that sends the whole part to one rank (``launch.cost_analysis``
+    counts it as a collective-permute)."""
     from torch.distributed import _functional_collectives as funcol
     from torch.distributed.tensor import DTensor
     mesh = x.device_mesh
+    p = math.prod(mesh.size(m) for m in b) // math.prod(mesh.size(m)
+                                                         for m in a)
     coord = list(mesh.get_coordinate())
     i, j = _flat_coordinate(mesh, a, coord), _flat_coordinate(mesh, b, coord)
-    for dims, v in ((a, j), (b, i)):
+    for dims, v in ((a, j // p), (b, i * p + j % p)):
         for m in reversed(dims):
             coord[m], v = v % mesh.size(m), v // mesh.size(m)
     flat = _flat_coordinate(mesh, range(mesh.ndim), coord)
-    block = x.to_local().contiguous()
+    block = x.to_local()
+    if p > 1:
+        d = x.placements[a[0]].dim
+        width = block.shape[d] // p
+        block = block.narrow(d, (j % p) * width, width)
+    block = block.contiguous()
     splits = [0] * mesh.size()
     splits[flat] = block.shape[0]
     moved = funcol.all_to_all_single(block, splits, splits, _mesh_group(mesh))
@@ -929,9 +941,14 @@ def _reduced_in_stages(out) -> bool:
     """Whether ``out``, a product's partial sums, is the gradient of a
     weight gathered where it is stored (``_Gather``, no use axis) and
     partial over more mesh dims than its FSDP ones: ``_Gather``'s
-    backward reduces it, over the FSDP axis first."""
+    backward reduces it, over the FSDP axis first.  The product is
+    autograd's, or ``_RegatheredInput``'s weight gradient (an xLSTM up
+    projection's, the tied unembedding's: the reference's all-reduce
+    over "data" of f32[768,192], then over "pod" of its f32[48,192]
+    block, in xlstm-125m train_4k on the 2x16x16 mesh)."""
     node = torch._C._current_autograd_node()
-    if type(node).__name__ not in ("MmBackward0", "BmmBackward0"):
+    if type(node).__name__ not in ("MmBackward0", "BmmBackward0",
+                                   "_RegatheredInputBackward"):
         return False
     partial = {m for m, q in enumerate(out.placements) if q.is_partial()}
     for fn, _ in node.next_functions:
@@ -1293,8 +1310,12 @@ def cat_kept(func, args):
     mesh dims that split it (an all-to-all), the blocks joined, and the
     joined block exchanged again (an all-to-all), its split kept (the
     reference's sLSTM step: four f32[16,48] all-to-alls and one
-    f32[16,192] a step of xlstm-125m train_4k's backward).  None for any
-    other op."""
+    f32[16,192] a step of xlstm-125m train_4k's backward).  Where no
+    other dim of a part's block divides among those ranks (the sLSTM
+    step's 8 rows a rank against "model"'s 16 on the 2x16x16 mesh), each
+    part gathered whole over them (an all-gather: the reference's four
+    f32[8,768] a step there), the parts joined, and the joined dim
+    sliced to the split.  None for any other op."""
     from torch.distributed.tensor import DTensor, Shard
     if not _GSPMD.active or func is not torch.ops.aten.cat.default:
         return None
@@ -1316,10 +1337,19 @@ def cat_kept(func, args):
     if any(t._local_tensor.shape[dim] % mesh.size(m)
            for t in ts for m in over):
         return None
-    blocks = [_exchanged(t._local_tensor, mesh, over, dim) for t in ts]
-    joined = _exchanged(torch.cat(blocks, dim), mesh, over, dim)
     shape = list(x.shape)
     shape[dim] = sum(t.shape[dim] for t in ts)
+    n = math.prod(mesh.size(m) for m in over)
+    if not any(size % n == 0 for d, size in
+               enumerate(x._local_tensor.shape) if d != dim):
+        group = _dims_group(mesh, over)
+        joined = torch.cat([_all_gather(t._local_tensor, dim, group)
+                            for t in ts], dim)
+        b = shape[dim] // n
+        return _placed(joined.narrow(dim, _flat_coordinate(mesh, over) * b,
+                                     b), mesh, placements, shape)
+    blocks = [_exchanged(t._local_tensor, mesh, over, dim) for t in ts]
+    joined = _exchanged(torch.cat(blocks, dim), mesh, over, dim)
     return _placed(joined, mesh, placements, shape)
 
 
@@ -1441,27 +1471,6 @@ def _dims_group(mesh, dims):
             grid.reshape(-1, math.prod(mesh.size(m) for m in dims)).tolist())
         groups[dims] = mine
     return groups[dims]
-
-
-def _whole_at_once(x):
-    """The DTensor ``x`` replicated, each dim that several mesh dims split
-    evenly gathered over them in one all-gather (XLA's all-gather of a
-    dim split over "pod" x "data", over the 32 at once), any other
-    split gathered by DTensor."""
-    from torch.distributed.tensor import Replicate
-    mesh, block = x.device_mesh, x._local_tensor
-    placements = list(x.placements)
-    for d in range(x.ndim):
-        over = [m for m, q in enumerate(placements) if q.is_shard(d)]
-        if len(over) < 2 or x.shape[d] % math.prod(
-                mesh.size(m) for m in over):
-            continue
-        block = _all_gather(block, d, _dims_group(mesh, over))
-        for m in over:
-            placements[m] = Replicate()
-    if placements != list(x.placements):
-        x = _placed(block, mesh, placements, x.shape)
-    return x.redistribute(mesh, [Replicate()] * mesh.ndim)
 
 
 def _permuted_part(block, mesh, over, dim, b, o, b2, me):
@@ -2089,7 +2098,7 @@ def _split_off(x, index):
 class _SortWhole(torch.autograd.Function):
     """``torch.sort`` of a split DTensor on its operand gathered whole, each
     rank keeping its block of the results (a dim split over several
-    mesh dims gathered over them at once, ``_whole_at_once``); the
+    mesh dims gathered over them at once, ``_whole_over``); the
     backward scatters each rank's block of the values' gradient to its
     rows' sorted positions, where it stands (every row's gradient is in
     the rank's block)."""
@@ -2097,7 +2106,7 @@ class _SortWhole(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, descending, stable):
         mesh, keep = x.device_mesh, list(x.placements)
-        whole = _whole_at_once(x)
+        whole = _whole_over(x, range(x.device_mesh.ndim))
         vals, ids = torch.sort(whole, dim=dim, descending=descending,
                                stable=stable)
         ids = ids.redistribute(mesh, keep)
@@ -2144,7 +2153,7 @@ def _sorted_whole(func, args, kwargs):
     """A sort or argsort of a DTensor along a dim that several mesh dims
     split (the decode's dispatch: its 1,024 expert ids over "pod" x
     "data"), as XLA partitions it: the operand gathered over them in
-    one all-gather (``_whole_at_once``), sorted whole on every rank.
+    one all-gather (``_whole_over``), sorted whole on every rank.
     None for any other op (DTensor gathers a dim split over one)."""
     from torch.distributed.tensor import DTensor
     x = args[0] if args else None
@@ -2154,7 +2163,8 @@ def _sorted_whole(func, args, kwargs):
     dim = dict(zip(("dim",), args[1:]), **kwargs).get("dim", -1) % x.ndim
     if sum(q.is_shard(dim) for q in x.placements) < 2:
         return None
-    return func(_whole_at_once(x), *args[1:], **kwargs)
+    return func(_whole_over(x, range(x.device_mesh.ndim)), *args[1:],
+                **kwargs)
 
 
 def partial_scatter_add(func, args):
@@ -2199,17 +2209,17 @@ def partial_scatter_add(func, args):
                                    for q in placements])
 
 
-def _free_dims(mesh, m: int, ts) -> Tuple[int, ...]:
-    """Every mesh dim other than ``m`` on which each DTensor of ``ts`` is
+def _free_dims(mesh, dims, ts) -> Tuple[int, ...]:
+    """Every mesh dim outside ``dims`` on which each DTensor of ``ts`` is
     replicated, major first (the long-context decode's "data", and
     "pod" on the 2x16x16 mesh, which its batch of one leaves free)."""
-    return tuple(f for f in range(mesh.ndim) if f != m
+    return tuple(f for f in range(mesh.ndim) if f not in dims
                  and all(t.placements[f].is_replicate() for t in ts))
 
 
 def _free_dim(mesh, m: int, ts) -> Optional[int]:
     """A mesh dim of ``_free_dims`` of ``m``'s size, or None."""
-    return next((f for f in _free_dims(mesh, m, ts)
+    return next((f for f in _free_dims(mesh, (m,), ts)
                  if mesh.size(f) == mesh.size(m)), None)
 
 
@@ -2242,8 +2252,8 @@ def _whole_over_free(eq, ops):
     all-gather), so the larger keeps its split; where the free mesh
     dims together have more ranks than the conflicting one ("pod" x
     "data" on the 2x16x16 mesh), gathered by way of all of them
-    (``_whole_by_free_dims``).  The operands as they are where there is
-    no such conflict or no free mesh dim."""
+    (``_whole_by_free_dims``; ``_free_for``).  The operands as they are
+    where there is no such conflict or no free mesh dim."""
     from torch.distributed.tensor import DTensor, Replicate
     if not ops or not all(isinstance(x, DTensor) for x in ops) \
             or factored_axes(ops[0].device_mesh):
@@ -2261,14 +2271,13 @@ def _whole_over_free(eq, ops):
         if sum(q.is_shard() for q in x.placements) != 1:
             return ops
         ops = list(ops)
-        free = _free_dims(mesh, m, ops)
-        ranks = math.prod(mesh.size(f) for f in free)
-        if ranks > mesh.size(m) and ranks % mesh.size(m) == 0:
+        free = _free_for(mesh, (m,), ops)
+        if free is None:
+            return ops
+        if len(free) > 1:
             ops[small] = _whole_by_free_dims(x, m, free)
             return ops
-        f = _free_dim(mesh, m, ops)
-        if f is None:
-            return ops
+        f = free[0]
         moved = list(x.placements)
         moved[m], moved[f] = Replicate(), moved[m]
         ops[small] = _move_split(x, (m,), (f,), moved).redistribute(
@@ -2491,8 +2500,9 @@ def _partial_axis(mesh, placements) -> Optional[Tuple[int, ...]]:
 
 
 def _reduced_on_free(func, args, placements, ms, split):
-    """``reduced_by_heads`` where a mesh dim of the axis's size is free
-    (the long-context decode's "data"), as GSPMD partitions it: each
+    """``reduced_by_heads`` where mesh dims are free to take the axis's
+    split (``_free_for``: the long-context decode's "data", or "pod" x
+    "data"), as GSPMD partitions it: each
     rank's product only for the block of the output it will hold (its
     weight's columns sliced: nothing moves), the block's partial sums
     all-reduced over the axis's mesh dims ``ms``, and the block moved to
@@ -2552,10 +2562,10 @@ def _gathered_contraction(eq, ops, like):
         i = split[0]
         x = ops[i]
         axis = next(d for d in mesh_axes(x.device_mesh).values() if m in d)
-        f = _free_for(x.device_mesh, axis, ops + [like])
-        if f is not None and x.shape[x.placements[m].dim] \
-                % x.device_mesh.size(f) == 0:
-            ops[i] = _gathered_on_free(x, m, f)
+        free = _free_for(x.device_mesh, axis, ops + [like])
+        if free is not None and x.shape[x.placements[m].dim] % math.prod(
+                x.device_mesh.size(f) for f in free) == 0:
+            ops[i] = _gathered_on_free(x, m, free)
         else:
             gathered.setdefault(i, []).append(m)
         cut.add(m)
@@ -2635,25 +2645,26 @@ class _SlicedKeepingGrad(torch.autograd.Function):
         return g, None
 
 
-def _gathered_on_free(x, m: int, f: int):
+def _gathered_on_free(x, m: int, free):
     """``x`` made whole over the mesh dim ``m`` that splits one of its dims
-    by way of the free mesh dim ``f`` (the long-context decode's
-    "data"), as GSPMD does it: each rank's block re-cut to ``f``'s
-    blocks of that dim (a collective-permute of one: the reference's
-    f32[1,1,12] sLSTM state of xlstm-125m long_500k), then gathered over
-    ``f`` (an all-gather, its f32[1,1,192])."""
+    by way of the free mesh dims ``free`` (``_free_for``: the
+    long-context decode's "data", or "pod" x "data"), as GSPMD does it:
+    each rank's block re-cut to ``free``'s blocks of that dim (a
+    collective-permute of one: the reference's f32[1,1,12] sLSTM state
+    of xlstm-125m long_500k, f32[1,1,6] on the 2x16x16 mesh), then
+    gathered over ``free`` (an all-gather, its f32[1,1,192], over the 32
+    at once on 2x16x16)."""
     from torch.distributed.tensor import Replicate, Shard
     mesh, d = x.device_mesh, x.placements[m].dim
-    size = x.shape[d] // mesh.size(f)
+    size = x.shape[d] // math.prod(mesh.size(f) for f in free)
     piece = x._local_tensor.narrow(d, 0, size).movedim(d, 0).contiguous()
     splits = [size] + [0] * (mesh.size() - 1)
     piece = _funcol().wait_tensor(_funcol().all_to_all_single(
         piece, splits, splits, _mesh_group(mesh))).movedim(0, d)
-    placements = [Shard(d) if k == f else (Replicate() if k == m else q)
+    placements = [Shard(d) if k in free else (Replicate() if k == m else q)
                   for k, q in enumerate(x.placements)]
-    return _placed(piece, mesh, placements, tuple(x.shape)).redistribute(
-        mesh, [Replicate() if k in (m, f) else q
-               for k, q in enumerate(placements)])
+    return _whole_over(_placed(piece, mesh, placements, tuple(x.shape)),
+                       free)
 
 
 def _wanted_split(like, func, args):
@@ -2923,7 +2934,7 @@ class _GspmdOps(TorchFunctionMode):
                 tokens = _tokens_for_lookup(args[0], args[1])
                 if tokens is args[0]:
                     args = (tokens, _table_for_lookup(
-                        tokens, args[1], among=True)) + tuple(args[2:])
+                        tokens, args[1], single=False)) + tuple(args[2:])
                 else:
                     args = (tokens,) + tuple(args[1:])
         return func(*args, **kwargs)
@@ -2942,13 +2953,14 @@ def _input_whole_product(func, x, w):
     f32[2,32768,768] all-gather before each of xlstm-125m prefill_32k's
     up projections), so that the product's output keeps the weight's
     split (``_RegatheredInput`` under autograd); DTensor would rather
-    move the weight to its rows and all-reduce the product.  Where a
-    mesh dim of their size is free (the long-context decode's "data"),
-    the split moved there (a collective-permute), then either
+    move the weight to its rows and all-reduce the product.  Where mesh
+    dims are free to take the split (``_free_for``: the long-context
+    decode's "data", or "pod" x "data" on the 2x16x16 mesh), the split
+    moved there (a collective-permute), then either
     contracted there (its partial sums all-reduced: the reference's
-    f32[1,1,192] of xlstm-125m long_500k's up projections) or gathered
-    there (the unembedding's f32[1,1,768]), whichever moves less.  None
-    for any other product."""
+    f32[1,1,192] of xlstm-125m long_500k's up projections, over the 32
+    of "pod" x "data" on 2x16x16) or gathered there (the unembedding's
+    f32[1,1,768]), whichever moves less.  None for any other product."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     if not (isinstance(x, DTensor) and isinstance(w, DTensor)) \
             or w.ndim != 2 or x.ndim < 2:
@@ -2960,27 +2972,44 @@ def _input_whole_product(func, x, w):
                            for m in over):
         return None
     mesh = x.device_mesh
-    f = _free_for(mesh, over, (x, w))
-    if f is not None:
-        moved = [Replicate() if m in over else q
+    free = _free_for(mesh, over, (x, w))
+    if free is not None:
+        moved = [x.placements[over[0]] if m in free else
+                 (Replicate() if m in over else q)
                  for m, q in enumerate(x.placements)]
-        moved[f] = x.placements[over[0]]
-        x = _move_split(x, tuple(over), (f,), moved)
+        x = _move_split(x, tuple(over), free, moved)
         # the product's block against the input gathered, a row each
         if w._local_tensor.shape[-1] < x.shape[-1]:
             return func(x, w.redistribute(mesh, [
-                Shard(0) if m == f else q for m, q in enumerate(w.placements)]))
-        over = [f]
+                Shard(0) if m in free else q
+                for m, q in enumerate(w.placements)]))
+        over = list(free)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _RegatheredInput.apply(x, w, tuple(over))
     return func(_whole_over(x, over), w)
 
 
 def _whole_over(x, over):
-    """``x`` gathered over the mesh dims ``over`` (an all-gather)."""
+    """``x`` gathered over the mesh dims ``over`` (an all-gather; a dim
+    that several mesh axes' dims of them split evenly, and no other,
+    over those at once, as XLA gathers a dim split over "pod" x "data";
+    any other split by DTensor, a factored axis's merged by
+    ``cost_analysis.factor_batch``)."""
     from torch.distributed.tensor import Replicate
-    return x.redistribute(x.device_mesh, [
-        Replicate() if m in over else q for m, q in enumerate(x.placements)])
+    mesh, placements = x.device_mesh, list(x.placements)
+    axis = {m: a for a, ms in mesh_axes(mesh).items() for m in ms}
+    for d in range(x.ndim):
+        dims = [m for m in over if placements[m].is_shard(d)]
+        if len({axis[m] for m in dims}) > 1 \
+                and dims == [m for m, q in enumerate(placements)
+                             if q.is_shard(d)] \
+                and x.shape[d] % math.prod(mesh.size(m) for m in dims) == 0:
+            block = _all_gather(x._local_tensor, d, _dims_group(mesh, dims))
+            for m in dims:
+                placements[m] = Replicate()
+            x = _placed(block, mesh, placements, x.shape)
+    return x.redistribute(mesh, [
+        Replicate() if m in over else q for m, q in enumerate(placements)])
 
 
 class _RegatheredInput(torch.autograd.Function):
@@ -3019,14 +3048,19 @@ class _RegatheredInput(torch.autograd.Function):
         return dx, dw, None
 
 
-def _free_for(mesh, dims, ts) -> Optional[int]:
-    """A mesh dim outside ``dims``, of their product's size, on which every
-    DTensor of ``ts`` is replicated (the long-context decode's "data",
-    which its batch of one leaves free), or None."""
+def _free_for(mesh, dims, ts) -> Optional[Tuple[int, ...]]:
+    """The mesh dims outside ``dims`` on which every DTensor of ``ts`` is
+    replicated, to take a split over ``dims`` (the long-context decode's,
+    which its batch of one leaves free): all of them where there are
+    several and their ranks are p > 1 times ``dims``' ("pod" x "data", 32
+    ranks, against "model"'s 16 on the 2x16x16 mesh), else one of
+    ``dims``' size ("data" on the 16x16 mesh), else None."""
     size = math.prod(mesh.size(m) for m in dims)
-    return next((f for f in range(mesh.ndim) if f not in dims
-                 and mesh.size(f) == size
-                 and all(t.placements[f].is_replicate() for t in ts)), None)
+    free = _free_dims(mesh, dims, ts)
+    ranks = math.prod(mesh.size(f) for f in free)
+    if len(free) > 1 and ranks > size and ranks % size == 0:
+        return free
+    return next(((f,) for f in free if mesh.size(f) == size), None)
 
 
 def _hoisting() -> bool:
@@ -3279,21 +3313,24 @@ def _einsum_on_blocks(args):
     return y
 
 
-def _table_for_lookup(tokens, table, among: bool = False):
-    """The table of an embedding lookup (``lookup_by_table``) whose vocab
-    one mesh axis splits and whose rows the tokens' axis splits, as the
-    reference's partition of xlstm-125m train_4k reads it: the two
-    splits swapped (one collective-permute of the block, its
-    f32[3144,48]), the vocab then gathered over the tokens' axis (an
-    all-gather, f32[50304,48]), so that each rank looks its tokens up
-    in its columns and the lookup leaves the embedding dim split as
-    the vocab was.  ``among``: the tokens split over several axes, the
-    rows' among them (the batch over "pod" x "data" on the 2x16x16
-    mesh, where the reference's gemma2-2b train_4k reads its table so:
-    f32[16000,144] permuted, f32[256000,144] gathered), the gradient's
-    partial sums over them all reduced at once (its f32[256000,144]
-    all-reduce over the 32), then sliced (``_ReducedAtOnce``).  The
-    table as it is for any other lookup."""
+def _table_for_lookup(tokens, table, single: bool = True):
+    """The table of an embedding lookup whose vocab one mesh axis splits
+    and whose rows the tokens' axis splits, as the reference's partition
+    of xlstm-125m train_4k reads it: the two splits swapped (one
+    collective-permute of the block, its f32[3144,48]), the vocab then
+    gathered over the tokens' axis (an all-gather, f32[50304,48]), so
+    that each rank looks its tokens up in its columns and the lookup
+    leaves the embedding dim split as the vocab was.  Where the tokens
+    split over several axes, the rows' among them (the batch over "pod"
+    x "data" on the 2x16x16 mesh, where the reference's gemma2-2b and
+    xlstm-125m train_4k read their tables so: f32[16000,144] and
+    f32[3144,48] permuted, f32[256000,144] and f32[50304,48] gathered),
+    the gradient's partial sums over them all reduced at once (its
+    all-reduce over the 32), then sliced (``_ReducedAtOnce``).
+    ``single=False``: only so, not where the tokens split over one axis
+    (a lookup outside ``lookup_by_table``, whose tokens go to the table
+    there: ``_tokens_for_lookup``).  The table as it is for any other
+    lookup."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     if not (_GSPMD.active and isinstance(tokens, DTensor)
             and isinstance(table, DTensor)) or table.ndim != 2:
@@ -3305,11 +3342,9 @@ def _table_for_lookup(tokens, table, among: bool = False):
                                      for m in ms)]
     split = [ms for ms in axes if all(type(tokens.placements[m]) is Shard
                                       for m in ms)]
-    if among:
-        fits = len(rows) == 1 and len(split) > 1 and rows[0] in split
-    else:
-        fits = rows == split and len(split) == 1
-    if len(vocab) != 1 or not fits:
+    among = len(rows) == 1 and len(split) > 1 and rows[0] in split
+    if len(vocab) != 1 or not (among or single and rows == split
+                               and len(split) == 1):
         return table
     a, b = rows[0], vocab[0]
     mesh = table.device_mesh

@@ -96,7 +96,8 @@ def check_cells(arch, shapes, memory_only=False, dot_rtol=0.10,
         # Readings on 16x16: gemma2-2b 0.9529, gemma3-4b 1.1168,
         # gemma2-27b 1.0104, whisper-base 1.2666, granite-3-2b 1.2592,
         # qwen2-vl-72b 0.4293, recurrentgemma-9b 1.8778, deepseek-v2-236b
-        # 1.1445, xlstm-125m 1.4197; gemma2-2b on 2x16x16 1.0986
+        # 1.1445, xlstm-125m 1.4197; gemma2-2b on 2x16x16 1.0986,
+        # xlstm-125m there 1.3499
         assert s.split("_")[0] != "train" \
             or temp <= 2.5 * wm["temp_bytes"], (s, temps)
         if memory_only:
@@ -126,7 +127,10 @@ def check_cells(arch, shapes, memory_only=False, dot_rtol=0.10,
         # (g=32) 1.0001-1.0004 and all-to-all(g=32) 0.9981 (XLA hoists
         # the zero row's all-to-all out of the layer loop), prefill_32k
         # every kind 1.0000 but collective-permute(g=512) 0.9998 (the
-        # reference moves each chunk's rows with the bucket's sentinel)
+        # reference moves each chunk's rows with the bucket's sentinel);
+        # xlstm-125m long_500k every kind 1.0000, train_4k every kind
+        # 1.0000 but collective-permute(g=512) 0.9995 and all-reduce(g=4)
+        # 1.0004
         ge, we = g["coll_elements"], w["coll_elements"]
         for k, n in we.items():
             assert abs(ge.get(k, 0) / n - 1) <= 0.01, (s, k, ge, we)

@@ -13,7 +13,7 @@ runs the train step:
   * the embedding lookup takes the table to the tokens, split over
     "pod" x "data": the table's splits swapped (a collective-permute),
     its vocab gathered over "data", its gradient all-reduced over the
-    32 at once (``sharding._table_for_lookup(..., among=True)``), where
+    32 at once (``sharding._table_for_lookup``), where
     DTensor all-to-all'd the tokens and all-reduced the masked lookup;
   * the gold logit's gradient stays split like the logits
     (``sharding.gathered_on_blocks``).

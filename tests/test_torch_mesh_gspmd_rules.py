@@ -40,11 +40,20 @@ one (one rank's share,
     them without reducing them again;
   * on 2x16x16, ``_whole_by_free_dims``: the decode scores' queries
     gathered by way of "pod" x "data" together;
+  * the xLSTM where "pod" x "data" outrank "model", on a small 3-D mesh:
+    an up projection contracted, and an unembedding's input gathered,
+    over both at once (``_input_whole_product``, ``_move_split``),
+    the sLSTM state gathered over both (``_gathered_contraction``), the
+    lookup's table gradient reduced once in the backward
+    (``_table_for_lookup``), an up projection's weight gradient reduced
+    over "data", then "pod" (``_reduced_in_stages``), and the sLSTM
+    gates' gradients gathered where their rows cannot split
+    (``cat_kept``);
   * the MoE with its batch over "pod" x "data", on a small 3-D mesh:
     the chunked MoE's rows taken into chunks as the reference's scan
     reads them (``rows_in_chunks``) and its output laid out as the
     batch (``rows_laid_out_as``), a sort over both axes gathered in
-    one all-gather (``_whole_at_once``), the decode's join of its
+    one all-gather (``_whole_over``), the decode's join of its
     tokens and zero row (``uneven_cat``), its buckets, its combine on
     the blocks of both free axes (``_gather_sum_blocks``) and the cut
     to its tokens (``_recut``).
@@ -148,10 +157,16 @@ with sh.gspmd_partitioning():
     out["halves"] = cost(lambda: res.setdefault("y", torch.chunk(up, 2, -1)))
     out["halves"].update(where(res["y"][1]))
     out["quarters"] = cost(lambda: torch.chunk(up, 4, -1))
-    # ... and the halves' gradients joined again
+    # ... and the halves' gradients joined again; and those of the halves
+    # of a (256, 1, 3072), 16 rows a rank
     g = dt((128, 1, 1536), [S(0), S(2)])
     out["joined"] = cost(lambda: (res["y"][0] * res["y"][1]).backward(g))
     out["joined"].update(where(up.grad))
+    up = dt((256, 1, 3072), [S(0), S(2)], grad=True)
+    g = dt((256, 1, 1536), [S(0), S(2)])
+    halves = torch.chunk(up, 2, -1)
+    out["joined rows"] = cost(lambda: (halves[0] * halves[1]).backward(g))
+    out["joined rows"].update(where(up.grad))
     # a causal conv's pad along the unsplit sequence, and a pad along the
     # split dim
     x = dt((16, 4096, 64), [S(0), S(2)])
@@ -341,6 +356,63 @@ with sh.gspmd_partitioning():
     y = case("pod combine", lambda: sh.gather_sum(
         dt((32, 8), [R, S(0), R]), dt((17, 2), [R, R, R], dtype=torch.long)))
     case("pod cut", lambda: y[:16])
+
+def grad_case(name, fn, t):
+    c = ca.count_step(fn)
+    out[name] = {"elements": c.coll_elements,
+                 "replicated": c.replicated_ops, **where(t.grad)}
+
+
+# the xLSTM's rules where "pod" x "data" (8 ranks) outrank "model" (4):
+# a batch of one leaves both free (the long-context decode); a batch
+# over both (the training step) splits the tokens over them
+one = [R, R, S(2)]
+with sh.gspmd_partitioning():
+    # an up projection (64 -> 128, 32 columns a rank) and an unembedding
+    # (64 -> 256, 64 columns a rank) of a residual split over "model"
+    x = dt((1, 1, 64), one)
+    case("pod up", lambda: torch.matmul(x, dt((64, 128), [R, R, S(1)])))
+    case("pod unembed", lambda: torch.matmul(x, dt((64, 256), [R, R, S(1)])))
+    # the sLSTM's recurrent product, its state's (1, 2, 32) heads over the
+    # first factor of "model" cut 2 x 2, the head dim over the second
+    cut = m.factor_axis(mesh, "model", (2, 2))
+    h = DTensor.from_local(torch.empty((1, 1, 16), device="meta"), cut,
+                           [R, R, S(1), S(2)], run_check=False,
+                           shape=torch.Size((1, 2, 32)),
+                           stride=(64, 32, 1))
+    r = DTensor.from_local(torch.empty((2, 32, 128), device="meta"), cut,
+                           [R] * 4, run_check=False,
+                           shape=torch.Size((2, 32, 128)),
+                           stride=(4096, 128, 1))
+    like = DTensor.from_local(torch.empty((1, 1, 64), device="meta"), cut,
+                              [R, R, S(1), S(2)], run_check=False,
+                              shape=torch.Size((1, 2, 128)),
+                              stride=(256, 128, 1))
+    case("pod state", lambda: sh.product_as(like, torch.einsum,
+                                            "bhd,hde->bhe", h, r))
+    # an xLSTM embedding lookup: 16 x 8 tokens over "pod" x "data", the
+    # (64, 16) table's vocab over "model", its d_model over "data" (the
+    # FSDP split); and its gradient
+    tokens = dt((16, 8), BATCH, dtype=torch.long)
+    table = dt((64, 16), [R, S(1), S(0)]).requires_grad_()
+    table.fsdp_dims = (1,)
+    dy = dt((16, 8, 16), [S(0), S(0), S(2)])
+    with sh.lookup_by_table():
+        grad_case("pod lookup", lambda: torch.nn.functional.embedding(
+            tokens, table).backward(dy), table)
+    # an up projection in the training step: (16, 8, 64) tokens over
+    # "pod" x "data", their d_model over "model", times a (64, 128)
+    # weight stored split over "data" (its FSDP dim) and "model"; and the
+    # sLSTM step's four gates' gradients joined, 2 rows a rank
+    xt = dt((16, 8, 64), [S(0), S(0), S(2)]).requires_grad_()
+    w = dt((64, 128), [R, S(0), S(1)]).requires_grad_()
+    w.fsdp_dims = (0,)
+    dy = dt((16, 8, 128), [S(0), S(0), S(2)])
+    grad_case("pod up grad", lambda: torch.matmul(xt, w).backward(dy), w)
+    pre = dt((16, 256), [S(0), S(0), S(1)]).requires_grad_()
+    dys = [dt((16, 64), [S(0), S(0), S(1)]) for _ in range(4)]
+    grad_case("pod gates", lambda: torch.autograd.backward(
+        torch.chunk(pre, 4, -1), dys), pre)
 print("RESULT " + json.dumps(out))
 """
 
@@ -444,12 +516,20 @@ def test_a_chunk_of_a_split_dim_keeps_each_part_split(cases):
 
 
 def test_the_halves_gradients_are_joined_by_all_to_alls(cases):
-    """Each half's (8, 1, 96) gradient block and the joined (8, 1, 192)
-    go through an all-to-all over "model" (the reference's transposed
-    concatenation), and the gradient keeps the split."""
+    """With 16 rows a rank, each half's (16, 1, 96) gradient block and the
+    joined (16, 1, 192) go through an all-to-all over "model" (the
+    reference's transposed concatenation: XLA moves the split to the
+    rows, which "model"'s 16 ranks divide), and the gradient keeps the
+    split.  With 8 rows a rank, which they do not divide, each half's
+    gradient is gathered whole over "model" (XLA's partition of that
+    concatenation: two f32[8,1,1536] all-gathers) and the joined block
+    sliced to the split."""
+    j = cases["joined rows"]
+    assert j["elements"] == {"all-to-all(g=16)": 16 * (96 + 96 + 192)}
+    assert j["placements"] == ["S(0)", "S(2)"] and j["local"] == [16, 1, 192]
     j = cases["joined"]
-    assert j["elements"] == {"all-to-all(g=16)": 8 * (96 + 96 + 192)}
-    assert j["placements"] == ["S(0)", "S(2)"]
+    assert j["elements"] == {"all-gather(g=16)": 2 * 8 * 1536}
+    assert j["placements"] == ["S(0)", "S(2)"] and j["local"] == [8, 1, 192]
 
 
 def test_a_pad_runs_on_the_blocks_along_unsplit_dims(cases):
@@ -531,6 +611,86 @@ def test_decode_scores_gather_the_queries_by_both_free_axes(cases):
     assert c["dot_flops"] == 2 * 16 * 2 * 128 * 256
     assert c["placements"] == ["R", "R", "S(4)"]
     assert c["local"] == [1, 16, 1, 2, 256]
+
+
+def test_an_up_projection_is_contracted_over_pod_and_data(pod_cases):
+    """With a batch of one, "pod" x "data" (8 ranks) free and outranking
+    "model" (4), a (1, 1, 64) residual split over "model" (16 a rank)
+    into a (64, 128) up projection: each rank's block cut in two, one
+    half moved to the rank of its index over the 8 (a collective-permute
+    of 8), the product run on those 8 rows and its (1, 1, 32) partial
+    sums all-reduced over the 8 at once (the reference's f32[1,1,192] of
+    xlstm-125m long_500k on 2x16x16), not moved to "data" alone and
+    reduced over its 4.  Into the (64, 256) unembedding, wider than the
+    residual, the moved halves are gathered over the 8 instead."""
+    c = pod_cases["pod up"]
+    assert c["elements"] == {"collective-permute(g=32)": 8,
+                             "all-reduce(g=8)": 32}
+    assert c["placements"] == ["R", "R", "S(2)"] and c["local"] == [1, 1, 32]
+    assert c["replicated"] == {}
+    u = pod_cases["pod unembed"]
+    assert u["elements"] == {"collective-permute(g=32)": 8,
+                             "all-gather(g=8)": 64}
+    assert u["local"] == [1, 1, 64]
+
+
+def test_the_slstm_state_is_gathered_over_pod_and_data(pod_cases):
+    """The sLSTM's recurrent product with "model" cut 2 x 2, its (1, 2,
+    32) state's head dim split over the second factor (16 a rank): the
+    state re-cut to the 8 ranks of "pod" x "data" (a collective-permute
+    of 4) and all-gathered over the 8 at once (the reference's
+    f32[1,1,6] and f32[1,1,192] of xlstm-125m long_500k on 2x16x16), the
+    output split as the gates are."""
+    c = pod_cases["pod state"]
+    assert c["elements"] == {"collective-permute(g=32)": 4,
+                             "all-gather(g=8)": 32}
+    assert c["placements"] == ["R", "R", "S(1)", "S(2)"]
+    assert c["replicated"] == {}
+
+
+def test_the_lookups_table_gradient_is_reduced_once(pod_cases):
+    """An xLSTM lookup of 16 x 8 tokens over "pod" x "data" in a (64, 16)
+    table, vocab over "model", d_model over "data": the table's splits
+    swapped (a collective-permute of its (16, 4) block) and its vocab
+    gathered over "data" (256); in the backward, the table's gradient
+    all-reduced over the 8 at once and moved back (the reference's
+    all-reduce(g=32) and permute of xlstm-125m train_4k), left as the
+    table is stored, partial over no axis, so that the optimizer reads
+    it as it is."""
+    c = pod_cases["pod lookup"]
+    assert c["elements"] == {"collective-permute(g=32)": 2 * 16 * 4,
+                             "all-gather(g=4)": 64 * 4,
+                             "all-reduce(g=8)": 64 * 4}
+    assert c["placements"] == ["R", "S(1)", "S(0)"] and c["local"] == [16, 4]
+    assert c["replicated"] == {}
+
+
+def test_an_up_projections_weight_gradient_is_reduced_in_stages(pod_cases):
+    """A training step's up projection, tokens over "pod" x "data", the
+    (64, 128) weight stored over "data" and "model": its gradient's
+    (64, 32) partial sums all-reduced over "data", sliced to the stored
+    (16, 32) block and that over "pod" (the reference's f32[768,192] and
+    f32[48,192] of each xlstm-125m train_4k up projection on 2x16x16),
+    not over the 8 at once; the input's gradient reduced over "model"."""
+    c = pod_cases["pod up grad"]
+    assert c["elements"] == {"all-gather(g=4)": 2 * 2 * 8 * 64 + 64 * 32,
+                             "all-reduce(g=4)": 2 * 8 * 64 + 64 * 32,
+                             "all-reduce(g=2)": 16 * 32}
+    assert c["placements"] == ["R", "S(0)", "S(1)"] and c["local"] == [16, 32]
+
+
+def test_the_slstm_gates_gradients_are_gathered_where_rows_are_few(
+        pod_cases):
+    """The sLSTM step's (16, 256) gate pre-activations over "pod" x "data"
+    (2 rows a rank) and "model" chunked into four gates; their gradients
+    joined: 2 rows cannot split 4 ways, so each gate's gradient is
+    gathered whole over "model" (four all-gathers of 2 x 64) and the
+    joined rows sliced to the split (the reference's four f32[8,768] a
+    step of xlstm-125m train_4k on 2x16x16), not all-to-all'd."""
+    c = pod_cases["pod gates"]
+    assert c["elements"]["all-gather(g=4)"] == 4 * 2 * 64
+    assert not any(k.startswith("all-to-all") for k in c["elements"])
+    assert c["placements"] == ["S(0)", "S(0)", "S(1)"] and c["local"] == [2, 64]
 
 
 def test_the_gold_gathers_gradient_is_a_block_of_the_logits(cases):
