@@ -166,7 +166,11 @@ elastic checkpoint restore.
               "data"; DRYRUN_POD_LONG_REF), and deepseek-v3-671b x
               decode_32k and prefill_32k (the MoE on a batch over "pod" x
               "data"; DRYRUN_POD_MOE_DECODE_REF,
-              DRYRUN_POD_MOE_PREFILL_REF, the prefill's one fallback),
+              DRYRUN_POD_MOE_PREFILL_REF, the prefill's one fallback)
+              and train_4k (the router over "pod" x "model", the MoE
+              input's gradient in the chunk loop's layout, XLA's full
+              rematerialization for its norm's scale gradient;
+              DRYRUN_POD_MOE_TRAIN_REF, the prefill's fallback),
               and xlstm-125m x long_500k and train_4k (the up
               projections and the sLSTM state over "pod" x "data", the
               lookup's gradient reduced once; DRYRUN_POD_XLSTM_LONG_REF,
@@ -3279,6 +3283,29 @@ DRYRUN_POD_MOE_PREFILL_REF = {"argument_bytes": 9_065_668_608,
                                   "all-to-all(g=16)": 544_923_975_680}}
 DRYRUN_POD_MOE_PREFILL_FALLBACKS = (
     "batch=16 !-> ('pod', 'data') (indivisible)",)
+# ... and of its training step there: the router contracted over "pod" x
+# "model", the chunk loop's output gradient taken back whole into the
+# chunks, the MoE input's and the shared expert's input gradients made
+# in the chunk loop's layout, and XLA's involuntary full
+# rematerialization of the MoE norm's input and gradient for its
+# scale's gradient (tests/_dryrun_ref.py --multi-pod on the CPU), held
+# as DRYRUN_MOE_REF is, with the prefill's fallback
+DRYRUN_POD_MOE_TRAIN_REF = {"argument_bytes": 5_967_500_752,
+                            "alias_bytes": 5_967_238_604,
+                            "output_bytes": 5_967_240_184,
+                            "temp_bytes": 212_071_255_608,
+                            "dot_flops": 1_478_137_154_109_440,
+                            "coll_traffic": 19_393_400_675_352,
+                            "coll_elements": {
+                                "all-gather(g=16)": 470_988_324_864,
+                                "collective-permute(g=512)":
+                                163_804_713_984,
+                                "all-reduce(g=32)": 2_338_979_844,
+                                "all-reduce(g=16)": 1_195_751_823_086,
+                                "all-gather(g=2)": 82_715_475_968,
+                                "all-to-all(g=16)": 1_634_771_927_040,
+                                "all-gather(g=32)": 436_045_611_008,
+                                "all-reduce(g=2)": 51_853_312}}
 MESH_ATOL = 1e-5        # ep_sm vs no mesh: forward (abs), grads (rel)
 MESH_TRAIN_ATOL = 1e-5  # launch.train's losses, mesh vs no mesh
 
@@ -4325,6 +4352,12 @@ def main() -> int:
              DRYRUN_POD_MOE_PREFILL_REF,
              "the chunked MoE's rows as the reference's scan reads them",
              True, DRYRUN_POD_MOE_PREFILL_FALLBACKS),
+            ("pod_moe_train", DRYRUN_POD_MOE_ARCH, "train_4k",
+             DRYRUN_POD_MOE_TRAIN_REF,
+             "the router over \"pod\" x \"model\", the MoE input's "
+             "gradient in the chunk loop's layout, XLA's full "
+             "rematerialization for its norm", True,
+             DRYRUN_POD_MOE_PREFILL_FALLBACKS),
             ("pod_xlstm_long", DRYRUN_POD_XLSTM_ARCH, "long_500k",
              DRYRUN_POD_XLSTM_LONG_REF,
              "the up projections and the sLSTM state over \"pod\" x "

@@ -662,6 +662,12 @@ class CostMode(TorchDispatchMode):
     def _dtensor_op_on(self, func, args, kwargs):
         with _reentered(self):
             out = sh.weight_grad_slab(func, args)
+            if out is None:
+                out = sh.product_into_chunks(func, args)
+            if out is None:
+                out = sh.involuntary_full_remat(func, args)
+            if out is None:
+                out = sh.rows_regrouped_pointwise(func, args)
             if out is None and func.__name__ in sh.OWN_RULES:
                 out = sh.gspmd_fallback(func, args, kwargs)
             if out is None:

@@ -49,8 +49,8 @@ from repro_torch.models.layers import ffn, ffn_spec
 from repro_torch.models.params import Spec
 from repro_torch.parallel.sharding import (PartitionSpec, ShardMap,
                                           active_mesh, constrain, gather_sum,
-                                          rows_in_chunks, rows_laid_out_as,
-                                          take_rows)
+                                          grad_in_chunks, rows_in_chunks,
+                                          rows_laid_out_as, take_rows)
 
 ROW_LEN = 4096          # tokens per dispatch row (<= one sequence)
 ROWS_PER_CHUNK = 16     # rows processed per step (1 per data shard)
@@ -212,14 +212,15 @@ def moe_ffn(cfg: ModelConfig, p, x: torch.Tensor,
 
     Returns (y, aux_loss, expert_load)."""
     b, s, d = x.shape
+    x_shared = x
     if b * s <= FLAT_PATH_MAX_TOKENS:
         y, aux, load = _moe_flat(cfg, p, x, compute_dtype)
     elif cfg.expert_sharding == "ep_sm" and active_mesh() is not None:
         y, aux, load = _moe_chunked_shardmap(cfg, p, x, compute_dtype)
     else:
-        y, aux, load = _moe_chunked(cfg, p, x, compute_dtype)
+        y, aux, load, x_shared = _moe_chunked(cfg, p, x, compute_dtype)
     if cfg.n_shared_experts:
-        y = y + ffn(p["shared"], x, compute_dtype)
+        y = y + ffn(p["shared"], x_shared, compute_dtype)
     return constrain(y, "batch", "seq", "d_model"), aux, load
 
 
@@ -417,7 +418,9 @@ def _moe_chunked_shardmap(cfg, p, x, compute_dtype):
 
 def _moe_chunked(cfg, p, x, compute_dtype):
     """Train/prefill path: rows of ROW_LEN tokens, chunks of
-    ROWS_PER_CHUNK rows; chunk i takes one row from each block of rows."""
+    ROWS_PER_CHUNK rows; chunk i takes one row from each block of rows.
+    Returns (y, aux, load, x as the shared expert reads it:
+    ``sharding.grad_in_chunks``, ``x`` itself but in the dry run)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     row_len = min(s, ROW_LEN)
@@ -442,4 +445,5 @@ def _moe_chunked(cfg, p, x, compute_dtype):
         return _combine_row(buf_tok, buf_w, y_e, row_len, k), aux, load
 
     ys, aux, load = _chunk_loop(nc, step, x, [xrc])
-    return rows_laid_out_as(ys.reshape(b, s, d), x), aux / nc, load / nc
+    return (rows_laid_out_as(ys.reshape(b, s, d), x), aux / nc, load / nc,
+            grad_in_chunks(x, xrc))

@@ -551,7 +551,11 @@ class _Gather(torch.autograd.Function):
     blocks, whose heads cannot split over "model") and is gathered
     there, or only moved (``gather=False``: an embedding lookup); that
     axis is then its use axis, over which its gradient is computed in
-    slabs (``weight_grad_slab``).  Backward, as that HLO reduces the
+    slabs (``weight_grad_slab``).  ``use``: the mesh dims to move it to
+    instead, whose ranks are p >= 1 times the stored axis's, in parts
+    (``_move_split``; the router's contraction over "pod" x "model",
+    ``_contract_split``), the gather there one over them at once
+    (``_whole_over``).  Backward, as that HLO reduces the
     gradient: its partial sums all-reduced (XLA's CPU pipeline forms no
     reduce-scatter), moved back to the stored axis or sliced to it.  A
     gradient gathered where it is stored and partial over more axes
@@ -562,13 +566,15 @@ class _Gather(torch.autograd.Function):
     its shard)."""
 
     @staticmethod
-    def forward(ctx, p, dims, gather: bool):
+    def forward(ctx, p, dims, gather: bool, use=None):
         from torch.distributed.tensor import Replicate
         mesh, stored = p.device_mesh, list(p.placements)
         ctx.stored, ctx.shape, ctx.use = stored, tuple(p.shape), None
         ctx.fsdp = [m for m, q in enumerate(stored)
                     if q.is_shard() and q.dim in dims]
         axes = _use_axes(p, dims)
+        if axes is not None and use is not None:
+            axes = (axes[0], tuple(use))
         if axes is not None:
             a, b = axes
             moved = list(stored)
@@ -580,6 +586,8 @@ class _Gather(torch.autograd.Function):
             ctx.use, ctx.axis, ctx.dim, ctx.moved = b, a, dims[0], moved
         if not gather:
             return p
+        if ctx.use is not None and len(ctx.use) > 1:
+            return _whole_over(p, ctx.use)
         return p.redistribute(mesh, [
             Replicate() if q.is_shard() and q.dim in dims else q
             for q in p.placements])
@@ -598,19 +606,19 @@ class _Gather(torch.autograd.Function):
                                   for q in g.placements])
         if ctx.use is not None and list(g.placements) == ctx.moved:
             g = _move_split(g, ctx.use, ctx.axis, ctx.stored)
-        return g.redistribute(mesh, ctx.stored), None, None
+        return g.redistribute(mesh, ctx.stored), None, None, None
 
 
-def at_use(x, gather: bool = True):
+def at_use(x, gather: bool = True, use=None):
     """``x`` as an op uses it: a placed weight (``place_meta``) with its
     FSDP dims gathered (or, ``gather=False``, only moved to its use
-    axis), anything else as it is.  ``gspmd_partitioning`` reads every
-    weight so; a caller that takes a weight's block itself
-    (``DTensor.to_local``) calls it first."""
+    axis, or to the mesh dims ``use``), anything else as it is.
+    ``gspmd_partitioning`` reads every weight so; a caller that takes a
+    weight's block itself (``DTensor.to_local``) calls it first."""
     dims = getattr(x, "fsdp_dims", ())
     if not dims or not (gather or _use_axes(x, dims)):
         return x
-    return _Gather.apply(x, dims, gather)
+    return _Gather.apply(x, dims, gather, use)
 
 
 def _funcol():
@@ -790,9 +798,12 @@ class _RowsInChunks(torch.autograd.Function):
     the major dims, B rows a rank); it sends them to the rank at that
     index over the major dims and k // p over the minor ones (one
     collective-permute), and the p parts are all-gathered over the
-    major dims.  Backward: the parts taken back (a slice, or a
-    reduce-scatter of a gradient partial over the major dims), each
-    sent to the rank it came from."""
+    major dims.  Backward: the gradient left in the chunk loop's layout,
+    the rows split over the minor dims alone (nothing moves), as the
+    reference's partition assembles the MoE input's gradient there
+    (deepseek-v3-671b train_4k's backward); the ops that meet it with
+    a tensor in the rows' own layout move one of the two
+    (``rows_regrouped_pointwise``)."""
 
     @staticmethod
     def forward(ctx, x, r, nc, over, f):
@@ -811,14 +822,18 @@ class _RowsInChunks(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
         placements, shape, parts, over, f = ctx.args
         mesh = g.device_mesh
-        back, to, _, _ = _regrouping(mesh, over, f)
-        block = g.redistribute(mesh, parts)._local_tensor
-        block = _send_block(block.reshape(-1, *block.shape[2:]), mesh, over,
-                            back, to)
-        return (_placed(block, mesh, placements, shape), None, None, None,
-                None)
+        chunks = [Replicate() if m in over[:f] else q
+                  for m, q in enumerate(parts)]
+        if list(g.placements) != chunks:
+            g = g.redistribute(mesh, chunks)
+        block = g._local_tensor
+        return (_placed(block.reshape(-1, *block.shape[2:]), mesh,
+                        [Replicate() if m in over[:f] else q
+                         for m, q in enumerate(placements)], shape),
+                None, None, None, None)
 
 
 def rows_laid_out_as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -856,15 +871,23 @@ class _RowsRegrouped(torch.autograd.Function):
     f32[1,4097,7168] collective-permute a chunk): the rank at index i
     over the major dims and j over the minor ones sends its whole block
     to the rank at index j p + i over ``over`` (p ranks of the major
-    dims), which keeps its part of it.  Backward: each rank's block of
-    the gradient, zero-padded to the whole block it came in, sent back;
-    the gradient partial over the major dims."""
+    dims), which keeps its part of it.  In a rematerialized block's
+    recompute nothing moves: no gradient reads the result, and the
+    reference's recompute leaves the permute out.  Backward
+    (``_into_chunks``): the gradient's blocks all-gathered over runs of
+    p ranks of ``over`` and each run's rows sent back, so that every
+    copy of the chunk loop's rows takes its gradient whole (the
+    reference's f32[16,1,4096,7168] all-gather over pairs of "data"
+    ranks a layer before its chunks' collective-permutes, in
+    deepseek-v3-671b train_4k's backward)."""
 
     @staticmethod
     def forward(ctx, x, placements, over, f):
         mesh = x.device_mesh
         to, frm, part, p = _regrouping(mesh, over, f)
-        block = _send_block(x._local_tensor, mesh, over, to, frm)
+        block = x._local_tensor
+        if torch._C._current_graph_task_id() == -1:
+            block = _send_block(block, mesh, over, to, frm)
         b = block.shape[0] // p
         ctx.args = (list(x.placements), over, f)
         return _placed(block.narrow(0, part * b, b), mesh, placements,
@@ -872,17 +895,24 @@ class _RowsRegrouped(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        from torch.distributed.tensor import Partial
         placements, over, f = ctx.args
         mesh = g.device_mesh
-        to, frm, part, p = _regrouping(mesh, over, f)
-        block = g._local_tensor
-        whole = block.new_zeros((block.shape[0] * p, *block.shape[1:]))
-        whole.narrow(0, part * block.shape[0], block.shape[0]).copy_(block)
-        back = _send_block(whole, mesh, over, frm, to)
-        return (_placed(back, mesh, [Partial() if m in over[:f] else q
-                                     for m, q in enumerate(placements)],
-                        g.shape), None, None, None)
+        p = math.prod(mesh.size(m) for m in over[:f])
+        block = _all_gather(g._local_tensor, 0, _dims_group(mesh, over, p))
+        return (_placed(_into_chunks(block, mesh, over, f), mesh,
+                        placements, g.shape), None, None, None)
+
+
+def _into_chunks(block, mesh, over, f: int):
+    """This rank's ``block`` of the rows of its run of p consecutive
+    ranks of the mesh dims ``over`` (major first; p ranks of the ``f``
+    major ones), gathered over the run, as the chunk loop takes them
+    (``_RowsRegrouped``'s layout: split over the minor dims, replicated
+    over the major ones): sent to the rank at this one's index within
+    its run over the major dims and the run's index over the minor ones
+    (one collective-permute), the inverse of ``_RowsRegrouped``'s."""
+    to, frm, _, _ = _regrouping(mesh, over, f)
+    return _send_block(block, mesh, over, frm, to)
 
 
 def _regrouping(mesh, over, f: int):
@@ -895,6 +925,198 @@ def _regrouping(mesh, over, f: int):
     k = _flat_coordinate(mesh, over)
     to = _flat_coordinate(mesh, minor) * p + _flat_coordinate(mesh, major)
     return to, (k % p) * n + k // p, k % p, p
+
+
+def grad_in_chunks(x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``x``, the chunked MoE's input, for a product beside its chunk
+    loop (the shared expert): under ``gspmd_partitioning``, where
+    ``rows`` (``rows_in_chunks`` of ``x``'s rows) took the chunk loop's
+    layout (``_RowsInChunks``), ``x`` marked (``_GradInChunks``) so that
+    the products of it make their input gradient in that layout too
+    (``product_into_chunks``), where the loop leaves its own; ``x`` as
+    it is elsewhere."""
+    node = getattr(rows, "grad_fn", None)
+    if not _GSPMD.active or type(node).__name__ != "_RowsInChunksBackward":
+        return x
+    *_, over, f = node.args
+    return _GradInChunks.apply(x, over, f)
+
+
+class _GradInChunks(torch.autograd.Function):
+    """``x`` as it is, its node naming the mesh dims ``over`` that split
+    its rows and the ``f`` major ones of them that the chunk loop's
+    layout leaves replicated (``grad_in_chunks``); its gradient, the
+    sum of its uses' in that layout, passed on."""
+
+    @staticmethod
+    def forward(ctx, x, over, f):
+        ctx.over, ctx.f, ctx.shape = over, f, tuple(x.shape)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def product_into_chunks(func, args):
+    """The input gradient of a product of a marked input
+    (``grad_in_chunks``: the shared expert's up and gate projections of
+    the chunked MoE's input), as the reference's partition makes it:
+    the output's gradient all-gathered over runs of p ranks of the
+    rows' mesh dims (16 rows a rank of the 8), its product with the
+    weight on those rows, the partial sums all-reduced over the mesh
+    dims that split the contraction, and the rows sent into the chunk
+    loop's layout (``_into_chunks``), where the rest of the input's
+    gradient is (deepseek-v3-671b train_4k on the 2x16x16 mesh, a layer:
+    two f32[16,4096,128] all-gathers over pairs of "data" ranks, an
+    all-reduce of two f32[16,4096,7168] over "model", two
+    collective-permutes of them).  The product of ``mm`` under
+    autograd's ``MmBackward0`` whose first operand came from a marked
+    input, the output's gradient by the weight; None for any other
+    op."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not _GSPMD.active or func is not torch.ops.aten.mm.default:
+        return None
+    node = torch._C._current_autograd_node()
+    if type(node).__name__ != "MmBackward0":
+        return None
+    src = node.next_functions[0][0]
+    while src is not None and type(src).__name__ in _VIEW_NODES:
+        src = src.next_functions[0][0]
+    g, wt = args
+    if type(src).__name__ != "_GradInChunksBackward" \
+            or not (isinstance(g, DTensor) and isinstance(wt, DTensor)) \
+            or g.shape[0] != math.prod(src.shape[:-1]) \
+            or wt.shape[1] != src.shape[-1]:
+        return None
+    mesh, over, f = g.device_mesh, src.over, src.f
+    k = tuple(m for m, q in enumerate(g.placements) if q.is_shard(1))
+    if any(not g.placements[m].is_shard(0) for m in over) \
+            or any(not wt.placements[m].is_shard(0) for m in k) \
+            or any(not (m in over or m in k) and not q.is_replicate()
+                   for m, q in enumerate(g.placements)) \
+            or any(m not in k and not q.is_replicate()
+                   for m, q in enumerate(wt.placements)):
+        return None
+    p = math.prod(mesh.size(m) for m in over[:f])
+    rows = _all_gather(g._local_tensor, 0, _dims_group(mesh, over, p))
+    dx = torch.mm(rows, wt._local_tensor)
+    if k:
+        dx = _funcol().wait_tensor(_funcol().all_reduce(
+            dx, "sum", _dims_group(mesh, k)))
+    dx = _into_chunks(dx, mesh, over, f)
+    return _placed(dx, mesh, [Shard(0) if m in over[f:] else Replicate()
+                              for m in range(mesh.ndim)],
+                   (g.shape[0], wt.shape[1]))
+
+
+def _regrouped_pair(args):
+    """For two DTensors of one rank whose dim 0 (and no other dim) one
+    splits over the mesh dims ``over`` (major first) and the other over
+    its minor ones alone, replicated over the ``f`` major ones — the
+    chunk loop's layout of the rows beside their own
+    (``rows_in_chunks``) —: (the index of the latter, ``over``, ``f``);
+    else None."""
+    from torch.distributed.tensor import DTensor
+    if len(args) < 2 or not all(isinstance(a, DTensor) for a in args[:2]):
+        return None
+    a, b = args[:2]
+    if a.ndim != b.ndim or not a.ndim or a.shape[0] != b.shape[0]:
+        return None
+    sa, sb = _row_split(a), _row_split(b)
+    for i, (mine, over) in enumerate(((sa, sb), (sb, sa))):
+        if mine and over and len(over) > len(mine) \
+                and over[len(over) - len(mine):] == mine:
+            return i, over, len(over) - len(mine)
+    return None
+
+
+def involuntary_full_remat(func, args):
+    """XLA's involuntary full rematerialization, reproduced because the
+    dry run is held to the reference's compiled step: the product of a
+    norm's output gradient and its normalized input, which the norm's
+    scale gradient sums over the rows, where the gradient arrives in
+    the chunk loop's layout (``rows_in_chunks``: the rows over "data",
+    replicated over "pod") and the input in the rows' own (over "pod" x
+    "data"), the MoE's norm of deepseek-v2-236b and v3-671b train_4k on
+    the 2x16x16 mesh.  XLA's partitioner finds no partition of the
+    product the two agree on, logs an "involuntary full
+    rematerialization", and gathers both whole on every device (an
+    f32[256,4096,7168] all-gather over "pod" x "data" and one over
+    "data", a layer); the product and its sum run whole.  Here: a
+    ``mul`` of two DTensors of one shape in those two layouts
+    (``_regrouped_pair``), in autograd's ``MulBackward0`` of a product
+    with a vector (the norm's scale), both gathered whole
+    (``_whole_over``).  None for any other op: the gradient of a norm
+    whose output's gradient comes back in its input's layout (every
+    other cell) takes DTensor's and ``reduced_product``'s partition."""
+    if not _GSPMD.active or func is not torch.ops.aten.mul.Tensor:
+        return None
+    node = torch._C._current_autograd_node()
+    pair = _regrouped_pair(args)
+    if type(node).__name__ != "MulBackward0" or pair is None \
+            or args[0].shape != args[1].shape:
+        return None
+    # the factors' shapes, from the nodes that take their gradients (a
+    # rematerialized block's saved tensors unpack once)
+    if not any(len(getattr(fn, "_input_metadata", ())) > k
+               and len(fn._input_metadata[k].shape) == 1
+               for fn, k in node.next_functions):
+        return None
+    i, over, f = pair
+    ops = list(args[:2])
+    ops[i] = _whole_over(ops[i], over[f:])
+    ops[1 - i] = _whole_over(ops[1 - i], over)
+    return func(*ops)
+
+
+def rows_regrouped_pointwise(func, args):
+    """An elementwise ``mul`` or ``add`` in the backward whose two
+    operands split their rows in the chunk loop's layout and in the
+    rows' own (``_regrouped_pair``; the MoE input's gradient meeting the
+    norm's input and statistics), as the reference's partition runs it:
+    the operand whose move costs less goes to the other's layout — the
+    chunk loop's (half of its rows a rank) by a slice and one
+    collective-permute (``_out_of_chunks``), the rows' own by a
+    collective-permute and an all-gather over the major dims
+    (``_RowsInChunks``'s) — and the op runs on the blocks (in
+    deepseek-v3-671b train_4k's backward a layer: the norm's f32[8,4096,1]
+    statistic permuted and all-gathered over "pod" into the chunk
+    loop's layout, two f32[8,4096,7168] gradients sliced and permuted
+    out of it).  None for any other op."""
+    if not _GSPMD.active or func not in (torch.ops.aten.mul.Tensor,
+                                         torch.ops.aten.add.Tensor) \
+            or torch._C._current_autograd_node() is None:
+        return None
+    pair = _regrouped_pair(args)
+    if pair is None:
+        return None
+    i, over, f = pair
+    ops = list(args[:2])
+    c, b = ops[i], ops[1 - i]
+    mesh = c.device_mesh
+    p = math.prod(mesh.size(m) for m in over[:f])
+    if c._local_tensor.numel() // p <= b._local_tensor.numel() * (1 + p):
+        ops[i] = _placed(_out_of_chunks(c._local_tensor, mesh, over, f),
+                         mesh, b.placements, c.shape)
+    else:
+        to, frm, _, _ = _regrouping(mesh, over, f)
+        block = _send_block(b._local_tensor, mesh, over, frm, to)
+        block = _all_gather(block, 0, _dims_group(mesh, over[:f]))
+        ops[1 - i] = _placed(block, mesh, c.placements, b.shape)
+    return func(*ops, *args[2:])
+
+
+def _out_of_chunks(block, mesh, over, f: int):
+    """This rank's ``block`` of rows in the chunk loop's layout
+    (``_RowsRegrouped``'s) as the rows' own split over ``over`` takes
+    them: the part of it at this rank's index over the major dims
+    sliced off and sent where ``_RowsRegrouped`` sends the whole (one
+    collective-permute of half the rows, where p = 2)."""
+    to, frm, _, p = _regrouping(mesh, over, f)
+    b = block.shape[0] // p
+    part = _flat_coordinate(mesh, over[:f])
+    return _send_block(block.narrow(0, part * b, b), mesh, over, to, frm)
 
 
 def reduced_product(func, out):
@@ -1452,25 +1674,30 @@ def _rank_along(mesh, over, i: int) -> int:
     return _flat_coordinate(mesh, range(mesh.ndim), coord)
 
 
-def _dims_group(mesh, dims):
+def _dims_group(mesh, dims, run: Optional[int] = None):
     """The process group of the ranks that differ from this one in the
     mesh dims ``dims`` alone, ranked major first: one collective over
     several mesh dims at once, as XLA issues it over "pod" x "data"
-    (DTensor issues one over each mesh dim in turn).  A single mesh
-    dim's own group; the subgroups made once a mesh and ``dims``, every
-    one on every rank, in one order."""
+    (DTensor issues one over each mesh dim in turn).  ``run``: only
+    those of them in this one's run of ``run`` consecutive indices over
+    ``dims`` (a pair of "data" ranks, XLA's [256,2] groups over
+    "pod" x "data").  A single mesh dim's own group; the subgroups made
+    once a mesh, ``dims`` and ``run``, every one on every rank, in one
+    order."""
     dims = tuple(dims)
-    if len(dims) == 1:
+    size = math.prod(mesh.size(m) for m in dims)
+    run = size if run is None else run
+    if len(dims) == 1 and run == size:
         return mesh.get_group(dims[0])
     groups = mesh.__dict__.setdefault("_dims_groups", {})
-    if dims not in groups:
+    if (dims, run) not in groups:
         import torch.distributed as dist
         grid = mesh.mesh.permute(
             [m for m in range(mesh.ndim) if m not in dims] + list(dims))
         mine, _ = dist.new_subgroups_by_enumeration(
-            grid.reshape(-1, math.prod(mesh.size(m) for m in dims)).tolist())
-        groups[dims] = mine
-    return groups[dims]
+            grid.reshape(-1, run).tolist())
+        groups[dims, run] = mine
+    return groups[dims, run]
 
 
 def _permuted_part(block, mesh, over, dim, b, o, b2, me):
@@ -3116,8 +3343,15 @@ def _contract_split(func, args):
     collective-permute, ``_use_axes``) but not gathered, the product
     contracted over the split and its partial sums all-reduced
     (``_ContractSplit``; the reference's router logits, all-reduced
-    over "model" each chunk).  Only in a scan step whose weight reads
-    are loop-invariant (the MoE's chunks); None elsewhere."""
+    over "model" each chunk).  Where the mesh dims free of both
+    outrank the use axis (``_free_for``: "pod" x "model", 32 ranks,
+    where a chunk's rows leave "pod" free on the 2x16x16 mesh), the
+    split goes to all of them in parts and the product contracts there
+    (the reference's f32[224,256] collective-permute of the router a
+    layer and its f32[1,4096,256] logits all-reduced over the 32, each
+    chunk, of deepseek-v3-671b train_4k).  Only in a scan step whose
+    weight reads are loop-invariant (the MoE's chunks); None
+    elsewhere."""
     from torch.distributed.tensor import DTensor
     if func not in _PRODUCTS or len(args) != 2:
         return None
@@ -3138,10 +3372,11 @@ def _contract_split(func, args):
         if q.is_shard(1))
     if block >= gathered:
         return None
+    use = _free_for(x.device_mesh, axes[0], (x, p)) or axes[1]
     with _hoisted():
-        moved = pending[1](at_use(p, gather=False), *pending[2],
+        moved = pending[1](at_use(p, gather=False, use=use), *pending[2],
                            **pending[3])
-    return _ContractSplit.apply(x, moved, axes[1], pending)
+    return _ContractSplit.apply(x, moved, use, pending, axes)
 
 
 class _ContractSplit(torch.autograd.Function):
@@ -3151,10 +3386,17 @@ class _ContractSplit(torch.autograd.Function):
     all-reduced.  The backward: ``x``'s gradient by the weight gathered
     (``pending``: the weight and its cast; a loop-invariant read), and
     ``w``'s from the blocks, partial over the mesh dims that split the
-    rows."""
+    rows.  Where ``use`` is a group of mesh dims beyond the weight's use
+    axis (``axes``: the stored dims and the use axis, ``_use_axes``),
+    the weight is gathered over the group at once, and its gradient
+    comes from the blocks over the use axis alone, reduced over the
+    rows' dims and moved back to the stored dims there (the reference's
+    f32[7168,256] all-gather over "pod" x "model" a layer, and each
+    chunk's f32[256,448] all-reduce over "data" and collective-permute,
+    of deepseek-v3-671b train_4k on the 2x16x16 mesh)."""
 
     @staticmethod
-    def forward(ctx, x, w, use, pending):
+    def forward(ctx, x, w, use, pending, axes):
         from torch.distributed.tensor import Partial, Replicate, Shard
         mesh = x.device_mesh
         cut = [Shard(x.ndim - 1) if m in use else q
@@ -3164,21 +3406,28 @@ class _ContractSplit(torch.autograd.Function):
         y = _placed(y, mesh, [Partial() if m in use else q
                               for m, q in enumerate(x.placements)],
                     tuple(x.shape[:-1]) + (w.shape[-1],))
-        ctx.save_for_backward(xs, w)
-        ctx.pending, ctx.use = pending, use
+        ctx.group = tuple(use) != tuple(axes[1])
+        ctx.save_for_backward(x if ctx.group else xs, w)
+        ctx.pending, ctx.use, ctx.axes = pending, use, axes
         return y.redistribute(mesh, [Replicate() if m in use else q
                                      for m, q in enumerate(x.placements)])
 
     @staticmethod
     def backward(ctx, g):
-        from torch.distributed.tensor import Partial, Replicate
+        from torch.distributed.tensor import Partial, Replicate, Shard
         xs, w = ctx.saved_tensors
         p, func, args, kwargs = ctx.pending
         mesh = xs.device_mesh
         from repro_torch.launch import cost_analysis
         with torch.no_grad(), cost_analysis.loop_invariant():
-            whole = func(at_use(p), *args, **kwargs)
+            whole = func(at_use(p, use=ctx.use if ctx.group else None),
+                         *args, **kwargs)
         dx = torch.matmul(g, whole.t())
+        stored, model = ctx.axes
+        if ctx.group:
+            xs = xs.redistribute(mesh, [Shard(xs.ndim - 1) if m in model
+                                        else q for m, q in
+                                        enumerate(xs.placements)])
         rows = g.redistribute(mesh, [Replicate() if m in ctx.use else q
                                      for m, q in enumerate(xs.placements)])
         a = xs._local_tensor.reshape(-1, xs._local_tensor.shape[-1])
@@ -3186,10 +3435,18 @@ class _ContractSplit(torch.autograd.Function):
         dw = torch.matmul(a.t(), b)
         split = {m for m, q in enumerate(xs.placements)
                  if q.is_shard() and q.dim != xs.ndim - 1}
-        dw = _placed(dw, mesh, [Partial() if m in split else q
-                                for m, q in enumerate(w.placements)],
-                     tuple(w.shape))
-        return dx, dw, None, None
+        if not ctx.group:
+            dw = _placed(dw, mesh, [Partial() if m in split else q
+                                    for m, q in enumerate(w.placements)],
+                         tuple(w.shape))
+            return dx, dw, None, None, None
+        dw = _placed(dw, mesh, [Partial() if m in split else
+                                Shard(0) if m in model else Replicate()
+                                for m in range(mesh.ndim)], tuple(w.shape))
+        dw = dw.redistribute(mesh, [Replicate() if q.is_partial() else q
+                                    for q in dw.placements])
+        return dx, _move_split(dw, model, stored, list(p.placements)), \
+            None, None, None
 
 
 def _einsum_placements(subs, out, ops, mesh):

@@ -161,6 +161,21 @@ def check_cells(arch, shapes, memory_only=False, dot_rtol=0.10,
     return got
 
 
+def check_kinds_held(arch, shape, kinds, rtol=1e-3, multi_pod=True):
+    """``arch`` x ``shape`` through ``check_cells`` (dot FLOPs within
+    1 %), no op run replicated, and each of ``kinds``'s elements within
+    ``rtol`` of the reference's: the kinds the rules that repaired the
+    cell moved.  Returns the cell."""
+    cell = check_cells(arch, (shape,), dot_rtol=0.01,
+                       multi_pod=multi_pod)[shape]
+    assert cell["replicated_ops"] == {}, cell["replicated_ops"]
+    dot = cell["dot_flops_per_device"] / cell["reference_dot_flops"]
+    assert abs(dot - 1) <= 0.01, dot
+    ref = cell["reference_coll_elements"]
+    for kind in kinds:
+        got = cell["coll_elements"].get(kind, 0)
+        assert abs(got / ref[kind] - 1) <= rtol, (kind, got, ref[kind])
+    return cell
 
 
 def check_gqa_cells(arch, shapes):

@@ -56,7 +56,19 @@ one (one rank's share,
     one all-gather (``_whole_over``), the decode's join of its
     tokens and zero row (``uneven_cat``), its buckets, its combine on
     the blocks of both free axes (``_gather_sum_blocks``) and the cut
-    to its tokens (``_recut``).
+    to its tokens (``_recut``);
+  * the chunked MoE's training step there, a chunk's rows over "data"
+    alone: the router contracted over "pod" x "model"
+    (``_contract_split`` with ``_free_for``'s group), the loop's output
+    gradient taken back whole into the chunks and nothing moved in a
+    recompute (``_RowsRegrouped``), the shared expert's input gradient
+    made in the chunk loop's layout beside the chunks' own
+    (``grad_in_chunks``, ``product_into_chunks``), and a norm whose
+    output's gradient comes back in that layout: XLA's involuntary full
+    rematerialization for its scale's gradient
+    (``involuntary_full_remat``) and its statistic and gradients moved
+    between the layouts (``rows_regrouped_pointwise``); a dense layer's
+    norm takes neither.
 
 The production mesh lives on a dry-run world (the ``fake`` backend), so
 every case runs in one subprocess (its results checked here); the gloo
@@ -359,7 +371,7 @@ with sh.gspmd_partitioning():
 
 def grad_case(name, fn, t):
     c = ca.count_step(fn)
-    out[name] = {"elements": c.coll_elements,
+    out[name] = {"elements": c.coll_elements, "peak": c.blocks.peak(),
                  "replicated": c.replicated_ops, **where(t.grad)}
 
 
@@ -413,6 +425,58 @@ with sh.gspmd_partitioning():
     dys = [dt((16, 64), [S(0), S(0), S(1)]) for _ in range(4)]
     grad_case("pod gates", lambda: torch.autograd.backward(
         torch.chunk(pre, 4, -1), dys), pre)
+
+# the chunked MoE's training step, its batch over "pod" x "data" (8
+# ranks) and a chunk's rows over "data" alone (4), "pod" free
+from torch.utils.checkpoint import checkpoint
+from repro_torch.models import layers
+CHUNKS = [R, S(0), R]
+with sh.gspmd_partitioning():
+    # the router in a chunk step: a chunk's (4, 16, 64) rows times the
+    # (64, 32) router stored split over "data" (its FSDP dim), cast
+    xc = dt((4, 16, 64), CHUNKS).requires_grad_()
+    router = dt((64, 32), [R, S(0), R]).requires_grad_()
+    router.fsdp_dims = (0,)
+    dlogits = dt((4, 16, 32), CHUNKS)
+    grad_case("pod router", lambda: ca.count_as(
+        1, lambda: torch.matmul(xc, router.float()), [xc],
+        hoist=True).backward(dlogits), router)
+    # the chunk loop's (8, 16, 32) output laid out as the batch, and its
+    # gradient; then the same in a rematerialized block, whose recompute
+    # reads no gradient of it
+    rows = dt((8, 16, 32), CHUNKS).requires_grad_()
+    like = dt((8, 16, 32), BATCH)
+    dy = dt((8, 16, 32), BATCH)
+    grad_case("pod rows grad", lambda: moe.rows_laid_out_as(
+        rows, like).backward(dy), rows)
+    s = dt((8, 16, 32), BATCH).requires_grad_()
+    grad_case("pod rows remat", lambda: checkpoint(
+        lambda r, t: moe.rows_laid_out_as(r, like) + t.sin(), rows, s,
+        use_reentrant=False).backward(dy), rows)
+    # the MoE's input, (8, 16, 32) rows over "pod" x "data", into 4
+    # chunk rows x 2 chunks, and the shared expert's up projection of it
+    # (32 -> 16, its columns over "model"): the input's gradient
+    xm = dt((8, 16, 32), BATCH).requires_grad_()
+    dup = dt((8, 16, 16), [S(0), S(0), S(2)])
+    drows = dt((4, 2, 16, 32), CHUNKS)
+    w_up = dt((32, 16), [R, R, S(1)])
+
+    def shared():
+        rows = sh.rows_in_chunks(xm, 4, 2)
+        up = torch.matmul(sh.grad_in_chunks(xm, rows), w_up)
+        torch.autograd.backward([up, rows], [dup, drows])
+    grad_case("pod shared grad", shared, xm)
+    # an RMS norm of (8, 16, 32) rows over "pod" x "data", its output's
+    # gradient in the chunk loop's layout (the MoE's norm) or in the
+    # rows' own (a dense layer's)
+    xn = dt((8, 16, 32), BATCH).requires_grad_()
+    scale = dt((32,), [R, R, R]).requires_grad_()
+    for name, dh in (("pod norm grad", dt((8, 16, 32), CHUNKS)),
+                     ("pod norm grad dense", dt((8, 16, 32), BATCH))):
+        grad_case(name, lambda: layers.rms_norm(
+            {"scale": scale}, xn, 1e-6).backward(dh), xn)
+        out[name]["scale"] = where(scale.grad)
+        scale.grad = None
 print("RESULT " + json.dumps(out))
 """
 
@@ -782,6 +846,92 @@ def test_the_decode_join_and_buckets_go_over_both_axes(pod_cases):
     assert b["elements"] == {"collective-permute(g=32)": 3 * 8,
                              "all-reduce(g=8)": 2 * 4 * 8}
     assert b["placements"] == ["R", "S(0)", "R"]
+
+
+def test_the_router_contracts_over_pod_and_model(pod_cases):
+    """A chunk's (4, 16, 64) rows over "data" alone, "pod" free, times
+    the (64, 32) router stored split over "data": the router's split
+    moved to "pod" x "model" (8 ranks, twice "data"'s 4) in halves (8
+    rows a rank, a collective-permute), the product contracted there
+    and its logits all-reduced over the 8 at once; backward, the router
+    moved again and gathered whole over the 8 for the rows' gradient,
+    its own gradient made over "model" (16 rows a rank), all-reduced
+    over "data" and moved back there (the reference's router of
+    deepseek-v3-671b train_4k on the 2x16x16 mesh; over "model" alone,
+    the logits were all-reduced over "model" on both pods)."""
+    c = pod_cases["pod router"]
+    assert c["elements"] == {"collective-permute(g=32)": 8 * 32 * 2
+                             + 16 * 32,
+                             "all-reduce(g=8)": 16 * 32,
+                             "all-gather(g=8)": 64 * 32,
+                             "all-reduce(g=4)": 16 * 32}
+    assert c["placements"] == ["R", "S(0)", "R"] and c["local"] == [16, 32]
+    assert c["replicated"] == {}
+
+
+def test_the_rows_gradient_goes_back_into_chunks_whole(pod_cases):
+    """The chunk loop's output laid out as the batch (one permute of
+    each rank's (2, 16, 32) block); its gradient, (1, 16, 32) a rank,
+    all-gathered over pairs of "data" ranks and sent back whole, so
+    that both pods' copies of the rows take the whole gradient (the
+    reference's all-gather and permutes of deepseek-v3-671b train_4k's
+    backward; a zero-padded block sent back left it partial over
+    "pod").  In a rematerialized block the recompute moves nothing: no
+    gradient reads the regrouped rows."""
+    c = pod_cases["pod rows grad"]
+    assert c["elements"] == {"collective-permute(g=32)": 2 * 2 * 16 * 32,
+                             "all-gather(g=2)": 2 * 16 * 32}
+    assert c["placements"] == ["R", "S(0)", "R"] and c["local"] == [2, 16, 32]
+    assert c["replicated"] == {}
+    assert pod_cases["pod rows remat"]["elements"] == c["elements"]
+
+
+def test_the_shared_experts_input_gradient_is_made_in_chunks(pod_cases):
+    """The MoE's input into chunks (a permute of each rank's row, the
+    chunks all-gathered over "pod") and the shared expert's up
+    projection of it: the projection's input gradient made on 2 rows a
+    rank — its output's gradient all-gathered over pairs of "data"
+    ranks —, all-reduced over "model" and permuted into the chunk
+    loop's layout, where the chunks' gradient stays (nothing moves),
+    the input's gradient summed there: 2 rows a rank over "data",
+    replicated over "pod" (``grad_in_chunks``, ``product_into_chunks``;
+    the reference's shared expert of deepseek-v3-671b train_4k)."""
+    c = pod_cases["pod shared grad"]
+    assert c["elements"] == {"collective-permute(g=32)": 16 * 32
+                             + 2 * 16 * 32,
+                             "all-gather(g=2)": 2 * 16 * 32 + 2 * 16 * 4,
+                             "all-reduce(g=4)": 2 * 16 * 32}
+    assert c["placements"] == ["R", "S(0)", "R"] and c["local"] == [2, 16, 32]
+    assert c["replicated"] == {}
+
+
+def test_a_norms_gradient_from_chunks_rematerializes_whole(pod_cases):
+    """An RMS norm of rows over "pod" x "data" whose output's gradient
+    comes back in the chunk loop's layout (over "data", 2 rows a rank):
+    XLA's involuntary full rematerialization for the scale's gradient —
+    the normalized input gathered whole over the 8 and the gradient
+    over "data", their product summed on every rank, no all-reduce
+    (``involuntary_full_remat``) — and, for the input's gradient, the
+    statistic permuted and all-gathered over "pod" into the chunks'
+    layout, two gradients sliced and permuted out of it
+    (``rows_regrouped_pointwise``).  A dense layer's norm, its output's
+    gradient in the rows' own layout: no fallback, the scale's gradient
+    all-reduced over "pod" x "data" once.  The step's working memory
+    holds the two wholes (16 KiB each) beyond the dense layer's."""
+    whole = 8 * 16 * 32 * 4
+    c = pod_cases["pod norm grad"]
+    assert c["elements"] == {"all-gather(g=8)": 8 * 16 * 32,
+                             "all-gather(g=4)": 8 * 16 * 32,
+                             "all-gather(g=2)": 2 * 16,
+                             "collective-permute(g=32)": 16 + 2 * 16 * 32}
+    assert c["placements"] == ["S(0)", "S(0)", "R"] and c["local"] == [1, 16, 32]
+    assert c["scale"]["placements"] == ["R", "R", "R"]
+    assert c["replicated"] == {}
+    dense = pod_cases["pod norm grad dense"]
+    assert dense["elements"] == {"all-reduce(g=8)": 32}
+    assert c["peak"] - dense["peak"] >= 2 * whole
+    assert dense["placements"] == c["placements"]
+    assert dense["scale"]["placements"] == ["R", "R", "R"]
 
 
 def test_the_decode_combine_reduces_on_blocks_over_both_free_axes(pod_cases):
