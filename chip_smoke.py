@@ -174,8 +174,11 @@ elastic checkpoint restore.
               and xlstm-125m x long_500k and train_4k (the up
               projections and the sLSTM state over "pod" x "data", the
               lookup's gradient reduced once; DRYRUN_POD_XLSTM_LONG_REF,
-              DRYRUN_POD_XLSTM_TRAIN_REF);
-              every train cell's temp bytes within
+              DRYRUN_POD_XLSTM_TRAIN_REF), and recurrentgemma-9b x
+              prefill_32k (the attention mask and rotary angles on the
+              rank's own rows; DRYRUN_POD_RG_PREFILL_REF, its temp
+              within 1.5x);
+              every train and prefill cell's temp bytes within
               DRYRUN_TEMP_FACTOR of the reference's; (b) a one-rank
               NCCL world (``make_host_mesh()``): the shard_map MoE
               (``expert_sharding="ep_sm"``, deepseek-v3 smoke, float32,
@@ -3072,9 +3075,9 @@ DRYRUN_DOT_RTOL = 0.10
 DRYRUN_COLL_FACTOR = 2.0
 DRYRUN_ELEMENTS_RTOL = 0.01
 DRYRUN_EXTRA_SHARE = 1e-3
-# a train cell's temp bytes (its working memory beyond arguments and
-# outputs: eager's buffers against XLA's) at most this factor of the
-# reference's, where the reference's is committed
+# a train or prefill cell's temp bytes (its working memory beyond
+# arguments and outputs: eager's buffers against XLA's) at most this
+# factor of the reference's, where the reference's is committed
 DRYRUN_TEMP_FACTOR = 2.5
 # ... and of granite-3-2b x train_4k, whose 32 query heads over 8 KV
 # heads GSPMD splits over "model" cut into 8 x 2 (tests/_dryrun_ref.py
@@ -3163,6 +3166,7 @@ DRYRUN_MLA_ARCH, DRYRUN_MLA_SHAPE = "deepseek-v3-671b", "prefill_32k"
 DRYRUN_MLA_REF = {"argument_bytes": 9_065_799_680,
                   "alias_bytes": 0,
                   "output_bytes": 4_605_378_184,
+                  "temp_bytes": 161_954_726_840,
                   "dot_flops": 1_131_543_725_539_328,
                   "coll_traffic": 4_578_670_018_560,
                   "coll_elements": {"all-reduce(g=16)": 330_242_719_744,
@@ -3272,6 +3276,7 @@ DRYRUN_POD_MOE_DECODE_REF = {"argument_bytes": 18_276_229_140,
 DRYRUN_POD_MOE_PREFILL_REF = {"argument_bytes": 9_065_668_608,
                               "alias_bytes": 0,
                               "output_bytes": 2_302_689_128,
+                              "temp_bytes": 89_972_606_024,
                               "dot_flops": 677_372_292_988_928,
                               "coll_traffic": 4_579_988_471_808,
                               "coll_elements": {
@@ -3283,6 +3288,22 @@ DRYRUN_POD_MOE_PREFILL_REF = {"argument_bytes": 9_065_668_608,
                                   "all-to-all(g=16)": 544_923_975_680}}
 DRYRUN_POD_MOE_PREFILL_FALLBACKS = (
     "batch=16 !-> ('pod', 'data') (indivisible)",)
+# ... and of recurrentgemma-9b's prefill there: its attention mask and
+# rotary angles built from positions split like the rows they meet, the
+# rank's one row of 32 (tests/_dryrun_ref.py --multi-pod on the CPU),
+# held as DRYRUN_MOE_REF is, its temp within ``temp_factor`` of the
+# reference's (9.7444 x while the mask carried the global batch)
+DRYRUN_POD_RG_PREFILL_REF = {"argument_bytes": 2_446_052_352,
+                             "alias_bytes": 66_560,
+                             "output_bytes": 28_410_208,
+                             "temp_bytes": 10_693_705_720,
+                             "temp_factor": 1.5,
+                             "dot_flops": 48_928_398_508_032,
+                             "coll_traffic": 129_855_651_840,
+                             "coll_elements": {
+                                 "all-reduce(g=16)": 17_314_086_912}}
+DRYRUN_POD_RG_PREFILL_FALLBACKS = (
+    "kv_heads=1 !-> ('model',) (indivisible)",)
 # ... and of its training step there: the router contracted over "pod" x
 # "model", the chunk loop's output gradient taken back whole into the
 # chunks, the MoE input's and the shared expert's input gradients made
@@ -3448,11 +3469,14 @@ def _check_against(cell: dict, ref: dict, dot_rtol: float) -> tuple:
 
 
 def _check_temp(cell: dict, ref: dict) -> None:
-    """A train cell's temp bytes within DRYRUN_TEMP_FACTOR of the
-    reference's, where ``ref`` has them."""
-    if "temp_bytes" in ref and cell["shape"].startswith("train"):
+    """A train or prefill cell's temp bytes within DRYRUN_TEMP_FACTOR of
+    the reference's, where ``ref`` has them, or within ``ref``'s own,
+    tighter, ``temp_factor``."""
+    if "temp_bytes" in ref and cell["shape"].startswith(("train",
+                                                         "prefill")):
         temp = cell["memory"]["temp_bytes"]
-        assert temp <= DRYRUN_TEMP_FACTOR * ref["temp_bytes"], (temp, ref)
+        factor = ref.get("temp_factor", DRYRUN_TEMP_FACTOR)
+        assert temp <= factor * ref["temp_bytes"], (temp, ref)
 
 
 def _print_against(label: str, cell: dict, ref: dict, checked: tuple):
@@ -3470,7 +3494,8 @@ def _print_against(label: str, cell: dict, ref: dict, checked: tuple):
           + (f"; temp bytes {mem['temp_bytes']:,} (reference "
              f"{ref['temp_bytes']:,}: "
              f"{mem['temp_bytes'] / ref['temp_bytes']:.4f} x, bound "
-             f"{DRYRUN_TEMP_FACTOR} x)" if "temp_bytes" in ref else ""))
+             f"{ref.get('temp_factor', DRYRUN_TEMP_FACTOR)} x)"
+             if "temp_bytes" in ref else ""))
 
 
 def check_dryrun_gqa(proc: subprocess.Popen, path: Path) -> dict:
@@ -4352,6 +4377,10 @@ def main() -> int:
              DRYRUN_POD_MOE_PREFILL_REF,
              "the chunked MoE's rows as the reference's scan reads them",
              True, DRYRUN_POD_MOE_PREFILL_FALLBACKS),
+            ("pod_rg_prefill", "recurrentgemma-9b", "prefill_32k",
+             DRYRUN_POD_RG_PREFILL_REF,
+             "the attention mask on the rank's own rows", True,
+             DRYRUN_POD_RG_PREFILL_FALLBACKS),
             ("pod_moe_train", DRYRUN_POD_MOE_ARCH, "train_4k",
              DRYRUN_POD_MOE_TRAIN_REF,
              "the router over \"pod\" x \"model\", the MoE input's "

@@ -121,6 +121,10 @@ DOT_OPS = {"mm", "bmm", "addmm", "baddbmm", "convolution",
            "convolution_backward"}
 
 
+# a block live at a peak: (bytes, the op that made it, its shape, dtype)
+BlockAtPeak = Tuple[int, str, Tuple[int, ...], str]
+
+
 @dataclasses.dataclass
 class Cost:
     flops: float = 0.0
@@ -148,6 +152,8 @@ class Cost:
     blocks: Optional["Blocks"] = None
     peak_bytes: int = 0
     temp_bytes: int = 0
+    # the arguments' and outputs' blocks (``held``)
+    kept: set = dataclasses.field(default_factory=set)
 
     def read_of(self, t: torch.Tensor) -> bool:
         """Whether the walk read the watched ``t``'s data (a DTensor's
@@ -159,8 +165,15 @@ class Cost:
         outputs ``outputs`` (DTensors or their blocks) as the walk left
         them."""
         out = self.blocks.at_end(_block(t) for t in outputs)
+        self.kept = self.blocks.arguments | out
         self.peak_bytes = self.blocks.peak()
-        self.temp_bytes = self.blocks.peak(self.blocks.arguments | out)
+        self.temp_bytes = self.blocks.peak(self.kept)
+
+    def temp_blocks(self) -> List[BlockAtPeak]:
+        """The blocks that make up ``temp_bytes`` (after ``held``),
+        largest first: ``Blocks.at_peak`` of the blocks that are neither
+        arguments nor outputs."""
+        return self.blocks.at_peak(self.kept)
 
     def add(self, other: "Cost", mult: float = 1.0):
         self.flops += other.flops * mult
@@ -231,6 +244,8 @@ class Blocks:
         self._gone: set = set()     # blocks whose free is logged already
         self._sums: list = []       # gradients to sum before the next op
         self._probes: set = set()   # blocks no op has moved data in yet
+        # block -> (the op that made it, its shape, its dtype)
+        self.what: Dict[int, Tuple[str, Tuple[int, ...], str]] = {}
 
     def argument(self, t: torch.Tensor) -> None:
         if self.device is None:
@@ -254,7 +269,8 @@ class Blocks:
         probe = name in _ALLOCATIONS
         if name in _ALIASES and ins:
             self._alias(_unwrap(ins[0]), outs)
-        for t in (*ins, *outs):
+        for t, by in (*((t, "input") for t in ins),
+                      *((t, name) for t in outs)):
             t = _unwrap(t)
             if self.device is None:
                 self.device = t.device
@@ -262,7 +278,7 @@ class Blocks:
                 continue
             entry = self.live.get(storage_key(t))
             if entry is None:
-                self._new(t, probe)
+                self._new(t, probe, by)
             elif entry[0] in self._probes and name not in NO_TRAFFIC:
                 self._probes.discard(entry[0])
                 self.log.append((entry[0], entry[1]))
@@ -284,9 +300,11 @@ class Blocks:
         storage keys)."""
         return list({id(e): e for e in self.live.values()}.values())
 
-    def _new(self, t: torch.Tensor, probe: bool = False) -> int:
+    def _new(self, t: torch.Tensor, probe: bool = False,
+             name: str = "argument") -> int:
         st, b = t.untyped_storage(), self.made_so_far
         self.made_so_far += 1
+        self.what[b] = (name, tuple(t.shape), str(t.dtype))
         self.live[st._cdata] = [b, st.nbytes(), 0, None, 1]
         if probe:
             self._probes.add(b)
@@ -448,6 +466,21 @@ class Blocks:
                 live += n
                 peak = max(peak, live)
         return peak
+
+    def at_peak(self, leave_out=frozenset()) -> List[BlockAtPeak]:
+        """The blocks live at ``peak(leave_out)``'s first reading, largest
+        first: a cell's working memory split by block."""
+        log = [(b, n) for b, n in self.log if b not in leave_out]
+        live = peak = end = 0
+        for i, (b, n) in enumerate(log):
+            live += n
+            if live > peak:
+                peak, end = live, i + 1
+        held: Dict[int, int] = {}
+        for b, n in log[:end]:
+            held[b] = held.get(b, 0) + n
+        return sorted(((n, *self.what.get(b, ("?", (), "?")))
+                       for b, n in held.items() if n > 0), reverse=True)
 
 
 class _Scan:

@@ -388,7 +388,12 @@ def step_memory(arguments: Dict[str, List[torch.Tensor]],
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              opt_override: Optional[Dict[str, Any]] = None,
-             verbose: bool = True, smoke: bool = False) -> Dict[str, Any]:
+             verbose: bool = True, smoke: bool = False,
+             peak_blocks: int = 0) -> Dict[str, Any]:
+    """One cell's walk and its readings (module docstring);
+    ``peak_blocks``: also the largest blocks live at the temp peak, that
+    many, as ``memory.temp_peak_blocks`` ([bytes, op, local shape,
+    dtype] each)."""
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     shape = SHAPES_BY_NAME[shape_name]
     result: Dict[str, Any] = {
@@ -437,6 +442,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                    "argument_bytes_by_tree": by_tree, **memory},
         "sharding_fallbacks": sh.fallback_summary(),
     })
+    if peak_blocks:
+        result["memory"]["temp_peak_blocks"] = [
+            [n, op, list(shape), dtype]
+            for n, op, shape, dtype in cost.temp_blocks()[:peak_blocks]]
     # roofline terms (seconds) per device, the reference's one-bandwidth
     # model with the H100's data-sheet constants
     result["terms"] = {
@@ -463,6 +472,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
               f"temp={memory['temp_bytes'] / 2**30:.2f}GiB "
               f"out={memory['output_bytes'] / 2**30:.2f}GiB (per device)",
               flush=True)
+        for n, op, shape, dtype in result["memory"].get(
+                "temp_peak_blocks", ()):
+            print(f"  at the temp peak: {n:,} B {op} {tuple(shape)} "
+                  f"{dtype}", flush=True)
         if cost.replicated_ops:
             print(f"  ops with no DTensor strategy, run replicated: "
                   f"{result['replicated_ops']}", flush=True)
@@ -481,6 +494,8 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced configs, at the same shapes")
     ap.add_argument("--json", default=None, help="write results to file")
+    ap.add_argument("--peak-blocks", type=int, default=0, metavar="N",
+                    help="list the N largest blocks at each temp peak")
     args = ap.parse_args(argv)
 
     if args.all:
@@ -492,7 +507,8 @@ def main(argv=None):
         meshes = (False, True) if args.both_meshes else (args.multi_pod,)
         cells = [(args.arch, args.shape, mp) for mp in meshes]
     with sh.gspmd_partitioning():      # the cells share DTensor's decisions
-        results = [run_cell(arch, shape, mp, smoke=args.smoke)
+        results = [run_cell(arch, shape, mp, smoke=args.smoke,
+                            peak_blocks=args.peak_blocks)
                    for arch, shape, mp in cells]
 
     n_fail = sum(1 for r in results if r.get("status") == "FAIL")

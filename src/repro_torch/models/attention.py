@@ -27,7 +27,8 @@ import torch.nn.functional as F
 from repro_torch.common.config import ModelConfig
 from repro_torch.models.layers import apply_mrope, apply_rope, rms_norm, softcap
 from repro_torch.models.params import Spec
-from repro_torch.parallel.sharding import constrain, product_as, set_slot
+from repro_torch.parallel.sharding import (constrain, product_as,
+                                           rows_split_as, set_slot)
 
 NEG_INF = -2.3819763e38  # large negative for bf16-safe masking
 
@@ -298,6 +299,10 @@ def self_attention(
     hd = cfg.resolved_head_dim
     scale = 1.0 / math.sqrt(hd)
 
+    # the cache takes the positions as given; the rotations and the mask
+    # take them split like the rows they meet
+    whole = positions if positions.dim() == 2 else positions[0]
+    positions = rows_split_as(positions, x, positions.dim() - 2)
     q, k, v = _project_qkv(cfg, p, x, positions, theta, compute_dtype)
     s = x.shape[1]
     pos2d = positions if positions.dim() == 2 else positions[0]
@@ -313,7 +318,7 @@ def self_attention(
         # ``window`` positions, phase-aligned with decode's slots.
         length = cache["k"].shape[1]
         k_w, v_w = _ring_window(k, length), _ring_window(v, length)
-        p_w = _ring_window(pos2d, length, fill=-1).to(torch.int32)
+        p_w = _ring_window(whole, length, fill=-1).to(torch.int32)
         if cfg.kv_cache_quant:
             kq, ks = _quant_kv(k_w)
             vq, vs = _quant_kv(v_w)
@@ -341,7 +346,7 @@ def self_attention(
                 constrain(cache[name], "batch", "cache_seq", "kv_heads",
                           "head_dim")
             k_att, v_att = cache["k"], cache["v"]
-        set_slot(cache["pos"], 1, slot, pos2d.to(torch.int32))
+        set_slot(cache["pos"], 1, slot, whole.to(torch.int32))
         new_cache = cache
         mask = _build_mask(pos2d, cache["pos"], causal, window)
 
@@ -410,7 +415,8 @@ def mla_attention(
     kvr, h = cfg.kv_lora_rank, cfg.n_heads
     scale = 1.0 / math.sqrt(dn + dr)
     b, s, _ = x.shape
-    pos2d = positions if positions.dim() == 2 else positions[0]
+    pos2d = rows_split_as(positions if positions.dim() == 2
+                          else positions[0], x)
 
     q_nope, q_pe = _mla_queries(cfg, p, x, pos2d, compute_dtype)
     ckv_full = torch.matmul(x, p["wkv_a"].to(compute_dtype))

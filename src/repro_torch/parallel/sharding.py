@@ -836,6 +836,28 @@ class _RowsInChunks(torch.autograd.Function):
                 None, None, None, None)
 
 
+def rows_split_as(x: torch.Tensor, like: torch.Tensor,
+                  dim: int = 0) -> torch.Tensor:
+    """``x``, whole on every rank (positions made from an iota), its dim
+    ``dim`` split as the ``DTensor`` ``like`` splits its rows (dim 0),
+    every other mesh dim replicating it: GSPMD gives an iota the split
+    of the ops it meets, so the reference's attention mask and rotary
+    angles hold the rank's own rows, where a plain tensor joins a
+    ``DTensor`` whole (``implicit_replication``) and the mask built from
+    it carries the global batch ((32, 32768, 32768) bool blocks on every
+    rank of recurrentgemma-9b x prefill_32k).  Nothing moves: each rank
+    keeps its part.  ``x`` as it is where it is a ``DTensor`` already or
+    ``like`` is a plain tensor."""
+    if is_distributed(x) or not is_distributed(like):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = like.device_mesh
+    want = [Shard(dim) if q.is_shard(0) else Replicate()
+            for q in like.placements]
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False).redistribute(mesh, want)
+
+
 def rows_laid_out_as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """``x`` (a DTensor of ``like``'s shape) placed as ``like`` is: the
     chunked MoE's rows, split over "data" alone where the batch is split

@@ -1,6 +1,6 @@
 """The port's dry run held to the reference's partition on the 2x16x16
-mesh ("pod", "data", "model"; 512 devices) on the dense cells the two
-rules below repaired (a file of its own so that ``--dist loadfile``
+mesh ("pod", "data", "model"; 512 devices) on the dense cells the
+three rules below repaired (a file of its own so that ``--dist loadfile``
 gives its walks a worker):
 
   * a norm's parameter gradient (``rms_norm``'s (1 + scale),
@@ -17,7 +17,12 @@ gives its walks a worker):
     (``sharding._whole_by_free_dims``), where it moved them to "data"
     and all-gathered them there: all-reduce(g=32) read 0 of the
     reference's, all-gather(g=16) 2 (gemma2-27b) and 1,537
-    (recurrentgemma-9b), collective-permutes 0.50 and 0.76.
+    (recurrentgemma-9b), collective-permutes 0.50 and 0.76;
+  * the prefill's attention mask and rotary angles are built from
+    positions split like the rows they meet
+    (``sharding.rows_split_as``), where whole positions made the mask
+    at the global batch on every rank: recurrentgemma-9b x prefill_32k's
+    temp read 9.7444x the reference's, held here within 1.5x.
 
 ``_dryrun_check.check_cells(multi_pod=True)``: memory exact (output
 within 1 KiB), the fallback text equal, dot FLOPs within 1 %, each
@@ -54,7 +59,13 @@ def test_pod_gemma2_27b_train_and_long_context_decode():
 
 
 def test_pod_recurrentgemma_long_context_decode():
-    got = check_cells("recurrentgemma-9b", ("long_500k",), dot_rtol=0.01,
-                      multi_pod=True)
+    got = check_cells("recurrentgemma-9b", ("long_500k", "prefill_32k"),
+                      dot_rtol=0.01, multi_pod=True)
     _close(got["long_500k"], "all-reduce(g=32)", "all-gather(g=16)",
            "collective-permute(g=512)")
+    # the prefill's attention mask on the rank's own row (one of the 32
+    # rows of "pod" x "data"), not on all 32: 9.7444x the reference's
+    # temp before, three (32, 32768, 32768) bool blocks at its peak
+    prefill = got["prefill_32k"]
+    temp = prefill["memory"]["temp_bytes"]
+    assert temp <= 1.5 * prefill["reference_memory"]["temp_bytes"], temp

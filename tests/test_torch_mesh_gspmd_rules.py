@@ -68,7 +68,10 @@ one (one rank's share,
     rematerialization for its scale's gradient
     (``involuntary_full_remat``) and its statistic and gradients moved
     between the layouts (``rows_regrouped_pointwise``); a dense layer's
-    norm takes neither.
+    norm takes neither;
+  * an attention step there, its positions whole: the mask built on
+    the rank's own rows (``rows_split_as``), a prefill's cache keeping
+    its positions whole.
 
 The production mesh lives on a dry-run world (the ``fake`` backend), so
 every case runs in one subprocess (its results checked here); the gloo
@@ -477,6 +480,41 @@ with sh.gspmd_partitioning():
             {"scale": scale}, xn, 1e-6).backward(dh), xn)
         out[name]["scale"] = where(scale.grad)
         scale.grad = None
+
+# an attention step on 16 x 32 tokens over "pod" x "data" (2 rows a
+# rank), its positions made whole as the model makes them (an iota
+# broadcast over the batch), without a cache (training) and filling one
+# (a prefill)
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.configs import get_smoke_config
+from repro_torch.models.attention import self_attention
+acfg = get_smoke_config("gemma2-2b")
+with sh.gspmd_partitioning(), implicit_replication():
+    xa = dt((16, 32, 64), BATCH)
+    pa = {"wq": dt((64, 4, 16), [R, R, R]), "wk": dt((64, 2, 16), [R, R, R]),
+          "wv": dt((64, 2, 16), [R, R, R]), "wo": dt((4, 16, 64), [R, R, R])}
+    pos = torch.arange(32, dtype=torch.int32, device="meta")[None].expand(
+        16, 32)
+    for name, cache in (("pod mask", None), ("pod mask prefill", {
+            "k": dt((16, 32, 2, 16), BATCH), "v": dt((16, 32, 2, 16), BATCH),
+            "pos": dt((16, 32), BATCH, dtype=torch.int32)})):
+        res = {}
+        c = ca.count_step(lambda: res.setdefault("y", self_attention(
+            acfg, pa, xa, kind="global", positions=pos, cache=cache,
+            compute_dtype=torch.float32)))
+        y, new = res["y"]
+        at = c.blocks.at_peak()
+        out[name] = {"elements": c.coll_elements,
+                     "replicated": c.replicated_ops, **where(y),
+                     "masks": sorted({w[1] for w in c.blocks.what.values()
+                                      if w[2] == "torch.bool"}),
+                     "peak": c.blocks.peak(),
+                     "at peak": [sum(b[0] for b in at), at[0]]}
+        if new is not None:
+            p_w = new["pos"]
+            out[name]["cache pos"] = list(p_w.to_local().shape
+                                          if sh.is_distributed(p_w)
+                                          else p_w.shape)
 print("RESULT " + json.dumps(out))
 """
 
@@ -755,6 +793,28 @@ def test_the_slstm_gates_gradients_are_gathered_where_rows_are_few(
     assert c["elements"]["all-gather(g=4)"] == 4 * 2 * 64
     assert not any(k.startswith("all-to-all") for k in c["elements"])
     assert c["placements"] == ["S(0)", "S(0)", "S(1)"] and c["local"] == [2, 64]
+
+
+@pytest.mark.parametrize("name", ["pod mask", "pod mask prefill"])
+def test_the_attention_mask_holds_the_ranks_own_rows(pod_cases, name):
+    """An attention step on (16, 32, 64) tokens over "pod" x "data" (2
+    rows a rank), its positions an iota broadcast over the batch, whole
+    on every rank: the mask's every block holds the rank's 2 rows, not
+    the 16 of the whole batch (``sharding.rows_split_as``), with no
+    collective and no op run replicated; a prefill's new cache keeps its
+    positions whole, as the reference's output does.  The blocks live at
+    the walk's peak (``Blocks.at_peak``) add up to it."""
+    c = pod_cases[name]
+    assert c["masks"] == [[2, 1, 32], [2, 32, 32]]
+    assert c["elements"] == {} and c["replicated"] == {}
+    assert c["placements"] == ["S(0)", "S(0)", "R"]
+    assert c["local"] == [2, 32, 64]
+    # the largest, the scores' (2, 2, 32, 2, 32) f32 block
+    assert c["at peak"][0] == c["peak"]
+    assert c["at peak"][1][0] == 2 * 2 * 32 * 2 * 32 * 4
+    assert c["at peak"][1][2] == [2, 2, 32, 2, 32]
+    if name.endswith("prefill"):
+        assert c["cache pos"] == [16, 32]
 
 
 def test_the_gold_gathers_gradient_is_a_block_of_the_logits(cases):
